@@ -1,0 +1,109 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+``nvcc`` compiles every source into one shared library with a plain C
+interface, at the first CUDA call, into ``build/prrn_aln_tpu_torch/``
+under the repository root (git-ignored).  The library's name carries a
+hash of the sources and flags, so an edited source is rebuilt and a
+stale library is never loaded.  Importing this module runs nothing:
+the CPU tests import every module and have no ``nvcc``.
+
+``-fmad=false`` keeps each kernel's float arithmetic operation for
+operation equal to its plain PyTorch version (no fused multiply-add),
+so the kernels are compared bit for bit.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_BUILD = (Path(__file__).resolve().parent.parent.parent / "build"
+          / "prrn_aln_tpu_torch")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+
+_vp, _int = ctypes.c_void_p, ctypes.c_int
+# C signatures of the kernels' launchers; each returns cudaGetLastError()
+_SIGNATURES = {
+    "pairwise_scores_launch": [_vp] * 12 + [_int] * 6 + [_vp],
+    "group_wavefront_launch": [_vp] * 22 + [_int] * 9 + [_vp],
+    "traceback_launch": [_vp] * 7 + [_int] * 4 + [_vp],
+}
+
+_lib = None
+# launches of each kernel, counted by its wrapper where it launches
+LAUNCHES: collections.Counter = collections.Counter()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be "
+                           "built (set CUDA_HOME or put nvcc on PATH)")
+    return str(path)
+
+
+def _sources() -> list[Path]:
+    return sorted(_CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return _BUILD / f"libprrn_kernels_{h.hexdigest()[:16]}.so"
+
+
+def load() -> ctypes.CDLL:
+    """Build the kernels if their library is missing, then load it.
+    Raises on any build failure: there is no fallback."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    out = library_path()
+    if not out.exists():
+        _BUILD.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *(str(s) for s in _sources())]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n"
+                               + res.stdout + res.stderr)
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    _lib = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def require(t, name: str, dtype, shape, device) -> None:
+    """Raise unless the tensor is what a kernel takes."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")

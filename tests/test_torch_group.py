@@ -1,0 +1,192 @@
+"""Port group DP (plain versions of kernels K2 and K3) vs the JAX package.
+
+The same packed inputs go to the JAX scan engine ``_wavefront_core``
+(through ``_wavefront_from_profiles``) and to the port's
+``group_wavefront`` on CPU tensors: dirs and opens planes must be
+identical, scores within rel 1e-5 / abs 1e-3 (test_pallas_group.py's
+tolerance), and the traceback must give the same moves as
+``_traceback_device``.
+"""
+
+import json
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from prrn_aln_tpu import alphabet as jab, scoring as jscoring
+from prrn_aln_tpu.config import AlnParams as JParams
+from prrn_aln_tpu.msa import distance as jdistance, tree as jtree
+from prrn_aln_tpu.msa.msa import Msa as JMsa, msa_from_strings
+from prrn_aln_tpu.ops import group as jg
+from prrn_aln_tpu_torch import convert
+from prrn_aln_tpu_torch.ops import group as tg
+from prrn_aln_tpu_torch.ops.window import Window, stripe
+
+# one intra-op thread: the suite runs several worker processes at once
+torch.set_num_threads(1)
+
+FIX = Path(__file__).parent / "fixtures"
+GFIX = json.loads((FIX / "galign_fixtures.json").read_text())
+LS3 = json.loads((FIX / "galign_ls3.json").read_text())
+MTX, _ = jscoring.protein_matrix(JParams(pam=150))
+
+
+def _build(fname, weighted):
+    info = GFIX["files"][fname]
+    m = msa_from_strings(info["rows"], jab.PROTEIN, info["names"])
+    if weighted:
+        if m.many == 1:
+            m.weight = np.array([1.0])
+        elif m.many == 2:
+            m.weight = np.array([0.5, 0.5])
+        else:
+            d = jdistance.msa_distance_matrix(m.codes)
+            m.weight = jtree.calc_seq_weights(jtree.upgma(d, m.many))
+    m.prepare(MTX.shape[0])
+    return m
+
+
+def _case_pair(case):
+    A, B = _build(case["a"], "wa" in case), _build(case["b"], "wa" in case)
+    return (B, A) if case["swp"] else (A, B)
+
+
+def _rand_msa(rng, many, L, gap=0.08, weighted=False):
+    codes = (rng.integers(0, 20, size=(many, L)) + jab.ALA).astype(np.int8)
+    codes[rng.random((many, L)) < gap] = jab.GAP
+    codes[:, 0] = jab.ALA + rng.integers(0, 20)
+    m = JMsa(codes=codes, molc=jab.PROTEIN,
+             names=[f"s{i}" for i in range(many)])
+    if weighted:
+        m.weight = rng.random(many).astype(np.float64) + 0.5
+    m.prepare(MTX.shape[0])
+    return m
+
+
+def _port(m):
+    p = convert.msa_from_numpy(m.codes, m.weight, m.names, m.molc, m.eij)
+    p.prepare(MTX.shape[0])
+    return p
+
+
+def _compare_planes(pairs, ls3=False, sh=-60, spb=20.0, scale=1.0):
+    """Pack with the port, run both engines on the same arrays, compare
+    planes, scores and traceback moves."""
+    an_pad = max(max(A.many, B.many) for A, B in pairs)
+    la_max = lb_max = tg._bucket(max(max(A.length, B.length)
+                                     for A, B in pairs))
+    for A, B in pairs:
+        PA, PB = _port(A), _port(B)
+        w = stripe(A.length, B.length, sh)
+        nslot = tg._bucket(w.up - w.lw + 3, 128)
+        nsteps = tg._bucket(A.length + B.length + 1, 256)
+        item = tg._pack_inputs(PA, PB, MTX, 2.0, 9.0, w, an_pad, an_pad,
+                               la_max, lb_max, spb=spb, scale=scale,
+                               ls=3 if ls3 else 1)
+        js, jd, jo = jg._wavefront_from_profiles(
+            *(item[k] for k in tg._FIELDS),
+            *(np.int32(item[k]) for k in ("la", "lb", "lw", "up")),
+            *(np.float32(item[k]) for k in tg._FFIELDS),
+            np.int32(item["k1"]), nslot=nslot, nsteps=nsteps, an=an_pad,
+            bn=an_pad, la_max=la_max, lb_max=lb_max, ls3=ls3)
+        ins = tg.stack_inputs([item], "cpu")
+        ts, td, to = tg.group_wavefront(ins, nslot=nslot, nsteps=nsteps,
+                                        ls3=ls3)
+        np.testing.assert_array_equal(td[0].numpy(), np.asarray(jd))
+        np.testing.assert_array_equal(to[0].numpy(), np.asarray(jo))
+        assert float(ts[0]) == pytest.approx(float(js), rel=1e-5, abs=1e-3)
+        mi = 2 * (la_max + lb_max) + 4
+        jm, jc = jg._traceback_device(jd, jo, np.int32(A.length),
+                                      np.int32(B.length), np.int32(w.lw),
+                                      max_iters=mi)
+        tm, tc = tg.traceback(td, to, ins["la"], ins["lb"], ins["lw"],
+                              max_iters=mi)
+        assert int(tc[0]) == int(jc)
+        np.testing.assert_array_equal(tm[0].numpy(), np.asarray(jm))
+
+
+@pytest.mark.parametrize("k", range(0, 11, 2))
+def test_galign_fixture_planes_match_jax(k):
+    _compare_planes([_case_pair(c) for c in GFIX["cases"][k:k + 2]])
+
+
+@pytest.mark.parametrize("k", [0, 2, 4])
+def test_ls3_fixture_planes_match_jax(k):
+    _compare_planes([_case_pair(c) for c in LS3["cases"][k:k + 2]],
+                    ls3=True)
+
+
+@pytest.mark.parametrize("seed,weighted,sh,scale,ls3", [
+    (11, False, -60, 1.0, False), (5, True, -30, 2.5, False),
+    (17, True, -60, 1.0, False), (19, True, -60, 1.0, True),
+    (29, True, -40, 1.5, True)])
+def test_random_gapped_batch_matches_jax(seed, weighted, sh, scale, ls3):
+    rng = np.random.default_rng(seed)
+    pairs = [(_rand_msa(rng, int(rng.integers(1, 5)),
+                        int(rng.integers(40, 80)), weighted=weighted),
+              _rand_msa(rng, int(rng.integers(1, 5)),
+                        int(rng.integers(40, 80)), weighted=weighted))
+             for _ in range(2)]
+    _compare_planes(pairs, ls3=ls3, sh=sh, scale=scale)
+
+
+@pytest.mark.parametrize("many", [4, 8])
+def test_uniform_collapse_matches_jax(many):
+    """Gap-free weighted groups collapse to one effective member
+    (test_uniform_tier.py)."""
+    rng = np.random.default_rng(11)
+
+    def gapfree(L):
+        m = JMsa(codes=rng.integers(3, 23, (many, L)).astype(np.int8),
+                 molc=jab.PROTEIN, names=[f"s{i}" for i in range(many)],
+                 weight=rng.uniform(0.5, 1.5, many))
+        m.prepare(MTX.shape[0])
+        return m
+
+    A, B = gapfree(90), gapfree(100)
+    assert tg.uniform_side(_port(A)) and jg.uniform_side(A)
+    want = jg.group_align(A, B, MTX, u=2.0, v=9.0)
+    got = tg.group_align(_port(A), _port(B), MTX, u=2.0, v=9.0,
+                         device="cpu")
+    assert got[1] == want[1]
+    assert got[0] == pytest.approx(want[0], rel=1e-5, abs=1e-3)
+
+
+def test_corner_miss_retry_matches_jax():
+    """A band that misses the end corner leaves the score at the sentinel;
+    the alignment is redone at sh=-100, as in the JAX package."""
+    rng = np.random.default_rng(2)
+    a = _rand_msa(rng, 2, 60)
+    b = _rand_msa(rng, 3, 60)
+    off = Window(lw=5, up=12, width=10)       # lb - la = 0 lies outside
+    raw = tg.group_align(_port(a), _port(b), MTX, u=2.0, v=9.0, wdw=off,
+                         pads=(3, 64), device="cpu", _retried=True)
+    assert raw[0] <= tg.NEVSEL / 2
+    want = jg.group_align(a, b, MTX, u=2.0, v=9.0, wdw=off, pads=(3, 64))
+    got = tg.group_align(_port(a), _port(b), MTX, u=2.0, v=9.0, wdw=off,
+                         pads=(3, 64), device="cpu")
+    assert got[1] == want[1]
+    assert got[0] == pytest.approx(want[0], rel=1e-5, abs=1e-3)
+    assert got[0] > tg.NEVSEL / 2
+
+
+def test_batch_matches_pallas_interpret():
+    """group_align_batch on CPU tensors against the JAX batch on the
+    Pallas group kernel in interpret mode, on 2 small pairs."""
+    rng = np.random.default_rng(23)
+    pairs = [(_rand_msa(rng, 3, 40, weighted=True),
+              _rand_msa(rng, 2, 48, weighted=True)) for _ in range(2)]
+    jg.USE_PALLAS_GROUP = True
+    try:
+        want = jg.group_align_batch(pairs, MTX, u=2.0, v=9.0, sh=-60,
+                                    pads=(3, 64))
+    finally:
+        jg.USE_PALLAS_GROUP = None
+    got = tg.group_align_batch([(_port(A), _port(B)) for A, B in pairs],
+                               MTX, u=2.0, v=9.0, sh=-60, pads=(3, 64),
+                               device="cpu")
+    for (sw, kw), (sg, kg) in zip(want, got):
+        assert kg == kw
+        assert sg == pytest.approx(sw, rel=1e-5, abs=1e-3)
