@@ -8,7 +8,8 @@ Run from the repository root with no arguments:
 Phases (each raises on failure, so the script exits non-zero):
 
 0. device: CUDA must be available; prints the card and its power limit;
-1. build: compiles the three CUDA kernels from ``prrn_aln_tpu_torch/csrc``;
+1. build: compiles the five CUDA kernels from ``prrn_aln_tpu_torch/csrc``
+   (one ``nvcc`` per source, all at once);
 2. K1 (pairwise DP) against its plain PyTorch version on the card, on the
    pairwise fixtures and on 512 random pairs of 512 x 512 at sh=-60,
    with kernel and plain times and GCUPS;
@@ -20,10 +21,21 @@ Phases (each raises on failure, so the script exits non-zero):
    every golden row exact, and every kernel launched;
 5. every kernel call of a third ``prrn -R 0`` run, recorded with its
    inputs, against the plain version on the card, and each kernel's time
-   at the main path's shapes.
+   at the main path's shapes;
+6. K4 (spliced sweep) and K4w (its walk) against their plain versions on
+   the card, on the inputs ``aln -yl2`` gives them for (a) mini_gen x
+   mini_pro, (b) the 2.3 kb CET10B9 window x ce13a1 and (c) the window x
+   the ce13a.msa profile: planes, final band and knots equal; times;
+7. the gene-prediction path: ``aln -yl2`` on (a), (b) and (c) through
+   the kernels, cold and warm, byte-identical to the JAX package's
+   output fixtures (and mini's ``-O 5``/``-O 1`` to the reference's),
+   both kernels launched;
+8. the flagship's shape, timing only: a 34.9 kb genome (the window at
+   31,400 in seeded random flanks) x ce13a.msa.
 
 Prints one JSON line per phase, then the card line, the kernels line
-(launches from the cold run of phase 4, times from phase 5) and, last,
+(launches from the cold runs of phases 4 and 7, times at the main
+paths' shapes, bounds from the same inputs) and, last,
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -41,16 +53,25 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from prrn_aln_tpu_torch import alphabet as ab, scoring
-from prrn_aln_tpu_torch.cli import prrn_main
+from prrn_aln_tpu_torch import alphabet as ab, io as pio, scoring
+from prrn_aln_tpu_torch.cli import aln_main, prrn_main
 from prrn_aln_tpu_torch.config import AlnParams
 from prrn_aln_tpu_torch.msa import distance, tree
 from prrn_aln_tpu_torch.msa.msa import Msa, msa_from_strings
 from prrn_aln_tpu_torch.ops import _build, group as G, pairwise
+from prrn_aln_tpu_torch.ops import spliced_h as SH
 from prrn_aln_tpu_torch.ops.window import stripe
 
 ROOT = Path(__file__).resolve().parent
 FIX = ROOT / "tests" / "fixtures"
+# NVIDIA's data sheet (H100 SXM, at 700 W): device memory rate and the
+# float32 rate outside the tensor cores
+MEM_BPS = 3.35e12
+F32_OPS = 67e12
+# gene-prediction inputs: genome, query
+ALN_CASES = {"mini": ("mini_gen.fa", "mini_pro.fa"),
+             "win_single": ("cet10b9_win31401.fa", "ce13a1_unaligned.fa"),
+             "win_msa": ("cet10b9_win31401.fa", "ce13a.msa")}
 
 
 def emit(obj) -> None:
@@ -78,6 +99,22 @@ def time_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound(nbytes: float, nops: float) -> dict:
+    """The least time the card could take for a kernel's work: the
+    larger of its bytes (each input read once, each output written once)
+    over the memory rate and its float operations over the f32 rate.  No
+    PyTorch call computes a banded DP, so there is no library time."""
+    tb = nbytes / MEM_BPS * 1e3
+    to = nops / F32_OPS * 1e3
+    return {"bound_ms": max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations",
+            "library_ms": None}
+
+
+def tensor_bytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
 
 
 def golden_rows(text: str) -> dict:
@@ -380,9 +417,16 @@ def phase_main_shapes() -> tuple[dict, dict, dict]:
         k3_err = max(k3_err, float((moves.int() - mr.int()).abs().max()))
 
     k1_args = calls["pairwise"][0][0]
+    a_batch, _, la, lb, lw, up = k1_args[:6]
+    k1_cells = pairwise.band_cells(*(x.cpu().numpy() for x in (la, lb, lw,
+                                                               up)))
+    # a band cell: 3 adds or subtractions and 6 maxima over H, F and G
     k1 = {"max_abs_err": k1_err,
           "ms": time_ms(lambda: pairwise._launch_pairwise(*k1_args), 7),
-          "plain_ms": time_ms(lambda: pairwise._plain_pairwise(*k1_args), 5)}
+          "plain_ms": time_ms(lambda: pairwise._plain_pairwise(*k1_args), 5),
+          **bound(tensor_bytes(*(x for x in k1_args
+                                 if isinstance(x, torch.Tensor)))
+                  + 4 * a_batch.shape[0], 9 * k1_cells)}
 
     def width(call):
         ins = call[0][0]
@@ -390,15 +434,24 @@ def phase_main_shapes() -> tuple[dict, dict, dict]:
 
     k = max(range(len(calls["group_wavefront"])),
             key=lambda i: width(calls["group_wavefront"][i]))
-    (ins,), kw, _ = calls["group_wavefront"][k]
+    (ins,), kw, (_, dirs, _) = calls["group_wavefront"][k]
+    Bn, _, C = ins["CA"].shape
+    an, bn = ins["wa"].shape[1], ins["wb"].shape[1]
+    k2_cells = pairwise.band_cells(*(ins[x].cpu().numpy()
+                                     for x in ("la", "lb", "lw", "up")))
+    # a band cell: the C-channel profile product (a multiply and an add
+    # each), three gap-open sums over the member pairs and the lane update
     k2 = {"max_abs_err": k2_err,
           "ms": time_ms(lambda: G.group_wavefront(ins, **kw), 7),
-          "plain_ms": time_ms(lambda: G.group_wavefront_ref(ins, **kw), 3)}
-    tb_args, tb_kw, _ = calls["traceback"][k]
+          "plain_ms": time_ms(lambda: G.group_wavefront_ref(ins, **kw), 3),
+          **bound(tensor_bytes(*ins.values()) + 4 * Bn + 2 * dirs.numel(),
+                  k2_cells * (2 * C + 6 * an * bn + 9))}
+    tb_args, tb_kw, (_, cnts) = calls["traceback"][k]
+    # a move reads one dirs and one opens byte and writes one move byte
     k3 = {"max_abs_err": k3_err,
           "ms": time_ms(lambda: G.traceback(*tb_args, **tb_kw), 7),
-          "plain_ms": time_ms(lambda: G.traceback_ref(*tb_args, **tb_kw), 5)}
-    a_batch, _, la, lb, lw, up = k1_args[:6]
+          "plain_ms": time_ms(lambda: G.traceback_ref(*tb_args, **tb_kw), 5),
+          **bound(3 * int(cnts.sum()) + 4 * cnts.numel(), 0)}
     emit({"phase": "main_path_kernels",
           "calls": {name: len(c) for name, c in calls.items()},
           "k1_shape": {"pairs": a_batch.shape[0],
@@ -410,6 +463,195 @@ def phase_main_shapes() -> tuple[dict, dict, dict]:
           "k1": k1, "k2": k2, "k3": k3, "planes_equal": True,
           "moves_equal": True})
     return k1, k2, k3
+
+
+def run_aln(argv) -> tuple[str, float, dict]:
+    """One ``aln`` run on the card: its output, seconds and launches."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "aln.txt"
+        _build.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = aln_main([*argv, "-o", str(path), "--device", "cuda"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(_build.LAUNCHES)
+        if rc != 0:
+            raise AssertionError(f"aln_main returned {rc}")
+        return path.read_text(), secs, counts
+
+
+def phase_aln() -> dict:
+    """``aln -yl2`` on the three gene-prediction inputs, cold and warm."""
+    out = {}
+    for name, (g, q) in ALN_CASES.items():
+        want = (FIX / f"jax_aln_yl2_{name}.txt").read_text()
+        for run in ("cold", "warm"):
+            text, secs, counts = run_aln(["-yl2", str(FIX / g),
+                                          str(FIX / q)])
+            if text != want:
+                raise AssertionError(f"{run} aln -yl2 on {name} differs "
+                                     f"from jax_aln_yl2_{name}.txt")
+            for k in ("spliced_h_wave", "spliced_h_walk"):
+                if counts.get(k, 0) <= 0:
+                    raise AssertionError(f"{run} aln on {name} never "
+                                         f"launched {k}")
+            out[(name, run)] = counts
+            emit({"phase": f"aln_yl2_{name}_{run}", "seconds": secs,
+                  "bytes": len(text), "launches": counts})
+    mini = [str(FIX / f) for f in ALN_CASES["mini"]]
+    text, _, _ = run_aln(["-yl2", "-O", "5", *mini])
+    if text != (FIX / "aln_H_mini_O5.txt").read_text():
+        raise AssertionError("aln -yl2 -O 5 on mini differs from "
+                             "aln_H_mini_O5.txt")
+    text, _, _ = run_aln(["-yl2", "-O", "1", *mini])
+    if text != (FIX / "jax_aln_yl2_mini.txt").read_text():
+        raise AssertionError("aln -yl2 -O 1 on mini differs from "
+                             "jax_aln_yl2_mini.txt")
+    # the reference's -O 1 golden: every line but the Score line, as the
+    # JAX package's own test holds it (tests/test_spliced_h.py)
+    gold = (FIX / "aln_H_mini_O1.txt").read_text().splitlines()
+    ours = text.splitlines()
+    if len(ours) != len(gold) or any(
+            o != g for o, g in zip(ours, gold) if not g.startswith("Score =")):
+        raise AssertionError("aln -yl2 -O 1 on mini differs from "
+                             "aln_H_mini_O1.txt")
+    emit({"phase": "aln_yl2_mini_O5_O1", "O5_equal": True, "O1_equal": True})
+    return out
+
+
+def capture_aln(argv) -> tuple[dict, str, float]:
+    """Run ``aln`` once with recorders at K4's and K4w's launch points;
+    returns their calls as (args, output), the output and the seconds."""
+    calls = {"sweep": [], "walk": []}
+    real = {"sweep": SH._launch_sweep, "walk": SH._launch_walk}
+
+    def recorder(name):
+        def call(*args):
+            out = real[name](*args)
+            calls[name].append((args, out))
+            return out
+        return call
+
+    SH._launch_sweep, SH._launch_walk = recorder("sweep"), recorder("walk")
+    try:
+        text, secs, _ = run_aln(argv)
+    finally:
+        SH._launch_sweep, SH._launch_walk = real["sweep"], real["walk"]
+    if len(calls["sweep"]) != 1 or len(calls["walk"]) != 1:
+        raise AssertionError(f"expected one K4 and one K4w call, got "
+                             f"{len(calls['sweep'])} and "
+                             f"{len(calls['walk'])}")
+    return calls, text, secs
+
+
+def k4_ops(ins: SH.SweepInputs) -> int:
+    """Float operations the sweep's recurrence needs on these inputs
+    (counted from sweep_h_ref's wave body): 24 a band cell (diagonal,
+    vertical and horizontal candidates, their maxima), 55 an acceptor
+    phase merged (4 candidates of 8 adds, the sj and lane maxima), 24 a
+    donor phase pushed (3 lanes of threshold, value and rank compares)."""
+    tab = ins.tab.cpu().numpy()
+    M, N = ins.M, ins.N
+    p5, p3 = tab[:N, 2], tab[:N, 3]
+    acc = np.concatenate([[0], np.cumsum((p3 != -2) + (p3 == 2))])
+    don = np.concatenate([[0], np.cumsum((p5 != -2) + (p5 == 2))])
+    m = np.arange(1, M + 1)
+    lo = np.maximum(3 * m + ins.lw, 1)
+    hi = np.minimum(3 * m + ins.up, N)
+    ok = hi >= lo
+    cells = int(np.where(ok, hi - lo + 1, 0).sum())
+    hi1 = np.minimum(hi, N - 1)
+    sites = ok & (hi1 >= lo) & ((m < M) | (not ins.a_exgr))
+    lo_c = np.clip(lo, 0, N)
+    hi_c = np.clip(hi1 + 1, 0, N)
+    n_acc = int(np.where(sites, acc[hi_c] - acc[lo_c], 0).sum())
+    n_don = int(np.where(sites, don[hi_c] - don[lo_c], 0).sum())
+    return 24 * cells + 55 * n_acc + 24 * n_don
+
+
+def k4_bounds(ins, sw, wk) -> tuple[dict, dict]:
+    ins_bytes = tensor_bytes(*(v for v in vars(ins).values()
+                               if isinstance(v, torch.Tensor)))
+    k4 = bound(ins_bytes + tensor_bytes(*sw), k4_ops(ins))
+    # a walk step reads its ev and jd words and at most one more ev word
+    k4w = bound(12 * wk.steps + 8 * len(wk.knots) + 16, 0)
+    return k4, k4w
+
+
+def phase_k4() -> dict:
+    """K4 and K4w against their plain versions on the card, on the inputs
+    ``aln -yl2`` gives them; times (CUDA events)."""
+    out = {}
+    for name, (g, q) in ALN_CASES.items():
+        calls, text, _ = capture_aln(["-yl2", str(FIX / g), str(FIX / q)])
+        if text != (FIX / f"jax_aln_yl2_{name}.txt").read_text():
+            raise AssertionError(f"capture run on {name} differs")
+        (ins,), sw = calls["sweep"][0]
+        wargs, wk = calls["walk"][0]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        ref = SH.sweep_h_ref(ins)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        for field in SH.Sweep._fields:
+            if not torch.equal(getattr(sw, field), getattr(ref, field)):
+                raise AssertionError(f"K4 {field} != plain on {name}")
+        err = max(float((sw.V - ref.V).abs().max()),
+                  float((sw.bandV - ref.bandV).abs().max()))
+        t0 = time.perf_counter()
+        wref = SH.walk_h_ref(*wargs)
+        walk_plain_ms = (time.perf_counter() - t0) * 1e3
+        if wref != wk:
+            raise AssertionError(f"K4w knots != plain on {name}")
+        b4, b4w = k4_bounds(ins, sw, wk)
+        k4 = {"max_abs_err": err, "ms": time_ms(
+            lambda: SH._launch_sweep(ins), 5), "plain_ms": plain_ms, **b4}
+        k4w = {"max_abs_err": 0.0, "ms": time_ms(
+            lambda: SH._launch_walk(*wargs), 7), "plain_ms": walk_plain_ms,
+            **b4w}
+        emit({"phase": f"k4_{name}", "waves": ins.waves, "rows": ins.M + 1,
+              "genome": ins.N, "band_cells": ins.band_cells,
+              "planes_equal": True, "band_equal": True, "knots_equal": True,
+              "knots": len(wk.knots), "walk_steps": wk.steps,
+              "k4": k4, "k4w": k4w})
+        out[name] = (k4, k4w)
+    return out
+
+
+def phase_flagship() -> None:
+    """The flagship's shape, timing only: a 34.9 kb genome holding the
+    2.3 kb CET10B9 window at 31,400 in uniform random flanks, against
+    the 7-member ce13a.msa profile."""
+    rng = np.random.default_rng(0)
+    win = pio.sniff_and_read(FIX / "cet10b9_win31401.fa")[0].seq.upper()
+
+    def flank(k):
+        return "".join(np.array(list("ACGT"))[rng.integers(0, 4, k)])
+
+    genome = flank(31400) + win + flank(34900 - 31400 - len(win))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "flagship_shape.fa"
+        path.write_text(">flagship_shape\n" + "\n".join(
+            genome[i:i + 60] for i in range(0, len(genome), 60)) + "\n")
+        calls, text, secs = capture_aln(["-yl2", str(path),
+                                         str(FIX / "ce13a.msa")])
+    (ins,), sw = calls["sweep"][0]
+    wargs, wk = calls["walk"][0]
+    ms = time_ms(lambda: SH._launch_sweep(ins), 3)
+    wms = time_ms(lambda: SH._launch_walk(*wargs), 5)
+    exons = "".join(line[3:] for line in text.splitlines()
+                    if line.startswith(";C "))
+    b4, b4w = k4_bounds(ins, sw, wk)
+    emit({"phase": "flagship_shape", "genome": ins.N, "rows": ins.M + 1,
+          "waves": ins.waves, "band_cells": ins.band_cells,
+          "planes_mb": tensor_bytes(sw.ev, sw.jd, sw.V, sw.D) / 1e6,
+          "wall_s": secs, "k4_ms": ms, "k4w_ms": wms,
+          "gcups": ins.band_cells / (ms * 1e6), "k4_bound_ms": b4["bound_ms"],
+          "k4w_bound_ms": b4w["bound_ms"], "exons": exons})
 
 
 def main() -> int:
@@ -432,8 +674,12 @@ def main() -> int:
     phase_k2k3(dev)
     runs = phase_main()
     k1, k2, k3 = phase_main_shapes()
+    aln_runs = phase_aln()
+    k4, k4w = phase_k4()["win_msa"]
+    phase_flagship()
 
     launches = runs["cold"]["launches"]
+    aln_launches = aln_runs[("win_msa", "cold")]
     kernels = [
         {"name": "pairwise_scores", "route": "cuda",
          "source": "prrn_aln_tpu_torch/csrc/pairwise.cu",
@@ -447,6 +693,14 @@ def main() -> int:
          "source": "prrn_aln_tpu_torch/csrc/traceback.cu",
          "replaces": "prrn_aln_tpu/ops/group.py:595",
          "launches": launches["traceback"], **k3},
+        {"name": "spliced_h_wave", "route": "cuda",
+         "source": "prrn_aln_tpu_torch/csrc/spliced_h_wave.cu",
+         "replaces": "prrn_aln_tpu/ops/pallas_spliced_h.py:201",
+         "launches": aln_launches["spliced_h_wave"], **k4},
+        {"name": "spliced_h_walk", "route": "cuda",
+         "source": "prrn_aln_tpu_torch/csrc/spliced_h_walk.cu",
+         "replaces": "prrn_aln_tpu/ops/pallas_spliced_h.py:1016",
+         "launches": aln_launches["spliced_h_walk"], **k4w},
     ]
     print(card_line(), flush=True)
     emit({"kernels": kernels})

@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-``nvcc`` compiles every source into one shared library with a plain C
-interface, at the first CUDA call, into ``build/prrn_aln_tpu_torch/``
-under the repository root (git-ignored).  The library's name carries a
-hash of the sources and flags, so an edited source is rebuilt and a
-stale library is never loaded.  Importing this module runs nothing:
-the CPU tests import every module and have no ``nvcc``.
+At the first CUDA call, one ``nvcc`` per source compiles them all at
+once into objects, then one more links the objects into a shared library
+with a plain C interface, in ``build/prrn_aln_tpu_torch/`` under the
+repository root (git-ignored).  The library's name carries a hash of
+the sources and flags, so an edited source is rebuilt and a stale
+library is never loaded.  Importing this module runs nothing: the CPU
+tests import every module and have no ``nvcc``.
 
 ``-fmad=false`` keeps each kernel's float arithmetic operation for
 operation equal to its plain PyTorch version (no fused multiply-add),
@@ -26,7 +27,7 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = (Path(__file__).resolve().parent.parent.parent / "build"
           / "prrn_aln_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
 
 _vp, _int = ctypes.c_void_p, ctypes.c_int
 # C signatures of the kernels' launchers; each returns cudaGetLastError()
@@ -34,6 +35,9 @@ _SIGNATURES = {
     "pairwise_scores_launch": [_vp] * 12 + [_int] * 6 + [_vp],
     "group_wavefront_launch": [_vp] * 22 + [_int] * 9 + [_vp],
     "traceback_launch": [_vp] * 7 + [_int] * 4 + [_vp],
+    "spliced_h_wave_launch": [_vp] * 17 + [_int] * 13 + [_vp],
+    "spliced_h_wave_scratch_words": [],
+    "spliced_h_walk_launch": [_vp] * 4 + [_int] * 6 + [_vp],
 }
 
 _lib = None
@@ -74,13 +78,27 @@ def load() -> ctypes.CDLL:
     out = library_path()
     if not out.exists():
         _BUILD.mkdir(parents=True, exist_ok=True)
+        tag = f"{out.stem}.{os.getpid()}"
+        objs = [_BUILD / f"{tag}.{src.stem}.o" for src in _sources()]
+        cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(_sources(), objs)]
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(s) for s in _sources())]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        logs = [proc.communicate()[0] for proc in procs]
+        for cmd, proc, log in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n"
+                                   + log)
+        cmd = [_nvcc(), "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp),
+               *(str(obj) for obj in objs)]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n"
-                               + res.stdout + res.stderr)
+            raise RuntimeError("nvcc link failed:\n" + " ".join(cmd)
+                               + "\n" + res.stdout + res.stderr)
+        for obj in objs:
+            obj.unlink()
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _SIGNATURES.items():

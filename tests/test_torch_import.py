@@ -16,7 +16,8 @@ def test_port_imports_no_jax():
             " pkg.__name__ + '.')]\n"
             "for name in mods:\n"
             "    importlib.import_module(name)\n"
-            "assert 'prrn_aln_tpu_torch.cli' in mods, mods\n"
+            "for need in ('cli', 'ops.spliced_h', 'splice.hapi'):\n"
+            "    assert 'prrn_aln_tpu_torch.' + need in mods, mods\n"
             "bad = [m for m in sys.modules if m == 'jax'"
             " or m.startswith('jax.') or m == 'prrn_aln_tpu'"
             " or m.startswith('prrn_aln_tpu.')]\n"
@@ -25,3 +26,27 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120,
                          check=True)
     assert res.stdout.strip() == ""
+
+
+def test_gene_prediction_runs_without_jax(tmp_path):
+    """With ``jax`` and ``prrn_aln_tpu`` made unimportable, the port's
+    ``aln -yl2`` runs on the CPU (an exon-only slice of the window)."""
+    win = (ROOT / "tests" / "fixtures" / "cet10b9_win31401.fa").read_text()
+    seq = "".join(win.splitlines()[1:])
+    (tmp_path / "g.fa").write_text(">g\n" + seq[214:400] + "\n")
+    pro = (ROOT / "tests" / "fixtures" / "ce13a1_unaligned.fa").read_text()
+    (tmp_path / "p.fa").write_text(
+        ">p\n" + "".join(pro.splitlines()[1:])[:60] + "\n")
+    code = ("import sys\n"
+            "class Block:\n"
+            "    def find_spec(self, name, path=None, target=None):\n"
+            "        if name.split('.')[0] in ('jax', 'prrn_aln_tpu'):\n"
+            "            raise ModuleNotFoundError(name)\n"
+            "sys.meta_path.insert(0, Block())\n"
+            "from prrn_aln_tpu_torch.cli import aln_main\n"
+            f"aln_main(['-yl2', '-O', '5', {str(tmp_path / 'g.fa')!r}, "
+            f"{str(tmp_path / 'p.fa')!r}, '--device', 'cpu'])\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    assert res.stdout.startswith("#")

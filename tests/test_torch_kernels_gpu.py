@@ -5,17 +5,22 @@ no JAX, so it also runs where JAX is absent:
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
-from prrn_aln_tpu_torch import alphabet as ab, scoring
+from prrn_aln_tpu_torch import alphabet as ab, io as tio, scoring
 from prrn_aln_tpu_torch.config import AlnParams
 from prrn_aln_tpu_torch.msa.msa import Msa
 from prrn_aln_tpu_torch.ops import group as tg, pairwise as tpw
+from prrn_aln_tpu_torch.ops import spliced_h as tsh
 from prrn_aln_tpu_torch.ops.window import stripe
+from prrn_aln_tpu_torch.splice.hapi import spliced_align_h
 
 MTX, _ = scoring.protein_matrix(AlnParams(pam=150))
+FIX = Path(__file__).parent / "fixtures"
 
 
 @pytest.fixture
@@ -96,3 +101,47 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     mtx = torch.as_tensor(MTX, device=cuda_device)
     with pytest.raises(ValueError, match="dtype"):
         tpw.pairwise_scores(a, a, 8, 8, mtx, 2.0, 9.0)
+
+
+def _spliced_calls(genome, protein, device):
+    """Gene prediction on the card with recorders at K4's and K4w's
+    launch points; returns each kernel's (arguments, output)."""
+    calls = {}
+    real_s, real_w = tsh._launch_sweep, tsh._launch_walk
+
+    def rec_s(ins):
+        calls["sweep"] = (ins, real_s(ins))
+        return calls["sweep"][1]
+
+    def rec_w(*args):
+        calls["walk"] = (args, real_w(*args))
+        return calls["walk"][1]
+
+    tsh._launch_sweep, tsh._launch_walk = rec_s, rec_w
+    try:
+        spliced_align_h(genome, protein, device=device)
+    finally:
+        tsh._launch_sweep, tsh._launch_walk = real_s, real_w
+    return calls
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["mini", "random"])
+def test_spliced_kernels_match_plain(cuda_device, case):
+    """K4's planes and final band, and K4w's knots, against the plain
+    versions on the same inputs on the card."""
+    if case == "mini":
+        g = tio.sniff_and_read(FIX / "mini_gen.fa")[0].seq
+        p = tio.sniff_and_read(FIX / "mini_pro.fa")[0].seq
+    else:
+        rng = np.random.default_rng(11)
+        g = "".join(np.array(list("ACGT"))[rng.integers(0, 4, 600)])
+        p = "".join(np.array(list("ACDEFGHIKLMNPQRSTVWY"))[
+            rng.integers(0, 20, 120)])
+    calls = _spliced_calls(g, p, cuda_device)
+    ins, sw = calls["sweep"]
+    ref = tsh.sweep_h_ref(ins)
+    for field in tsh.Sweep._fields:
+        assert torch.equal(getattr(sw, field), getattr(ref, field)), field
+    wargs, wk = calls["walk"]
+    assert tsh.walk_h_ref(*wargs) == wk

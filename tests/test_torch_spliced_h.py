@@ -1,0 +1,234 @@
+"""The port's fwd2h (spliced protein x genome DP) against the JAX package
+on the CPU: the tables it is built from, the plain sweep's planes against
+the JAX scan engine's, and forwardH's score and knots on four cases cut
+from the in-repo CET10B9 window and ce13a1."""
+
+import dataclasses
+import functools
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from prrn_aln_tpu import alphabet as jab, io as jio, scoring as jscoring
+from prrn_aln_tpu.config import default_params as jdefault_params
+from prrn_aln_tpu.ops import spliced_h_jax as jsh
+from prrn_aln_tpu.ops.spliced_h_np import HParams as JHParams
+from prrn_aln_tpu.splice import hapi as jhapi, tron as jtron
+from prrn_aln_tpu.splice.exin import build_exin as jbuild_exin
+from prrn_aln_tpu.splice.penalty import IntronPenalty as JIntronPenalty
+from prrn_aln_tpu_torch import alphabet as ab, io as pio, scoring
+from prrn_aln_tpu_torch.config import default_params
+from prrn_aln_tpu_torch.ops import spliced_h as sh
+from prrn_aln_tpu_torch.ops.spliced_h_np import HParams
+from prrn_aln_tpu_torch.splice import hapi, tron
+from prrn_aln_tpu_torch.splice.exin import build_exin
+from prrn_aln_tpu_torch.splice.penalty import IntronPenalty
+
+# one intra-op thread: the suite runs several worker processes at once
+torch.set_num_threads(1)
+
+FIX = Path(__file__).parent / "fixtures"
+# the penalty of test_spliced_h_jax.py's cases
+PEN = dict(f=1.0, y=8.0, sss=0.5, u=2.0, v=9.0, ip=15.0, fact=8.0)
+
+
+@functools.lru_cache(maxsize=None)
+def _window() -> str:
+    return jio.sniff_and_read(FIX / "cet10b9_win31401.fa")[0].seq.upper()
+
+
+@functools.lru_cache(maxsize=None)
+def _ce13a1() -> str:
+    return jio.sniff_and_read(FIX / "ce13a1_unaligned.fa")[0].seq
+
+
+# test_spliced_h_jax.py's four cases, rebuilt from the window
+# (CET10B9[31401:33700], so CET10B9[31549:...] = window[149:...]):
+# genome, protein, band shoulder %, intron-position bonus
+CASES = {
+    "mini": (slice(149, 1050), 172, 50, None),
+    "two_introns": (slice(149, 1700), 290, 50, None),
+    "intron_bonus": (slice(149, 1050), 172, 50, 3 * 62),
+    "no_intron": (slice(214, 400), 60, 100, None),
+}
+
+
+def _pmtx(scoring_mod, ab_mod, dp):
+    pm, _ = scoring_mod.build_matrix(ab_mod.PROTEIN, dp(ab_mod.PROTEIN, "aln"))
+    return pm
+
+
+def _qprof(tron_mod, pm, a):
+    tm = tron_mod.tron_matrix(pm, u=2.0, o=30.0)
+    M = len(a)
+    qprof = np.zeros((M + 2, tron_mod.TSIMD))
+    for m in range(1, M + 1):
+        qprof[m] = tm[a[m - 1]]
+    qprof[M + 1] = qprof[M]
+    return qprof
+
+
+@functools.lru_cache(maxsize=None)
+def _run_case(name):
+    """Both packages' forwardH on one case; the sweep planes of each are
+    captured by wrappers around their sweep functions."""
+    gsl, plen, sh_pct, bonus = CASES[name]
+    g, p = _window()[gsl], _ce13a1()[:plen]
+
+    def api(pt):
+        return 20.0 if pt == bonus else 0.0
+
+    jb, ja = jab.encode(g, jab.DNA), jab.encode(p, jab.PROTEIN)
+    M, N = len(ja), len(jb)
+    shld = 3 * (sh_pct * min(M, N) // 100)
+    lw, up = -shld, min(N - 3 * M + shld, N)
+    got = {}
+
+    real_j = jsh._sweep_h
+
+    def rec_j(*args):
+        out = real_j(*args)
+        got["jax_planes"] = [np.asarray(x) for x in out]
+        return out
+
+    jsh._sweep_h = rec_j
+    try:
+        got["jax"] = jsh.forward_h_device(
+            _qprof(jtron, _pmtx(jscoring, jab, jdefault_params), ja), jb,
+            jbuild_exin(jb), JIntronPenalty.build(**PEN), JHParams(), lw,
+            up, api=api if bonus else None)
+    finally:
+        jsh._sweep_h = real_j
+
+    real_p = sh.sweep_h
+
+    def rec_p(ins):
+        out = real_p(ins)
+        got["port_planes"] = out
+        return out
+
+    real_w = sh.walk_h
+
+    def rec_w(*args):
+        out = real_w(*args)
+        got["walk"] = (args, out)
+        return out
+
+    b, a = ab.encode(g, ab.DNA), ab.encode(p, ab.PROTEIN)
+    sh.sweep_h, sh.walk_h = rec_p, rec_w
+    try:
+        got["port"] = sh.forward_h_device(
+            _qprof(tron, _pmtx(scoring, ab, default_params), a), b,
+            build_exin(b), IntronPenalty.build(**PEN), HParams(), lw, up,
+            api=api if bonus else None, device="cpu")
+    finally:
+        sh.sweep_h, sh.walk_h = real_p, real_w
+    got["band"] = (lw, up)
+    return got
+
+
+# ---------------------------------------------------------------------
+# (i) the tables: no learned weights, only arrays built from .npz data
+
+def test_tron_matrix_equal():
+    jt = jtron.tron_matrix(_pmtx(jscoring, jab, jdefault_params), u=2.0,
+                           o=30.0)
+    pt = tron.tron_matrix(_pmtx(scoring, ab, default_params), u=2.0, o=30.0)
+    np.testing.assert_array_equal(pt, jt)
+
+
+@pytest.mark.parametrize("genome", ["mini_gen.fa", "cet10b9_win31401.fa"])
+def test_exin_signals_equal(genome):
+    seq = jio.sniff_and_read(FIX / genome)[0].seq.upper()
+    je = jbuild_exin(jab.encode(seq, jab.DNA))
+    pe = build_exin(ab.encode(seq, ab.DNA))
+    for f in dataclasses.fields(je):
+        jv, pv = getattr(je, f.name), getattr(pe, f.name)
+        if f.name == "sig":
+            for g in dataclasses.fields(jv):
+                np.testing.assert_array_equal(getattr(pv, g.name),
+                                              getattr(jv, g.name))
+        else:
+            np.testing.assert_array_equal(pv, jv)
+
+
+def test_intron_penalty_equal():
+    jp, pp = JIntronPenalty.build(**PEN), IntronPenalty.build(**PEN)
+    np.testing.assert_array_equal(pp.table, jp.table)
+    assert pp.closed == jp.closed
+    for f in ("llmt", "rlmt", "mu", "int_ep", "int_fx", "gap_wi", "minl",
+              "mode"):
+        assert getattr(pp, f) == getattr(jp, f)
+
+
+def test_codon_tables_equal():
+    seq = _window()
+    for jx, px in zip(jsh._codon_tables(jab.encode(seq, jab.DNA)),
+                      sh._codon_tables(ab.encode(seq, ab.DNA))):
+        np.testing.assert_array_equal(px, jx)
+
+
+@pytest.mark.parametrize("query", ["single", "msa"])
+def test_query_profile_equal(query):
+    jt = jtron.tron_matrix(_pmtx(jscoring, jab, jdefault_params), u=2.0,
+                           o=30.0)
+    pt = tron.tron_matrix(_pmtx(scoring, ab, default_params), u=2.0, o=30.0)
+    if query == "single":
+        p = _ce13a1()
+        jq = jhapi.build_qprof(jab.encode(p, jab.PROTEIN), jt)
+        pq = hapi.build_qprof(ab.encode(p, ab.PROTEIN), pt)
+    else:
+        jm = jio.records_to_msa(jio.sniff_and_read(FIX / "ce13a.msa"),
+                                jab.PROTEIN)
+        pm = pio.records_to_msa(pio.sniff_and_read(FIX / "ce13a.msa"),
+                                ab.PROTEIN)
+        jq = jhapi.profile_qprof(jm.codes, jm.weight, jt)
+        pq = hapi.profile_qprof(pm.codes, pm.weight, pt)
+    np.testing.assert_array_equal(pq, jq)
+
+
+# ---------------------------------------------------------------------
+# (ii) the plain sweep against the JAX scan engine
+
+def test_sweep_planes_match_jax_scan_engine():
+    """Mini: event and junction planes and the final band's directions
+    equal; band values to rtol 1e-5 (XLA may fuse a product into a
+    multiply-add where the plain version rounds twice)."""
+    got = _run_case("mini")
+    bandV, bandD, evw, jdw = got["jax_planes"]
+    sw = got["port_planes"]
+    np.testing.assert_array_equal(sw.ev.numpy(), evw.astype(np.int32))
+    np.testing.assert_array_equal(sw.jd.numpy().transpose(0, 2, 1), jdw)
+    np.testing.assert_array_equal(sw.bandD.numpy(), bandD)
+    np.testing.assert_allclose(sw.bandV.numpy(), bandV, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------
+# (iii) forwardH: the port's plain path against the JAX device engine
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_forward_h_matches_jax(case):
+    """Score within 1e-3 relative and knots equal: the tolerance of
+    tests/test_spliced_h_jax.py."""
+    got = _run_case(case)
+    (s_j, k_j), (s_p, k_p) = got["jax"], got["port"]
+    assert abs(s_p - s_j) <= 1e-3 * max(1.0, abs(s_j))
+    assert k_p == k_j
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_walk_matches_jax_host_walker(case):
+    """The plain walk (a transcription of the device walk) against the
+    JAX package's host walker on the JAX planes, from the same end cell:
+    the same knots before the init record's."""
+    got = _run_case(case)
+    (ev, jd, t_min, M, N, om, on), wk = got["walk"]
+    _, _, evw, jdw = got["jax_planes"]
+    lw, up = got["band"]
+    jknots = jsh._walk_h(evw, jdw, t_min, om, on, M, N, lw, up,
+                         np.zeros(up - lw + 7, np.int8), {}, True, True,
+                         lambda r: r - lw + 3)
+    assert wk.knots == jknots[:-1]
+    assert 0 < wk.steps < sh.walk_steps(M, N)
