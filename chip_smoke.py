@@ -8,7 +8,7 @@ Run from the repository root with no arguments:
 Phases (each raises on failure, so the script exits non-zero):
 
 0. device: CUDA must be available; prints the card and its power limit;
-1. build: compiles the five CUDA kernels from ``prrn_aln_tpu_torch/csrc``
+1. build: compiles the six CUDA kernels from ``prrn_aln_tpu_torch/csrc``
    (one ``nvcc`` per source, all at once);
 2. K1 (pairwise DP) against its plain PyTorch version on the card, on the
    pairwise fixtures and on 512 random pairs of 512 x 512 at sh=-60,
@@ -22,26 +22,49 @@ Phases (each raises on failure, so the script exits non-zero):
 5. every kernel call of a third ``prrn -R 0`` run, recorded with its
    inputs, against the plain version on the card, and each kernel's time
    at the main path's shapes;
-6. K4 (spliced sweep) and K4w (its walk) against their plain versions on
+6. the forest path (16 or more sequences): ``prrn -R 0`` on fam19.fa
+   (19 proteins) through the kernels, byte-identical to the JAX
+   package's output fixture, K1, K2 and K3 launched; then the same run
+   once more under ``PRRN_PW_FUSED=1``: K1f launched and K1 not, the
+   same edge list and forest, the same bytes; stage walls and summed
+   kernel times of both runs (a run takes two minutes, so the second,
+   warm run is the one under the switch);
+7. K1f (row-sweep pairwise DP) against its plain version on the card,
+   bit for bit, on the global pairwise fixtures, on phase 2's 512 pairs
+   and on the edge batch recorded in phase 6; against K1 on the last
+   two, at most 4 f32 ulp at the DP's scale; K1 and K1f times and GCUPS
+   on the same inputs;
+8. the forest path's shape, timing only: 64 seeded proteins of 150-250
+   residues in 8 families through ``prrn -R 0 -I 0`` (no refinement,
+   which at 64 members would outlast the script): the device k-mer pass,
+   edges, tree sizes, jobs per batched launch, stage walls, kernel times;
+9. K4 (spliced sweep) and K4w (its walk) against their plain versions on
    the card, on the inputs ``aln -yl2`` gives them for (a) mini_gen x
-   mini_pro, (b) the 2.3 kb CET10B9 window x ce13a1 and (c) the window x
-   the ce13a.msa profile: planes, final band and knots equal; times;
-7. the gene-prediction path: ``aln -yl2`` on (a), (b) and (c) through
+   mini_pro and (c) the 2.3 kb CET10B9 window x the ce13a.msa profile:
+   planes, final band and knots equal; times.  On (b), the window x
+   ce13a1, the kernels are timed and not held to the plain sweep (it
+   takes over a minute there; the output of (b) is still held to its
+   fixture in phase 10);
+10. the gene-prediction path: ``aln -yl2`` on (a), (b) and (c) through
    the kernels, cold and warm, byte-identical to the JAX package's
    output fixtures (and mini's ``-O 5``/``-O 1`` to the reference's),
    both kernels launched;
-8. the flagship's shape, timing only: a 34.9 kb genome (the window at
+11. the flagship's shape, timing only: a 34.9 kb genome (the window at
    31,400 in seeded random flanks) x ce13a.msa.
 
 Prints one JSON line per phase, then the card line, the kernels line
-(launches from the cold runs of phases 4 and 7, times at the main
-paths' shapes, bounds from the same inputs) and, last,
-``{"ok": true, "device": {...}}``.
+(launches from the cold runs of phases 4 and 10 and, for K1f, from the
+run under the switch in phase 6; times at the main paths' shapes,
+bounds from the same inputs) and, last, ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -53,10 +76,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from prrn_aln_tpu_torch import alphabet as ab, io as pio, scoring
+from prrn_aln_tpu_torch import alphabet as ab, io as pio, pipeline, scoring
 from prrn_aln_tpu_torch.cli import aln_main, prrn_main
 from prrn_aln_tpu_torch.config import AlnParams
-from prrn_aln_tpu_torch.msa import distance, tree
+from prrn_aln_tpu_torch.msa import distance, kmer, progressive, slforest, tree
 from prrn_aln_tpu_torch.msa.msa import Msa, msa_from_strings
 from prrn_aln_tpu_torch.ops import _build, group as G, pairwise
 from prrn_aln_tpu_torch.ops import spliced_h as SH
@@ -101,6 +124,19 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def time_once_ms(fn) -> float:
+    """One call on the card's stream (CUDA events), for the plain
+    versions that take seconds: they have run once already by then."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
 def bound(nbytes: float, nops: float) -> dict:
     """The least time the card could take for a kernel's work: the
     larger of its bytes (each input read once, each output written once)
@@ -126,14 +162,14 @@ def golden_rows(text: str) -> dict:
     return {k: "".join(v) for k, v in rows.items()}
 
 
-def phase_k1(dev) -> None:
+def pairwise_fixture_sets(dev):
+    """The pairwise fixtures by alphabet and mode, as tensors on the
+    card: yields (molc, local, cases, launch arguments)."""
     fx = json.loads((FIX / "pairwise_fixtures.json").read_text())
     mats = fx["matrices"]
     prot, _ = scoring.protein_matrix(AlnParams(pam=mats["protein_pam"]))
     dna, _ = scoring.dna_matrix(AlnParams(u=mats["dna_u"],
                                           n_mismatch=mats["dna_mismatch"]))
-    err = 0.0
-    ncase = 0
     for molc, mtx in ((1, prot), (2, dna)):
         for local in (False, True):
             cases = [c for c in fx["cases"]
@@ -151,40 +187,40 @@ def phase_k1(dev) -> None:
                 Bm[i, :len(b[i])] = b[i]
             wd = [stripe(len(x), len(y), c["sh"])
                   for x, y, c in zip(a, b, cases)]
-            arrs = dict(
-                la=np.array([len(x) for x in a], np.int32),
-                lb=np.array([len(y) for y in b], np.int32),
-                lw=np.array([w.lw for w in wd], np.int32),
-                up=np.array([w.up for w in wd], np.int32),
-                u=np.array([c["u"] for c in cases], np.float32),
-                v=np.array([c["v"] for c in cases], np.float32),
-                tg=np.array([c["tgapf"] for c in cases], np.float32),
-                exg=np.array([[c["lcl"] & 1, c["lcl"] & 2, c["lcl"] & 4,
-                               c["lcl"] & 8] for c in cases], bool))
-            t = {k: torch.as_tensor(v, device=dev) for k, v in arrs.items()}
-            At = torch.as_tensor(A, device=dev)
-            Bt = torch.as_tensor(Bm, device=dev)
-            mt = torch.as_tensor(mtx, device=dev)
-            got = pairwise.pairwise_scores(
-                At, Bt, t["la"], t["lb"], mt, t["u"], t["v"], t["tg"],
-                t["exg"], t["lw"], t["up"], local=local)
-            ref = pairwise.wavefront_scores_ref(
-                At, Bt, t["la"], t["lb"], t["lw"], t["up"], mt, t["u"],
-                t["v"], t["tg"], t["exg"],
-                nslot=int((arrs["up"] - arrs["lw"]).max()) + 3,
-                nsteps=int((arrs["la"] + arrs["lb"]).max()) - 1,
-                local=local)
-            torch.cuda.synchronize()
-            if not torch.equal(got, ref):
-                raise AssertionError(f"K1 != plain on fixtures molc={molc} "
-                                     f"local={local}")
-            want = np.array([c["score"] for c in cases])
-            # the JAX package's own tolerance against the reference
-            # (tests/test_pairwise_jax.py)
-            np.testing.assert_allclose(got.cpu().numpy(), want, rtol=2e-5,
-                                       atol=0.05)
-            err = max(err, float((got - ref).abs().max()))
-            ncase += n
+            arrs = [A, Bm,
+                    np.array([len(x) for x in a], np.int32),
+                    np.array([len(y) for y in b], np.int32),
+                    np.array([w.lw for w in wd], np.int32),
+                    np.array([w.up for w in wd], np.int32),
+                    mtx.astype(np.float32),
+                    np.array([c["u"] for c in cases], np.float32),
+                    np.array([c["v"] for c in cases], np.float32),
+                    np.array([c["tgapf"] for c in cases], np.float32),
+                    np.array([[c["lcl"] & 1, c["lcl"] & 2, c["lcl"] & 4,
+                               c["lcl"] & 8] for c in cases], bool)]
+            yield molc, local, cases, tuple(
+                torch.as_tensor(x, device=dev) for x in arrs)
+
+
+def phase_k1(dev) -> tuple:
+    """K1 against its plain version; returns the bench batch's launch
+    arguments and its band cells."""
+    err = 0.0
+    ncase = 0
+    for molc, local, cases, args in pairwise_fixture_sets(dev):
+        got = pairwise._launch_pairwise(*args, local)
+        ref = pairwise._plain_pairwise(*args, local)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"K1 != plain on fixtures molc={molc} "
+                                 f"local={local}")
+        want = np.array([c["score"] for c in cases])
+        # the JAX package's own tolerance against the reference
+        # (tests/test_pairwise_jax.py)
+        np.testing.assert_allclose(got.cpu().numpy(), want, rtol=2e-5,
+                                   atol=0.05)
+        err = max(err, float((got - ref).abs().max()))
+        ncase += len(cases)
     emit({"phase": "k1_fixtures", "cases": ncase, "max_abs_err": err})
 
     # bench.py's shape: 512 pairs of 512 x 512 at sh=-60
@@ -198,6 +234,7 @@ def phase_k1(dev) -> None:
     full = lambda x, dt: torch.full((B,), x, dtype=dt, device=dev)  # noqa
     la = lb = full(L, torch.int32)
     lw, up = full(w.lw, torch.int32), full(w.up, torch.int32)
+    prot, _ = scoring.protein_matrix(AlnParams(pam=150))
     mt = torch.as_tensor(prot, device=dev)
     u, v, tg = (full(x, torch.float32) for x in (2.0, 9.0, 1.0))
     exg = torch.zeros((B, 4), dtype=torch.bool, device=dev)
@@ -219,6 +256,7 @@ def phase_k1(dev) -> None:
           "band_cells": cells, "ms": ms, "plain_ms": plain_ms,
           "gcups": cells / (ms * 1e6), "plain_gcups": cells / (plain_ms * 1e6),
           "max_abs_err": err})
+    return (A, Bm, la, lb, lw, up, mt, u, v, tg, exg), cells
 
 
 def phase_k2k3(dev) -> None:
@@ -312,8 +350,8 @@ def phase_k2k3(dev) -> None:
               "score_max_abs_err": float((sk - sr).abs().max())})
         if name == "batch32_8x384":
             timing["k2_ms"] = time_ms(lambda: G.group_wavefront(ins, **kw), 5)
-            timing["k2_plain_ms"] = time_ms(
-                lambda: G.group_wavefront_ref(ins, **kw), 5)
+            timing["k2_plain_ms"] = time_once_ms(
+                lambda: G.group_wavefront_ref(ins, **kw))
             timing["k3_ms"] = time_ms(
                 lambda: G.traceback(*tb, max_iters=mi), 7)
             timing["k3_plain_ms"] = time_ms(
@@ -443,7 +481,7 @@ def phase_main_shapes() -> tuple[dict, dict, dict]:
     # each), three gap-open sums over the member pairs and the lane update
     k2 = {"max_abs_err": k2_err,
           "ms": time_ms(lambda: G.group_wavefront(ins, **kw), 7),
-          "plain_ms": time_ms(lambda: G.group_wavefront_ref(ins, **kw), 3),
+          "plain_ms": time_once_ms(lambda: G.group_wavefront_ref(ins, **kw)),
           **bound(tensor_bytes(*ins.values()) + 4 * Bn + 2 * dirs.numel(),
                   k2_cells * (2 * C + 6 * an * bn + 9))}
     tb_args, tb_kw, (_, cnts) = calls["traceback"][k]
@@ -463,6 +501,292 @@ def phase_main_shapes() -> tuple[dict, dict, dict]:
           "k1": k1, "k2": k2, "k3": k3, "planes_equal": True,
           "moves_equal": True})
     return k1, k2, k3
+
+
+@contextlib.contextmanager
+def forest_probe():
+    """Recorders around the forest path's stages and kernel launch points
+    for one run: stage walls (host clock between synchronisations), each
+    kernel's CUDA events, the edge list, the forest, the jobs of every
+    ``group_align_batch`` launch and the arguments of the edge pass."""
+    rec = {"walls": collections.Counter(), "refines": [], "events":
+           collections.defaultdict(list), "jobs": [], "edge_args": None}
+
+    def timed(label, fn, keep=None):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            rec["walls"][label] += secs
+            if keep:
+                keep(args, out, secs)
+            return out
+        return call
+
+    def evented(name, fn, keep_args=False):
+        def call(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            rec["events"][name].append((start, end))
+            if keep_args:
+                rec["edge_args"] = (name, args)
+            return out
+        return call
+
+    def keep_as(key):
+        return lambda args, out, secs: rec.__setitem__(key, out)
+
+    def jobs(fn):
+        def call(pairs, *args, **kwargs):
+            rec["jobs"].append(len(pairs))
+            return fn(pairs, *args, **kwargs)
+        return call
+
+    patches = [
+        (kmer, "kmer_distance_matrix", lambda f: timed("kmer", f)),
+        (slforest, "candidate_edges",
+         lambda f: timed("edges_with_kmer", f, keep_as("edges"))),
+        (slforest, "build_forest",
+         lambda f: timed("build_forest", f, keep_as("forest"))),
+        (pipeline, "progressive_msa_forest",
+         lambda f: timed("forest_merges", f)),
+        (progressive, "group_align_batch", jobs),
+        (pipeline, "update_msa", lambda f: timed("update_msa", f)),
+        (pipeline, "cut_in", lambda f: timed("cut_in", f)),
+        (pipeline, "refine_msa", lambda f: timed(
+            "refine", f, lambda args, out, secs: rec["refines"].append(
+                (args[0].many, secs)))),
+        (pairwise, "_launch_pairwise",
+         lambda f: evented("pairwise", f, True)),
+        (pairwise, "_launch_rows",
+         lambda f: evented("pairwise_rows", f, True)),
+        (G, "group_wavefront", lambda f: evented("group_wavefront", f)),
+        (G, "traceback", lambda f: evented("traceback", f)),
+    ]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
+    for mod, attr, wrap in patches:
+        setattr(mod, attr, wrap(getattr(mod, attr)))
+    try:
+        yield rec
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def tree_shape(node):
+    """A forest tree as nested (left, right) pairs of leaf ids."""
+    if node.left is None:
+        return node.tid
+    return (tree_shape(node.left), tree_shape(node.right))
+
+
+def probe_summary(rec) -> dict:
+    torch.cuda.synchronize()
+    trees, singles = rec["forest"]
+    return {"edges": len(rec["edges"]),
+            "tree_sizes": [t.ndesc for t in trees], "singles": singles,
+            "batch_jobs": rec["jobs"],
+            "stage_wall_s": dict(rec["walls"]),
+            "refine_calls": [{"members": m, "seconds": x}
+                             for m, x in rec["refines"]],
+            "kernel_ms": {k: sum(a.elapsed_time(b) for a, b in ev)
+                          for k, ev in rec["events"].items()},
+            "kernel_calls": {k: len(ev) for k, ev in rec["events"].items()}}
+
+
+def run_forest(argv, fused: bool):
+    """One ``prrn`` run of the forest path on the card under the probe;
+    returns (output, seconds, launches, probe record)."""
+    with tempfile.TemporaryDirectory() as tmp, forest_probe() as rec:
+        path = Path(tmp) / "forest.txt"
+        if fused:
+            os.environ["PRRN_PW_FUSED"] = "1"
+        try:
+            _build.LAUNCHES.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc = prrn_main([*argv, "-o", str(path), "--device", "cuda"])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = dict(_build.LAUNCHES)
+        finally:
+            os.environ.pop("PRRN_PW_FUSED", None)
+        if rc != 0:
+            raise AssertionError(f"prrn_main returned {rc}")
+        return path.read_text(), secs, counts, rec
+
+
+def phase_forest() -> tuple[dict, tuple]:
+    """``prrn -R 0`` on fam19 through the kernels: cold, then (warm)
+    under ``PRRN_PW_FUSED=1``.  Returns the launches of both runs and
+    the edge pass's launch arguments."""
+    want = (FIX / "jax_prrn_fam19_R0.txt").read_text()
+    argv = ["-R", "0", str(FIX / "fam19.fa")]
+    runs = {}
+    for run in ("cold", "fused"):
+        text, secs, counts, rec = run_forest(argv, fused=run == "fused")
+        if text != want:
+            raise AssertionError(f"{run} prrn output on fam19 differs from "
+                                 "jax_prrn_fam19_R0.txt")
+        need = ("pairwise_rows" if run == "fused" else "pairwise",
+                "group_wavefront", "traceback")
+        for k in need:
+            if counts.get(k, 0) <= 0:
+                raise AssertionError(f"{run} forest run never launched {k}")
+        if run == "fused" and counts.get("pairwise", 0) != 0:
+            raise AssertionError("K1 was launched under PRRN_PW_FUSED=1")
+        if rec["edge_args"][0] != need[0]:
+            raise AssertionError(f"{run}: the edge pass went to "
+                                 f"{rec['edge_args'][0]}")
+        runs[run] = (counts, rec)
+        emit({"phase": f"prrn_forest_{run}", "seconds": secs,
+              "bytes": len(text), "launches": counts,
+              **probe_summary(rec)})
+
+    # the switch must leave the edge list and the forest as they were
+    off, on = runs["cold"][1], runs["fused"][1]
+    e_off = [(e.u, e.v) for e in off["edges"]]
+    e_on = [(e.u, e.v) for e in on["edges"]]
+    if e_off != e_on:
+        raise AssertionError(
+            f"edge lists differ under the switch: only off "
+            f"{sorted(set(e_off) - set(e_on))}, only on "
+            f"{sorted(set(e_on) - set(e_off))}")
+    order = [sorted(range(len(r["edges"])), key=lambda k: r["edges"][k].dist)
+             for r in (off, on)]
+    if order[0] != order[1]:
+        swapped = [(e_off[a], e_off[b]) for a, b in zip(*order) if a != b]
+        raise AssertionError(f"edges swap order under the switch: {swapped}")
+    shapes = [[tree_shape(t) for t in r["forest"][0]] for r in (off, on)]
+    if shapes[0] != shapes[1] or off["forest"][1] != on["forest"][1]:
+        raise AssertionError("the forest differs under the switch")
+    dmax = max(abs(a.dist - b.dist)
+               for a, b in zip(off["edges"], on["edges"]))
+    emit({"phase": "prrn_forest_switch", "edges_equal": True,
+          "edge_order_equal": True, "forest_equal": True,
+          "max_edge_dist_diff": dmax})
+    return ({"cold": runs["cold"][0], "fused": runs["fused"][0]},
+            runs["fused"][1]["edge_args"][1])
+
+
+def ulp_diffs(a: torch.Tensor, b: torch.Tensor, la, lb, u, v) -> dict:
+    """Largest difference of two score vectors in f32 ulp: of the score
+    itself, and at the DP's scale, the larger of the score and the
+    boundary penalty v + u * max(la, lb) that every score is a
+    difference of."""
+    a64, b64 = a.double().cpu().numpy(), b.double().cpu().numpy()
+    diff = np.abs(a64 - b64)
+    mag = np.maximum(np.abs(a64), np.abs(b64))
+    pen = (v.double() + u.double() * torch.maximum(la, lb).double()
+           ).cpu().numpy()
+    return {"max_abs_diff": float(diff.max()),
+            "max_ulp_of_score": float(
+                (diff / np.spacing(mag.astype(np.float32))).max()),
+            "max_ulp_at_dp_scale": float((diff / np.spacing(
+                np.maximum(mag, pen).astype(np.float32))).max())}
+
+
+def k1f_against_k1(name: str, args: tuple, cells: int) -> dict:
+    """K1f on one batch: bit for bit against its plain version, within 4
+    ulp (at the DP's scale) of K1, and both kernels' times."""
+    la, lb, lw, up = args[2:6]
+    u, v = args[7:9]
+    lw0 = int(lw.min())
+    rows = lambda: pairwise._launch_rows(*args, lw0)          # noqa: E731
+    plain = lambda: pairwise._plain_rows(*args, lw0)          # noqa: E731
+    wave = lambda: pairwise._launch_pairwise(*args, False)    # noqa: E731
+    got, ref, k1 = rows(), plain(), wave()
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref):
+        raise AssertionError(f"K1f != plain on {name}: max diff "
+                             f"{float((got - ref).abs().max())}")
+    ulps = ulp_diffs(got, k1, la, lb, u, v)
+    if ulps["max_ulp_at_dp_scale"] > 4:
+        raise AssertionError(f"K1f differs from K1 on {name}: {ulps}")
+    out = {"max_abs_err": float((got - ref).abs().max()),
+           "ms": time_ms(rows, 7), "k1_ms": time_ms(wave, 7),
+           "plain_ms": time_ms(plain, 3),
+           # a band cell: as K1, 3 adds or subtractions and 6 maxima
+           **bound(tensor_bytes(*args) + 4 * args[0].shape[0], 9 * cells)}
+    emit({"phase": f"k1f_{name}", "pairs": args[0].shape[0],
+          "lanes": int(up.max()) - lw0 + 1, "rows": int(la.max()),
+          "band_cells": cells, "equals_plain": True, "vs_k1": ulps,
+          "gcups": cells / (out["ms"] * 1e6),
+          "k1_gcups": cells / (out["k1_ms"] * 1e6), **out})
+    return out
+
+
+def phase_k1f(dev, bench_args, bench_cells, edge_args) -> dict:
+    """K1f against its plain version and against K1; returns its entry
+    for the kernels line (the fam19 edge batch)."""
+    ncase = 0
+    for molc, local, cases, args in pairwise_fixture_sets(dev):
+        if local:
+            continue                 # the row sweep has no local mode
+        lw0 = int(args[4].min())
+        got = pairwise._launch_rows(*args, lw0)
+        ref = pairwise._plain_rows(*args, lw0)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"K1f != plain on fixtures molc={molc}")
+        want = np.array([c["score"] for c in cases])
+        np.testing.assert_allclose(got.cpu().numpy(), want, rtol=2e-5,
+                                   atol=0.05)
+        ncase += len(cases)
+    emit({"phase": "k1f_fixtures", "cases": ncase, "max_abs_err": 0.0,
+          "equals_plain": True})
+    k1f_against_k1("bench", bench_args, bench_cells)
+    edge_args = edge_args[:11]
+    cells = pairwise.band_cells(*(x.cpu().numpy() for x in edge_args[2:6]))
+    return k1f_against_k1("fam19_edges", edge_args, cells)
+
+
+def write_family64(path: Path) -> None:
+    """64 proteins: 8 unrelated random ancestors of 150-250 residues, 8
+    descendants each with 10-20 % substitutions and a few short indels."""
+    rng = np.random.default_rng(0)
+    aa = np.array(list("ACDEFGHIKLMNPQRSTVWY"))
+    out = []
+    for f in range(8):
+        anc = aa[rng.integers(0, 20, int(rng.integers(150, 251)))]
+        for d in range(8):
+            seq = anc.copy()
+            hit = rng.random(len(seq)) < rng.uniform(0.10, 0.20)
+            seq[hit] = aa[rng.integers(0, 20, int(hit.sum()))]
+            seq = list(seq)
+            for _ in range(int(rng.integers(2, 5))):
+                at = int(rng.integers(1, len(seq) - 6))
+                k = int(rng.integers(1, 6))
+                if rng.random() < 0.5:
+                    del seq[at:at + k]
+                else:
+                    seq[at:at] = list(aa[rng.integers(0, 20, k)])
+            out.append(f">fam{f}_{d}\n{''.join(seq)}\n")
+    path.write_text("".join(out))
+
+
+def phase_forest_shape() -> None:
+    """A family the forest path is for, timing only (no golden): wide
+    enough for the device k-mer pass, run without refinement."""
+    with tempfile.TemporaryDirectory() as tmp:
+        fa = Path(tmp) / "family64.fa"
+        write_family64(fa)
+        text, secs, counts, rec = run_forest(["-R", "0", "-I", "0", str(fa)],
+                                             fused=False)
+    rows = golden_rows(text)
+    if len(rows) != 64 or len({len(r) for r in rows.values()}) != 1:
+        raise AssertionError(f"forest_shape: {len(rows)} rows in the output")
+    for k in ("pairwise", "group_wavefront", "traceback"):
+        if counts.get(k, 0) <= 0:
+            raise AssertionError(f"forest_shape never launched {k}")
+    emit({"phase": "forest_shape", "sequences": 64, "flags": "-R 0 -I 0",
+          "columns": len(next(iter(rows.values()))), "seconds": secs,
+          "launches": counts, **probe_summary(rec)})
 
 
 def run_aln(argv) -> tuple[str, float, dict]:
@@ -581,7 +905,8 @@ def k4_bounds(ins, sw, wk) -> tuple[dict, dict]:
 
 def phase_k4() -> dict:
     """K4 and K4w against their plain versions on the card, on the inputs
-    ``aln -yl2`` gives them; times (CUDA events)."""
+    ``aln -yl2`` gives them; times (CUDA events).  The plain sweep runs
+    on mini and on the window x ce13a.msa, not on the window x ce13a1."""
     out = {}
     for name, (g, q) in ALN_CASES.items():
         calls, text, _ = capture_aln(["-yl2", str(FIX / g), str(FIX / q)])
@@ -589,19 +914,17 @@ def phase_k4() -> dict:
             raise AssertionError(f"capture run on {name} differs")
         (ins,), sw = calls["sweep"][0]
         wargs, wk = calls["walk"][0]
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        ref = SH.sweep_h_ref(ins)
-        end.record()
-        torch.cuda.synchronize()
-        plain_ms = start.elapsed_time(end)
-        for field in SH.Sweep._fields:
-            if not torch.equal(getattr(sw, field), getattr(ref, field)):
-                raise AssertionError(f"K4 {field} != plain on {name}")
-        err = max(float((sw.V - ref.V).abs().max()),
-                  float((sw.bandV - ref.bandV).abs().max()))
+        plain_ms = err = None
+        if name != "win_single":
+            out_ref = []
+            plain_ms = time_once_ms(
+                lambda: out_ref.append(SH.sweep_h_ref(ins)))
+            ref = out_ref[0]
+            for field in SH.Sweep._fields:
+                if not torch.equal(getattr(sw, field), getattr(ref, field)):
+                    raise AssertionError(f"K4 {field} != plain on {name}")
+            err = max(float((sw.V - ref.V).abs().max()),
+                      float((sw.bandV - ref.bandV).abs().max()))
         t0 = time.perf_counter()
         wref = SH.walk_h_ref(*wargs)
         walk_plain_ms = (time.perf_counter() - t0) * 1e3
@@ -615,7 +938,8 @@ def phase_k4() -> dict:
             **b4w}
         emit({"phase": f"k4_{name}", "waves": ins.waves, "rows": ins.M + 1,
               "genome": ins.N, "band_cells": ins.band_cells,
-              "planes_equal": True, "band_equal": True, "knots_equal": True,
+              "planes_equal": plain_ms is not None,
+              "band_equal": plain_ms is not None, "knots_equal": True,
               "knots": len(wk.knots), "walk_steps": wk.steps,
               "k4": k4, "k4w": k4w})
         out[name] = (k4, k4w)
@@ -670,10 +994,13 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": _build.library_path().name})
 
-    phase_k1(dev)
+    bench_args, bench_cells = phase_k1(dev)
     phase_k2k3(dev)
     runs = phase_main()
     k1, k2, k3 = phase_main_shapes()
+    forest_runs, edge_args = phase_forest()
+    k1f = phase_k1f(dev, bench_args, bench_cells, edge_args)
+    phase_forest_shape()
     aln_runs = phase_aln()
     k4, k4w = phase_k4()["win_msa"]
     phase_flagship()
@@ -685,6 +1012,11 @@ def main() -> int:
          "source": "prrn_aln_tpu_torch/csrc/pairwise.cu",
          "replaces": "prrn_aln_tpu/ops/pallas_pairwise.py:123",
          "launches": launches["pairwise"], **k1},
+        {"name": "pairwise_rows", "route": "cuda",
+         "source": "prrn_aln_tpu_torch/csrc/pairwise_rows.cu",
+         "replaces": "prrn_aln_tpu/ops/pallas_pairwise.py:341",
+         "launches": forest_runs["fused"]["pairwise_rows"],
+         **{k: x for k, x in k1f.items() if k != "k1_ms"}},
         {"name": "group_wavefront", "route": "cuda",
          "source": "prrn_aln_tpu_torch/csrc/group_wavefront.cu",
          "replaces": "prrn_aln_tpu/ops/pallas_group.py:102",

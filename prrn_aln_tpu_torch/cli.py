@@ -2,7 +2,8 @@
 prediction) of the port.
 
 Counterparts of ``prrn_aln_tpu/cli.py::prrn_main`` for the flags the
-default path and its output use, and of ``aln_main``'s spliced branch
+default paths (all-pairs below 16 sequences, the single-linkage forest
+from 16 on) and their output use, and of ``aln_main``'s spliced branch
 for a protein or aligned protein MSA query against genomic DNA
 (``aln -yl2``).  The port adds ``--device`` (default ``cuda``); a CUDA
 device that is absent is an error, never a switch to the CPU.  Every
@@ -23,7 +24,7 @@ from . import alphabet as ab
 from . import io
 from .config import default_params
 from .pipeline import build_msa
-from .utils.runstat import RunStat
+from .utils.runstat import runstat
 
 # flags of the JAX prrn that are accepted but not yet ported, with the
 # value that means "not given"
@@ -148,7 +149,7 @@ def prrn_main(argv=None) -> int:
                 f"{', '.join('-' + g for g in given)}")
     device = _device(args.device)
     _apply_sshp(args)
-    runstat = RunStat()
+    runstat.reset()                  # the pipeline stamps its phases too
     runstat.setfmessg(args.E)
     runstat.stamp(0)
 

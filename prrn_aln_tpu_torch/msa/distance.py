@@ -2,7 +2,8 @@
 
 Counterpart of ``prrn_aln_tpu/msa/distance.py``: ``all_pairs_scores``
 and ``distance_matrix`` run on ``ops.pairwise.pairwise_scores`` (kernel
-K1 on a CUDA device, its plain version on the CPU); ``condensed_index``,
+K1, or K1f under ``PRRN_PW_FUSED=1``, on a CUDA device; the plain
+versions on the CPU); ``condensed_index``,
 ``scores_to_dist`` and the MSA divergences (``pairdvn``,
 ``msa_distance_matrix``) are host NumPy, copied unchanged.  The mesh
 paths (``_sharded_*``) are not ported yet.
@@ -34,22 +35,27 @@ def condensed_index(i: int, j: int) -> int:
 
 def all_pairs_scores(seqs: list[np.ndarray], mtx: np.ndarray,
                      u: float, v: float, sh: int,
-                     device: torch.device | str) -> np.ndarray:
-    """Banded wavefront scores for all N*(N-1)/2 pairs in one batch.
+                     device: torch.device | str,
+                     pairs: list[tuple[int, int]] | None = None,
+                     lossy: bool = False) -> np.ndarray:
+    """Banded wavefront scores of ``pairs`` in one batch; by default all
+    N*(N-1)/2 pairs.
 
-    Returns the condensed score array ordered like the reference's
-    elem(i,j) = j*(j-1)/2 + i (i < j).
+    Returns the score array in the order of ``pairs``; the default is
+    the condensed order of the reference's elem(i,j) = j*(j-1)/2 + i
+    (i < j).  ``lossy`` is the bf16 score screen of ``pairwise_scores``.
     """
     n = len(seqs)
-    pairs = [(i, j) for j in range(1, n) for i in range(j)]
+    if pairs is None:
+        pairs = [(i, j) for j in range(1, n) for i in range(j)]
     lens = [len(s) for s in seqs]
     ma = max(lens)
     padded = np.zeros((n, ma), np.int32)
     for k, s in enumerate(seqs):
         padded[k, :len(s)] = s
 
-    ai = np.array([p[0] for p in pairs])
-    bi = np.array([p[1] for p in pairs])
+    ai = np.array([p[0] for p in pairs], np.int64)
+    bi = np.array([p[1] for p in pairs], np.int64)
     wdws = [stripe(lens[i], lens[j], sh) for i, j in pairs]
 
     def dev(x):
@@ -61,7 +67,7 @@ def all_pairs_scores(seqs: list[np.ndarray], mtx: np.ndarray,
         dev(np.array([lens[j] for j in bi], np.int32)),
         dev(mtx.astype(np.float32)), u, v,
         lw=dev(np.array([w.lw for w in wdws], np.int32)),
-        up=dev(np.array([w.up for w in wdws], np.int32)))
+        up=dev(np.array([w.up for w in wdws], np.int32)), lossy=lossy)
     return scores.cpu().numpy()
 
 

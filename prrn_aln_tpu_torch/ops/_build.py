@@ -33,6 +33,7 @@ _vp, _int = ctypes.c_void_p, ctypes.c_int
 # C signatures of the kernels' launchers; each returns cudaGetLastError()
 _SIGNATURES = {
     "pairwise_scores_launch": [_vp] * 12 + [_int] * 6 + [_vp],
+    "pairwise_rows_launch": [_vp] * 12 + [_int] * 6 + [_vp],
     "group_wavefront_launch": [_vp] * 22 + [_int] * 9 + [_vp],
     "traceback_launch": [_vp] * 7 + [_int] * 4 + [_vp],
     "spliced_h_wave_launch": [_vp] * 17 + [_int] * 13 + [_vp],

@@ -1,17 +1,32 @@
-"""Batched banded anti-diagonal wavefront DP, score only (kernel K1).
+"""Batched banded pairwise DP, score only (kernels K1 and K1f).
 
 Counterpart of ``prrn_aln_tpu/ops/pairwise.py::wavefront_scores`` (the
-plain version here) and ``prrn_aln_tpu/ops/pallas_pairwise.py::
-pallas_pairwise_scores`` (the dispatching wrapper ``pairwise_scores``,
-whose CUDA kernel ``csrc/pairwise.cu`` replaces the Pallas row sweep).
+plain version ``wavefront_scores_ref``) and of ``prrn_aln_tpu/ops/
+pallas_pairwise.py::pallas_pairwise_scores`` (the dispatching wrapper
+``pairwise_scores``).
 
-Score-only affine-gap (Gotoh) alignment over a diagonal band, scanned
-along anti-diagonals: band slot k holds diagonal r = n - m = lw - 1 + k,
-and step d updates the slots whose parity matches d.  Both versions run
-the same float operations in the same order, so their scores are equal.
+Two routes compute the same score-only affine-gap (Gotoh) alignment
+over a diagonal band:
+
+* K1, the default (``csrc/pairwise.cu``): scanned along anti-diagonals;
+  band slot k holds diagonal r = n - m = lw - 1 + k, and step d updates
+  the slots whose parity matches d.
+* K1f, chosen by ``PRRN_PW_FUSED=1`` for matrices of at most 32 codes
+  and global scores (``csrc/pairwise_rows.cu``): the row sweep of
+  ``pallas_pairwise.py::_kernel_rows_fused``.  Lane j of row m holds
+  column n = m + lw0 + j; the horizontal gap is solved a row at a time
+  as a running maximum, ``E = cummax_j(C + j*u) - j*u`` with
+  ``C(j) = X(j-1) - v - u``.  Its plain version is ``row_scores_ref``.
+
+Within a route the kernel and its plain version run the same float
+operations, so their scores are equal bit for bit; between the routes
+the running maximum reassociates the ``- u`` steps, so scores may
+differ by a few f32 ulp.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -106,6 +121,94 @@ def wavefront_scores_ref(a_batch, b_batch, la, lb, lw, up, mtx, u, v, tgapf,
     return best
 
 
+def row_scores_ref(a_batch, b_batch, la, lb, lw, up, mtx, u, v, tgapf,
+                   exg, *, lw0: int, nlane: int, nrow: int) -> torch.Tensor:
+    """Plain PyTorch row sweep; returns (B,) f32 global scores.
+
+    A transcription of ``_kernel_rows_fused``'s row loop: arguments as
+    ``wavefront_scores_ref``; ``lw0`` is the packing offset (lane j of
+    row m is column m + lw0 + j), ``nlane`` the lanes swept (at least
+    ``up.max() - lw0 + 1``) and ``nrow`` the rows (at least
+    ``la.max()``).  ``j*u`` is rounded in f32, so the last bits of a
+    score can depend on ``lw0``.  Columns outside ``b_batch`` score 0,
+    as the TPU kernel's out-of-range code does.
+    """
+    dev = a_batch.device
+    f32 = torch.float32
+    dim = mtx.shape[0]
+    Mb = b_batch.shape[1]
+    flat = mtx.to(f32).reshape(-1)
+    a_batch = a_batch.long()
+    b_batch = b_batch.long()
+    la, lb, lw, up = (x.to(f32)[:, None] for x in (la, lb, lw, up))
+    u, v, tgapf = (x.to(f32)[:, None] for x in (u, v, tgapf))
+    exg = exg.bool()
+    fa_l, fa_r, fb_l, fb_r = (torch.where(exg[:, k:k + 1], 0.0, tgapf)
+                              for k in range(4))
+    B = a_batch.shape[0]
+
+    lane = torch.arange(nlane, device=dev)
+    j = lane.to(f32)[None, :]
+    ju = j * u
+    jband = (lw0 + j >= lw) & (lw0 + j <= up)
+    neg_col = torch.full((B, 1), NEG_SENT, dtype=f32, device=dev)
+    nev_col = torch.full((B, 1), NEVSEL, dtype=f32, device=dev)
+    nev = torch.full((B, nlane), NEVSEL, dtype=f32, device=dev)
+
+    # virtual boundary row m = -1: lane j holds n = -1 + lw0 + j
+    nv = lw0 - 1.0 + j
+    slot_ok = (nv + 1.0 >= lw) & (nv + 1.0 <= up)
+    H = torch.where(nv == -1.0, 0.0,
+                    torch.where((nv >= 0.0) & slot_ok,
+                                -(v + (nv + 1.0) * u) * fa_l, NEG_SENT))
+    Gv, LR, BC = nev, nev, nev
+
+    for m in range(nrow):
+        mf = float(m)
+        n_idx = m + lw0 + lane
+        inside = ((n_idx >= 0) & (n_idx < Mb))[None, :]
+        codes = b_batch[:, n_idx.clamp(0, Mb - 1)]
+        s_row = torch.where(inside, flat[a_batch[:, m:m + 1] * dim + codes],
+                            0.0)
+        n_vec = mf + lw0 + j
+        colb = -(v + (mf + 1.0) * u) * fb_l        # H(m, -1)
+        colb_ok = mf < -lw
+
+        Hs = torch.cat([H[:, 1:], neg_col], 1)
+        Gs = torch.cat([Gv[:, 1:], nev_col], 1)
+        G0 = torch.maximum(Hs - v, Gs) - u
+        X = torch.maximum(H + s_row, G0)
+        X = torch.where(mf < la, X, NEG_SENT)
+        valid = (n_vec >= 0.0) & (n_vec < lb) & jband
+        virt = (n_vec == -1.0) & colb_ok
+
+        C = (torch.cat([neg_col, X[:, :-1]], 1) - v) - u
+        C = torch.where((n_vec == 0.0) & colb_ok, (colb - v) - u, C)
+        E = torch.cummax(C + ju, dim=1).values - ju
+        H0 = torch.maximum(X, E)
+        H0 = torch.where(valid, H0, torch.where(virt, colb, NEG_SENT))
+
+        LR = torch.where(mf == la - 1.0, H0, LR)
+        kb = la - 1.0 - mf
+        cand = torch.where((n_vec == lb - 1.0) & (kb > 0.0),
+                           H0 - (v + kb * u) * fb_r, NEVSEL)
+        BC = torch.maximum(BC, cand)
+        H, Gv = H0, G0
+
+    n_last = (la - 1.0) + lw0 + j
+    corner = torch.where(n_last == lb - 1.0, LR, NEVSEL).amax(1)
+    kfb = lb - 1.0 - n_last
+    best_row = torch.where((kfb > 0.0) & (n_last >= 0.0),
+                           LR - (v + kfb * u) * fa_r, NEVSEL).amax(1)
+    best_col = BC.amax(1)
+    score = corner
+    score = torch.where(fa_r[:, 0] < 1.0, torch.maximum(score, best_row),
+                        score)
+    score = torch.where(fb_r[:, 0] < 1.0, torch.maximum(score, best_col),
+                        score)
+    return score
+
+
 def _per_pair(x, B: int, dtype, device) -> torch.Tensor:
     t = torch.as_tensor(x, dtype=dtype, device=device)
     return t.expand(B).contiguous() if t.dim() == 0 else t
@@ -114,14 +217,23 @@ def _per_pair(x, B: int, dtype, device) -> torch.Tensor:
 def pairwise_scores(a_batch: torch.Tensor, b_batch: torch.Tensor,
                     la, lb, mtx: torch.Tensor, u, v, tgapf=1.0,
                     exg=None, lw=None, up=None,
-                    local: bool = False) -> torch.Tensor:
-    """Batched banded affine-gap scores (kernel K1).
+                    local: bool = False, lossy: bool = False,
+                    lw0: int | None = None) -> torch.Tensor:
+    """Batched banded affine-gap scores (kernel K1, or K1f).
 
     a_batch (B, Ma) / b_batch (B, Mb) int32 codes (0-padded) and mtx
     (dim, dim) f32 on one device; la, lb, lw, up (B,) lengths and band
     diagonals (default lw=-la, up=lb: the full rectangle); u, v, tgapf
     scalars or (B,); exg (B, 4) bool.  Returns (B,) f32 scores.  CPU
     tensors take the plain version; CUDA tensors launch the kernel.
+
+    ``PRRN_PW_FUSED=1`` in the environment, read at the call as the JAX
+    wrapper reads it, sends global scores over a matrix of at most 32
+    codes to the row sweep (K1f) with the packing offset ``lw0``
+    (default: the batch's smallest ``lw``, as in the JAX wrapper).
+    ``lossy`` is the opt-in bf16 edge screen: the matrix is rounded to
+    bf16 before K1's lookup; the row sweep ignores it, as the JAX
+    wrapper's fused route does.
     """
     dev = a_batch.device
     B = a_batch.shape[0]
@@ -135,6 +247,16 @@ def pairwise_scores(a_batch: torch.Tensor, b_batch: torch.Tensor,
     if exg is None:
         exg = torch.zeros((B, 4), dtype=torch.bool, device=dev)
     exg = torch.as_tensor(exg, device=dev).bool()
+    fused = (os.environ.get("PRRN_PW_FUSED", "0") == "1"
+             and mtx.shape[0] <= 32 and not local)
+    if fused:
+        if lw0 is None:
+            lw0 = int(lw.min()) if B else 0
+        run = _plain_rows if dev.type == "cpu" else _launch_rows
+        return run(a_batch, b_batch, la, lb, lw, up, mtx, u, v, tgapf, exg,
+                   lw0)
+    if lossy:
+        mtx = mtx.to(torch.bfloat16).to(torch.float32)
     run = _plain_pairwise if dev.type == "cpu" else _launch_pairwise
     return run(a_batch, b_batch, la, lb, lw, up, mtx, u, v, tgapf, exg, local)
 
@@ -147,8 +269,17 @@ def _plain_pairwise(a_batch, b_batch, la, lb, lw, up, mtx, u, v, tgapf,
                                 nsteps=int((la + lb).max()) - 1, local=local)
 
 
-def _launch_pairwise(a_batch, b_batch, la, lb, lw, up, mtx, u, v, tgapf,
-                     exg, local):
+def _plain_rows(a_batch, b_batch, la, lb, lw, up, mtx, u, v, tgapf, exg,
+                lw0):
+    """The plain version on the arguments ``_launch_rows`` takes."""
+    return row_scores_ref(a_batch, b_batch, la, lb, lw, up, mtx, u, v, tgapf,
+                          exg, lw0=lw0, nlane=int(up.max()) - lw0 + 1,
+                          nrow=int(la.max()))
+
+
+def _checked_inputs(a_batch, b_batch, la, lb, lw, up, mtx, u, v, tgapf, exg):
+    """Raise unless the tensors are what K1 and K1f take; returns the
+    free-end-gap flags as bytes."""
     dev = a_batch.device
     if dev.type != "cuda":
         raise ValueError(f"pairwise_scores: unsupported device {dev}")
@@ -166,6 +297,44 @@ def _launch_pairwise(a_batch, b_batch, la, lb, lw, up, mtx, u, v, tgapf,
             (exg_u8, "exg", torch.uint8, (B, 4)),
             (mtx, "mtx", torch.float32, (dim, dim))):
         _build.require(t, name, dtype, shape, dev)
+    return exg_u8
+
+
+def _launch_rows(a_batch, b_batch, la, lb, lw, up, mtx, u, v, tgapf, exg,
+                 lw0):
+    exg_u8 = _checked_inputs(a_batch, b_batch, la, lb, lw, up, mtx, u, v,
+                             tgapf, exg)
+    dev = a_batch.device
+    B, Ma = a_batch.shape
+    Mb = b_batch.shape[1]
+    dim = mtx.shape[0]
+    out = torch.empty(B, dtype=torch.float32, device=dev)
+    if B == 0:
+        return out
+    nlane = int(up.max()) - lw0 + 1
+    if int(lw.min()) < lw0 or nlane < 1:
+        raise ValueError(f"pairwise_scores: lw0={lw0} does not cover the "
+                         f"batch's bands")
+    lib = _build.load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.pairwise_rows_launch(
+        a_batch.data_ptr(), b_batch.data_ptr(), la.data_ptr(),
+        lb.data_ptr(), lw.data_ptr(), up.data_ptr(), u.data_ptr(),
+        v.data_ptr(), tgapf.data_ptr(), exg_u8.data_ptr(), mtx.data_ptr(),
+        out.data_ptr(), B, Ma, Mb, dim, lw0, nlane, stream)
+    _build.check(err, "pairwise_rows_launch")
+    _build.LAUNCHES["pairwise_rows"] += 1
+    return out
+
+
+def _launch_pairwise(a_batch, b_batch, la, lb, lw, up, mtx, u, v, tgapf,
+                     exg, local):
+    exg_u8 = _checked_inputs(a_batch, b_batch, la, lb, lw, up, mtx, u, v,
+                             tgapf, exg)
+    dev = a_batch.device
+    B, Ma = a_batch.shape
+    Mb = b_batch.shape[1]
+    dim = mtx.shape[0]
     out = torch.empty(B, dtype=torch.float32, device=dev)
     if B == 0:
         return out

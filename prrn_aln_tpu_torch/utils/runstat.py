@@ -28,6 +28,11 @@ class RunStat:
         self.values: list[int] = []
         self.timestamps: list[float] = []
 
+    def reset(self):
+        """Forget the stamps of an earlier run in this process."""
+        self.values.clear()
+        self.timestamps.clear()
+
     def setfmessg(self, dest: str | None):
         """'' or '-' = stderr; otherwise a file path."""
         if dest is None:

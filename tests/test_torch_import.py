@@ -16,7 +16,8 @@ def test_port_imports_no_jax():
             " pkg.__name__ + '.')]\n"
             "for name in mods:\n"
             "    importlib.import_module(name)\n"
-            "for need in ('cli', 'ops.spliced_h', 'splice.hapi'):\n"
+            "for need in ('cli', 'ops.spliced_h', 'splice.hapi', 'native',"
+            " 'msa.kmer', 'msa.slforest'):\n"
             "    assert 'prrn_aln_tpu_torch.' + need in mods, mods\n"
             "bad = [m for m in sys.modules if m == 'jax'"
             " or m.startswith('jax.') or m == 'prrn_aln_tpu'"
@@ -50,3 +51,33 @@ def test_gene_prediction_runs_without_jax(tmp_path):
                          capture_output=True, text=True, timeout=300,
                          check=True)
     assert res.stdout.startswith("#")
+
+
+def test_forest_path_runs_without_jax(tmp_path):
+    """With ``jax`` and ``prrn_aln_tpu`` made unimportable, the port's
+    ``prrn`` takes the forest path on the CPU (16 short sequences in two
+    families, no refinement)."""
+    code = ("import sys\n"
+            "import numpy as np\n"
+            "class Block:\n"
+            "    def find_spec(self, name, path=None, target=None):\n"
+            "        if name.split('.')[0] in ('jax', 'prrn_aln_tpu'):\n"
+            "            raise ModuleNotFoundError(name)\n"
+            "sys.meta_path.insert(0, Block())\n"
+            "from prrn_aln_tpu_torch.cli import prrn_main\n"
+            "rng = np.random.default_rng(2)\n"
+            "aa = np.array(list('ACDEFGHIKLMNPQRSTVWY'))\n"
+            "with open(sys.argv[1], 'w') as fh:\n"
+            "    for f in range(2):\n"
+            "        anc = aa[rng.integers(0, 20, 40 + 6 * f)]\n"
+            "        for i in range(8):\n"
+            "            s = anc.copy()\n"
+            "            hit = rng.random(len(s)) < 0.1\n"
+            "            s[hit] = aa[rng.integers(0, 20, hit.sum())]\n"
+            "            fh.write(f'>f{f}s{i}\\n' + ''.join(s) + '\\n')\n"
+            "sys.exit(prrn_main(['-R', '0', '-I', '0', sys.argv[1],"
+            " '--device', 'cpu']))\n")
+    res = subprocess.run([sys.executable, "-c", code, str(tmp_path / "f.fa")],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=600, check=True)
+    assert res.stdout.count("| f0s") >= 8 and res.stdout.count("| f1s") >= 8

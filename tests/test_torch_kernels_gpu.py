@@ -62,6 +62,33 @@ def test_pairwise_kernel_matches_plain(cuda_device, local):
     assert torch.equal(got, ref)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("lo, hi, n", [(40, 200, 32), (1400, 1600, 4)])
+def test_pairwise_rows_kernel_matches_plain(cuda_device, lo, hi, n):
+    """K1f against ``row_scores_ref``, bit for bit: a lane a thread, and
+    bands past 1,024 lanes (two lanes a thread)."""
+    rng = np.random.default_rng(5)
+    la = rng.integers(lo, hi, n).astype(np.int32)
+    lb = rng.integers(lo, hi, n).astype(np.int32)
+    A = np.zeros((n, hi), np.int32)
+    Bm = np.zeros((n, hi), np.int32)
+    for i in range(n):
+        A[i, :la[i]] = rng.integers(3, 23, la[i])
+        Bm[i, :lb[i]] = rng.integers(3, 23, lb[i])
+    wd = [stripe(int(x), int(y), -60) for x, y in zip(la, lb)]
+    arrs = [A, Bm, la, lb, np.array([w.lw for w in wd], np.int32),
+            np.array([w.up for w in wd], np.int32), MTX.astype(np.float32),
+            np.full(n, 2.0, np.float32), np.full(n, 9.0, np.float32),
+            np.where(rng.random(n) < 0.5, 1.0, 0.5).astype(np.float32),
+            rng.random((n, 4)) < 0.3]
+    args = [torch.as_tensor(x, device=cuda_device) for x in arrs]
+    lw0 = int(arrs[4].min())
+    got = tpw._launch_rows(*args, lw0)
+    ref = tpw._plain_rows(*args, lw0)
+    assert torch.equal(got, ref)
+    assert tpw._build.LAUNCHES["pairwise_rows"] >= 1
+
+
 def _rand_msa(rng, many, L):
     codes = (rng.integers(0, 20, size=(many, L)) + ab.ALA).astype(np.int8)
     codes[rng.random((many, L)) < 0.08] = ab.GAP
