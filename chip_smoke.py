@@ -814,8 +814,8 @@ def phase_aln() -> dict:
             text, secs, counts = run_aln(["-yl2", str(FIX / g),
                                           str(FIX / q)])
             if text != want:
-                raise AssertionError(f"{run} aln -yl2 on {name} differs "
-                                     f"from jax_aln_yl2_{name}.txt")
+                raise AssertionError(f"{run} aln -yl2 on {name} differs from "
+                                     f"jax_aln_yl2_{name}.txt")
             for k in ("spliced_h_wave", "spliced_h_walk"):
                 if counts.get(k, 0) <= 0:
                     raise AssertionError(f"{run} aln on {name} never "
