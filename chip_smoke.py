@@ -14,21 +14,27 @@ Phases (each raises on failure, so the script exits non-zero):
    pairwise fixtures and on 512 random pairs of 512 x 512 at sh=-60,
    with kernel and plain times and GCUPS;
 3. K2 (group wavefront) and K3 (traceback) against their plain versions
-   on the card, on the galign fixtures (ls=1 and ls=3) and a batch of 32
-   pairs of 8 members x 384 columns;
+   on the card, bit for bit (K2's planes and scores), on the galign
+   fixtures (ls=1 and ls=3), real member counts 1-7 padded to 7, a shape
+   whose gap runs leave shared memory (K2's global variant) and a batch
+   of 32 pairs of 8 members x 384 columns; each timed K2 call prints its
+   real and padded member pairs, steps, microseconds a step, variant and
+   registers;
 4. the main path: ``prrn -R 0`` on ce13a17_clean.fa through the kernels,
    cold and warm, byte-identical to the JAX package's output fixture,
    every golden row exact, and every kernel launched;
 5. every kernel call of a third ``prrn -R 0`` run, recorded with its
    inputs, against the plain version on the card, and each kernel's time
-   at the main path's shapes;
+   at the main path's shapes (K2: the call with the most real member
+   pairs);
 6. the forest path (16 or more sequences): ``prrn -R 0`` on fam19.fa
    (19 proteins) through the kernels, byte-identical to the JAX
    package's output fixture, K1, K2 and K3 launched; then the same run
    once more under ``PRRN_PW_FUSED=1``: K1f launched and K1 not, the
    same edge list and forest, the same bytes; stage walls and summed
-   kernel times of both runs (a run takes two minutes, so the second,
-   warm run is the one under the switch);
+   kernel times of both runs (the second, warm run is the one under the
+   switch); then K2's call of the first run with the most real member
+   pairs (the last refinement's) against its plain version, and timed;
 7. K1f (row-sweep pairwise DP) against its plain version on the card,
    bit for bit, on the global pairwise fixtures, on phase 2's 512 pairs
    and on the edge batch recorded in phase 6; against K1 on the last
@@ -91,6 +97,8 @@ FIX = ROOT / "tests" / "fixtures"
 # float32 rate outside the tensor cores
 MEM_BPS = 3.35e12
 F32_OPS = 67e12
+# and the float64 rate outside the tensor cores
+F64_OPS = 34e12
 # gene-prediction inputs: genome, query
 ALN_CASES = {"mini": ("mini_gen.fa", "mini_pro.fa"),
              "win_single": ("cet10b9_win31401.fa", "ce13a1_unaligned.fa"),
@@ -137,13 +145,14 @@ def time_once_ms(fn) -> float:
     return start.elapsed_time(end)
 
 
-def bound(nbytes: float, nops: float) -> dict:
+def bound(nbytes: float, nops: float, f64_ops: float = 0) -> dict:
     """The least time the card could take for a kernel's work: the
     larger of its bytes (each input read once, each output written once)
-    over the memory rate and its float operations over the f32 rate.  No
-    PyTorch call computes a banded DP, so there is no library time."""
+    over the memory rate and its float operations over the f32 rate (and
+    its f64 operations over the f64 rate).  No PyTorch call computes a
+    banded DP, so there is no library time."""
     tb = nbytes / MEM_BPS * 1e3
-    to = nops / F32_OPS * 1e3
+    to = (nops / F32_OPS + f64_ops / F64_OPS) * 1e3
     return {"bound_ms": max(tb, to),
             "bound_by": "bytes" if tb >= to else "operations",
             "library_ms": None}
@@ -151,6 +160,40 @@ def bound(nbytes: float, nops: float) -> dict:
 
 def tensor_bytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def k2_bound(ins: dict, dirs: torch.Tensor) -> dict:
+    """K2's bound over the member pairs it walks (each pair's real ones),
+    with the reckoning over the padded pairs beside it.  A band cell: the
+    C-channel profile product and six crg sums (a multiply and an add a
+    channel or member pair, in f64) and the lane update (9 f32)."""
+    plan = G.wavefront_plan(ins, nslot=dirs.shape[2])
+    C = ins["CA"].shape[2]
+    cells = [pairwise.band_cells(*(ins[x][b:b + 1].cpu().numpy()
+                                   for x in ("la", "lb", "lw", "up")))
+             for b in range(ins["CA"].shape[0])]
+    nbytes = tensor_bytes(*ins.values()) + 4 * len(cells) + 2 * dirs.numel()
+
+    def f64_ops(pairs):
+        return sum(c * (2 * C + 12 * p) for c, p in zip(cells, pairs))
+
+    real = bound(nbytes, 9 * sum(cells), f64_ops(plan["real_pairs"]))
+    padded = bound(nbytes, 9 * sum(cells),
+                   f64_ops([plan["padded_pairs"]] * len(cells)))
+    return {**real, "bound_ms_padded": padded["bound_ms"]}
+
+
+def k2_report(ins: dict, kw: dict, ms: float) -> dict:
+    """What a timed K2 call walked: real and padded member pairs, steps,
+    microseconds a step, the variant and its registers."""
+    plan = G.wavefront_plan(ins, nslot=kw["nslot"], ls3=kw.get("ls3", False))
+    return {"pairs": ins["CA"].shape[0],
+            "real_member_pairs": plan["real_pairs"],
+            "padded_member_pairs": plan["padded_pairs"],
+            "nslot": kw["nslot"], "nsteps": kw["nsteps"],
+            "us_per_step": ms * 1e3 / kw["nsteps"],
+            "variant": plan["variant"], "smem_bytes": plan["smem_bytes"],
+            **G.group_wavefront_attrs(kw.get("ls3", False), plan["variant"])}
 
 
 def golden_rows(text: str) -> dict:
@@ -298,18 +341,28 @@ def phase_k2k3(dev) -> None:
         return m
 
     batch32 = [(rand_msa(8, 384), rand_msa(8, 384)) for _ in range(32)]
-    sets = [("galign", case_pairs(gfix["cases"]), False, None),
+    # real member counts 1-7 padded to 7, as the progressive merges pad
+    mixed = [(rand_msa(a, 300), rand_msa(b, 310))
+             for a, b in ((1, 7), (7, 1), (3, 4), (2, 2), (6, 5))]
+    # members enough that the runs leave shared memory: the global variant
+    wide = [(rand_msa(57, 300), rand_msa(2, 300)),
+            (rand_msa(30, 310), rand_msa(1, 300))]
+    sets = [("galign", case_pairs(gfix["cases"]), False, None, -60),
             ("galign_ls3", case_pairs(ls3fix["cases"]), True,
-             [c["score"] for c in ls3fix["cases"]]),
-            ("batch32_8x384", batch32, False, None)]
+             [c["score"] for c in ls3fix["cases"]], -60),
+            ("mixed_1to7_pad7", mixed, False, None, -60),
+            ("global_57x2", wide, False, None, -300),
+            ("batch32_8x384", batch32, False, None, -60)]
     err2 = 0.0
     err3 = 0
     timing = {}
-    for name, pairs, ls3, want in sets:
+    for name, pairs, ls3, want, sh in sets:
         an_pad = max(max(A.many, B.many) for A, B in pairs)
+        if name.startswith("mixed"):
+            an_pad = 7
         la_max = lb_max = G._bucket(max(max(A.length, B.length)
                                         for A, B in pairs))
-        wd = [stripe(A.length, B.length, -60) for A, B in pairs]
+        wd = [stripe(A.length, B.length, sh) for A, B in pairs]
         nslot = G._bucket(max(w.up - w.lw + 3 for w in wd), 128)
         nsteps = G._bucket(max(A.length + B.length + 1 for A, B in pairs),
                            256)
@@ -324,8 +377,12 @@ def phase_k2k3(dev) -> None:
         torch.cuda.synchronize()
         if not (torch.equal(dk, dr) and torch.equal(ok, orf)):
             raise AssertionError(f"K2 planes != plain on {name}")
-        # the JAX package's own tolerance (tests/test_pallas_group.py)
-        torch.testing.assert_close(sk, sr, rtol=1e-5, atol=1e-3)
+        if not torch.equal(sk, sr):
+            raise AssertionError(f"K2 scores != plain on {name}: max diff "
+                                 f"{float((sk - sr).abs().max())}")
+        variant = G.wavefront_plan(ins, nslot=nslot, ls3=ls3)["variant"]
+        if variant != ("global" if name.startswith("global") else "shared"):
+            raise AssertionError(f"K2 took the {variant} variant on {name}")
         err2 = max(err2, float((sk - sr).abs().max()))
         mi = 2 * (la_max + lb_max) + 4
         tb = (dk, ok, ins["la"], ins["lb"], ins["lw"])
@@ -346,10 +403,17 @@ def phase_k2k3(dev) -> None:
                                        atol=0.05)
         emit({"phase": f"k2k3_{name}", "pairs": len(pairs),
               "an_pad": an_pad, "nslot": nslot, "nsteps": nsteps,
-              "planes_equal": True, "skls_equal": True,
+              "variant": variant, "planes_equal": True, "scores_equal": True,
+              "skls_equal": True,
               "score_max_abs_err": float((sk - sr).abs().max())})
+        if name in ("mixed_1to7_pad7", "global_57x2"):
+            ms = time_ms(lambda: G.group_wavefront(ins, **kw), 5)
+            emit({"phase": f"k2_time_{name}", "ms": ms,
+                  **k2_report(ins, kw, ms)})
         if name == "batch32_8x384":
             timing["k2_ms"] = time_ms(lambda: G.group_wavefront(ins, **kw), 5)
+            timing["k2"] = k2_report(ins, kw, timing["k2_ms"])
+            timing["k2_bound"] = k2_bound(ins, dk)
             timing["k2_plain_ms"] = time_once_ms(
                 lambda: G.group_wavefront_ref(ins, **kw))
             timing["k3_ms"] = time_ms(
@@ -429,7 +493,8 @@ def capture_main_path() -> dict:
 def phase_main_shapes() -> tuple[dict, dict, dict]:
     """Every kernel call of the main path against its plain version on
     the card, on the same inputs; times at the main path's shapes (K1:
-    its one call; K2 and K3: the call with the most member pairs)."""
+    its one call; K2 and K3: the call with the most real member pairs
+    times steps)."""
     calls = capture_main_path()
     k1_err = 0.0
     for args, _, out in calls["pairwise"]:
@@ -444,7 +509,8 @@ def phase_main_shapes() -> tuple[dict, dict, dict]:
         torch.cuda.synchronize()
         if not (torch.equal(dirs, dr) and torch.equal(opens, orf)):
             raise AssertionError("K2 planes != plain on a main-path call")
-        torch.testing.assert_close(score, sr, rtol=1e-5, atol=1e-3)
+        if not torch.equal(score, sr):
+            raise AssertionError("K2 scores != plain on a main-path call")
         k2_err = max(k2_err, float((score - sr).abs().max()))
     k3_err = 0.0
     for args, kw, (moves, cnts) in calls["traceback"]:
@@ -466,24 +532,31 @@ def phase_main_shapes() -> tuple[dict, dict, dict]:
                                  if isinstance(x, torch.Tensor)))
                   + 4 * a_batch.shape[0], 9 * k1_cells)}
 
-    def width(call):
-        ins = call[0][0]
-        return ins["wa"].shape[1] * ins["wb"].shape[1], call[1]["nsteps"]
+    def work(call):
+        # steps times the most real member pairs of a pair of the call
+        (ins,), kw, _ = call
+        plan = G.wavefront_plan(ins, nslot=kw["nslot"])
+        return max(plan["real_pairs"]) * kw["nsteps"], kw["nsteps"]
 
     k = max(range(len(calls["group_wavefront"])),
-            key=lambda i: width(calls["group_wavefront"][i]))
+            key=lambda i: work(calls["group_wavefront"][i]))
     (ins,), kw, (_, dirs, _) = calls["group_wavefront"][k]
-    Bn, _, C = ins["CA"].shape
-    an, bn = ins["wa"].shape[1], ins["wb"].shape[1]
-    k2_cells = pairwise.band_cells(*(ins[x].cpu().numpy()
-                                     for x in ("la", "lb", "lw", "up")))
-    # a band cell: the C-channel profile product (a multiply and an add
-    # each), three gap-open sums over the member pairs and the lane update
-    k2 = {"max_abs_err": k2_err,
-          "ms": time_ms(lambda: G.group_wavefront(ins, **kw), 7),
+    ms = time_ms(lambda: G.group_wavefront(ins, **kw), 7)
+    k2 = {"max_abs_err": k2_err, "ms": ms,
           "plain_ms": time_once_ms(lambda: G.group_wavefront_ref(ins, **kw)),
-          **bound(tensor_bytes(*ins.values()) + 4 * Bn + 2 * dirs.numel(),
-                  k2_cells * (2 * C + 6 * an * bn + 9))}
+          **k2_bound(ins, dirs)}
+    # every K2 call of the run, timed on its own inputs
+    each = [time_ms(lambda c=c: G.group_wavefront(c[0][0], **c[1]), 3)
+            for c in calls["group_wavefront"]]
+    emit({"phase": "k2_time_ce13a17_widest", "ms": ms,
+          "run_calls": len(each), "run_sum_ms": sum(each),
+          "run_max_ms": max(each),
+          "run_ms": each,
+          "run_real_pairs": [max(G.wavefront_plan(
+              c[0][0], nslot=c[1]["nslot"])["real_pairs"])
+              for c in calls["group_wavefront"]],
+          "run_nsteps": [c[1]["nsteps"] for c in calls["group_wavefront"]],
+          **k2_report(ins, kw, ms)})
     tb_args, tb_kw, (_, cnts) = calls["traceback"][k]
     # a move reads one dirs and one opens byte and writes one move byte
     k3 = {"max_abs_err": k3_err,
@@ -510,7 +583,8 @@ def forest_probe():
     kernel's CUDA events, the edge list, the forest, the jobs of every
     ``group_align_batch`` launch and the arguments of the edge pass."""
     rec = {"walls": collections.Counter(), "refines": [], "events":
-           collections.defaultdict(list), "jobs": [], "edge_args": None}
+           collections.defaultdict(list), "jobs": [], "edge_args": None,
+           "k2_widest": None}
 
     def timed(label, fn, keep=None):
         def call(*args, **kwargs):
@@ -535,6 +609,17 @@ def forest_probe():
             rec["events"][name].append((start, end))
             if keep_args:
                 rec["edge_args"] = (name, args)
+            return out
+        return call
+
+    def widest(fn):
+        # the K2 call with the most real member pairs in one pair, with
+        # its inputs and output
+        def call(ins, **kw):
+            out = fn(ins, **kw)
+            real = max(G.wavefront_plan(ins, nslot=kw["nslot"])["real_pairs"])
+            if rec["k2_widest"] is None or real > rec["k2_widest"][0]:
+                rec["k2_widest"] = (real, ins, kw, out)
             return out
         return call
 
@@ -565,7 +650,8 @@ def forest_probe():
          lambda f: evented("pairwise", f, True)),
         (pairwise, "_launch_rows",
          lambda f: evented("pairwise_rows", f, True)),
-        (G, "group_wavefront", lambda f: evented("group_wavefront", f)),
+        (G, "group_wavefront",
+         lambda f: widest(evented("group_wavefront", f))),
         (G, "traceback", lambda f: evented("traceback", f)),
     ]
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
@@ -671,7 +757,27 @@ def phase_forest() -> tuple[dict, tuple]:
           "edge_order_equal": True, "forest_equal": True,
           "max_edge_dist_diff": dmax})
     return ({"cold": runs["cold"][0], "fused": runs["fused"][0]},
-            runs["fused"][1]["edge_args"][1])
+            runs["fused"][1]["edge_args"][1], runs["cold"][1]["k2_widest"])
+
+
+def phase_fam19_k2(widest) -> dict:
+    """K2 on the call of fam19's forest run with the most real member
+    pairs (its last refinement): bit for bit against the plain version,
+    and timed."""
+    real, ins, kw, (score, dirs, opens) = widest
+    sr, dr, orf = G.group_wavefront_ref(ins, **kw)
+    torch.cuda.synchronize()
+    if not (torch.equal(dirs, dr) and torch.equal(opens, orf)
+            and torch.equal(score, sr)):
+        raise AssertionError("K2 != plain on fam19's widest call")
+    ms = time_ms(lambda: G.group_wavefront(ins, **kw), 5)
+    out = {"max_abs_err": 0.0, "ms": ms,
+           "plain_ms": time_once_ms(lambda: G.group_wavefront_ref(ins, **kw)),
+           **k2_bound(ins, dirs)}
+    emit({"phase": "k2_time_fam19_widest", "la": int(ins["la"][0]),
+          "lb": int(ins["lb"][0]), "equals_plain": True, **out,
+          **k2_report(ins, kw, ms)})
+    return out
 
 
 def ulp_diffs(a: torch.Tensor, b: torch.Tensor, la, lb, u, v) -> dict:
@@ -998,7 +1104,9 @@ def main() -> int:
     phase_k2k3(dev)
     runs = phase_main()
     k1, k2, k3 = phase_main_shapes()
-    forest_runs, edge_args = phase_forest()
+    forest_runs, edge_args, k2_widest = phase_forest()
+    k2_fam19 = phase_fam19_k2(k2_widest)
+    del k2_widest
     k1f = phase_k1f(dev, bench_args, bench_cells, edge_args)
     phase_forest_shape()
     aln_runs = phase_aln()
@@ -1020,7 +1128,9 @@ def main() -> int:
         {"name": "group_wavefront", "route": "cuda",
          "source": "prrn_aln_tpu_torch/csrc/group_wavefront.cu",
          "replaces": "prrn_aln_tpu/ops/pallas_group.py:102",
-         "launches": launches["group_wavefront"], **k2},
+         "launches": launches["group_wavefront"], **k2,
+         "fam19": {"launches": forest_runs["cold"]["group_wavefront"],
+                   **k2_fam19}},
         {"name": "traceback", "route": "cuda",
          "source": "prrn_aln_tpu_torch/csrc/traceback.cu",
          "replaces": "prrn_aln_tpu/ops/group.py:595",

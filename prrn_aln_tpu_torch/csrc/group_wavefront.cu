@@ -8,34 +8,62 @@
 // in the same order (built with -fmad=false), so its score, dirs and
 // opens planes equal the plain version's bit for bit.
 //
-// What bounds it on the card: the serial anti-diagonal chain.  A pair
-// takes nsteps dependent steps (La + Lb + 1, bucketed) with one
-// __syncthreads each.  In a step each live slot sums an*bn member pairs
-// six times (eight with ls3) for the exact gap-open counts (crg), and
-// reads 10 gap-run lanes of its own and its two neighbours' members:
-// about 10 * (an + bn) * 4 * 3 bytes per cell, kept in L1/L2.
+// The work: a pair takes nsteps dependent anti-diagonal steps (La + Lb +
+// 1, bucketed) with one __syncthreads each.  In a step each live slot
+// takes the exact gap-open counts (crg) as six sums over its member
+// pairs (eight with ls3), each a chain of f64 adds rounded to f32, and
+// the profile score of its cell, a chain over the C channels.
 //
-// What the design does about it: one thread block per pair, so a batch
-// of pairs runs side by side on the SMs.  At step d only slots of d's
-// parity change, and they read only their own slot and the two
-// neighbours of the other parity, so the lane values (H, G, F, G2, F2,
-// Hdir) are updated in place in shared memory and one barrier a step
-// suffices; thread t takes the live slot 2t + parity, so no thread
-// idles on the wrong parity.  The per-member gap-run lengths (10 lanes x
-// members x nslot) live in a global scratch laid out member-major with
-// the slot fastest, so neighbouring threads read neighbouring words.
-// The profile score of a cell, sum_c CA[m-1,c] * CB[n-1,c], is taken
-// in the cell from the channel stacks; the score image is never stored.
+// The design, for the H100:
+// - Each pair walks only its real members: the wrapper passes, per pair,
+//   the members up to the last non-zero weight (iprm columns 5 and 6).
+//   A dropped member's terms are exact zeros, so the sums are unchanged.
+// - The per-member gap-run lengths of the lanes GH, GG, GF (and GG2, GF2
+//   with ls3) live in dynamic shared memory as int16 beside the lane
+//   values (H, G, F, G2, F2, Hdir): one contiguous per-pair state block.
+//   Each run row has a zero slot at both ends, so the neighbours of the
+//   edge slots read 0 without a branch.  Where that does not fit in a
+//   block's 227 KB, or a run could pass int16, the wrapper picks the
+//   second instantiation, which keeps the runs in a global int32 scratch
+//   of the same layout.
+// - The member factors come pre-weighted from the wrapper, as doubles
+//   (x = wa[i] * XA[m, i] and y = wb[j] * YB[n, j], f32 products made
+//   exact in f64), and the channel stacks as doubles, all through the
+//   read-only path; the six (eight) chains run interleaved in one loop
+//   over (i, j), each in its own fixed order (i outer, j inner).
+// - The profile scores do not depend on the DP: every kSpan steps a
+//   thread computes those of its own cells for the next kSpan steps as
+//   kSpan interleaved chains into shared memory, where it alone reads
+//   them.
+// - At step d only slots of d's parity change, and they read only their
+//   own slot and the two neighbours of the other parity, so all state is
+//   updated in place and one barrier a step suffices; thread t takes the
+//   live slot 2t + parity.
+//
+// What bounds it (tools/k2_bench.py, loops cut one at a time, on an
+// H100): a pair runs on one SM, a step at a time.  With many real member
+// pairs the crg chains do: each term is an f64 add between two
+// conversions, ~0.1 us a real member pair a step at nslot 640 (9 of a
+// 16.8 us step at 90 pairs).  With few members (ce13a17's merges) a step
+// takes ~5 us, of which cutting the profile scores saves 1.6 and cutting
+// all three loops leaves 1.2 (barrier, lane update, plane stores).  Shared
+// memory bounds the members the shared variant holds: with nslot 768 and
+// three lanes about 70 on the two sides together.  -Xptxas -v (sm_90a,
+// CUDA 12.8): 112, 126, 128 and 128 registers for <ls3, shared> = <0, 0>,
+// <0, 1>, <1, 0>, <1, 1>, no spills, one barrier.
 //
 // Sums of products (the crg sums and the profile score) run in one fixed
 // order, each term added like a fused multiply-add: the product in f64
 // (exact for f32 factors) is added to the f32 sum in f64 and the result
 // rounded to f32.  The gap costs added to lane values are fused the same
 // way where the JAX reference's are on the CPU; the plain version
-// computes every one of these identically.
+// computes every one of these identically.  The resumable carries of the
+// TPU kernel (st0, gl0, the d0 offset) are not ported.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -43,20 +71,30 @@ constexpr float kNevsel = -1.0e30f;
 constexpr int8_t D_DIAG = 1, D_VERT = 2, D_HORI = 3;
 constexpr int8_t L_DIAG = 0, L_VERT = 1, L_HORI = 2, L_VERT2 = 3,
                  L_HORI2 = 4;
-// gap-run lanes in the scratch
+// gap-run lanes
 constexpr int GH = 0, GG = 1, GF = 2, GG2 = 3, GF2 = 4;
 constexpr int kMaxThreads = 512;
+// shared memory a block can take on the H100
+constexpr int kSmemMax = 232448;
+// components of the member factors: w * na, w * gd, w * pg, and na
+// itself (the gap flag); each a row of the column index, row fastest
+constexpr int FNA = 0, FGD = 1, FPG = 2, FMASK = 3, NCOMP = 4;
+// steps whose profile scores a thread computes at once, ahead of the DP
+constexpr int kSpan = 8;
 
 struct Args {
-  const float *CA, *CB, *ea0, *eb0;
-  const float *na_a, *gda, *pga, *na_b, *gdb, *pgb;
-  const float *cfa, *efa, *cfb, *efb, *wa, *wb;
-  const int32_t* iprm;   // (B, 5): la, lb, lw, up, k1
+  // every per-column array has the column fastest: neighbouring threads
+  // take neighbouring columns, so their loads coalesce
+  const double *CA, *CB;   // (B, C, la_max), (B, C, lb_max)
+  const double *XA, *YB;   // (B, an, 4, la_max + 1), (B, bn, 4, lb_max + 1)
+  const float *ea0, *eb0;
+  const float *cfa, *efa, *cfb, *efb;
+  const int32_t* iprm;   // (B, 7): la, lb, lw, up, k1, an_b, bn_b
   const float* fprm;     // (B, 4): u, gop_scale, v2divv1, u2divu1
   float* score;
   int8_t *dirs, *opens;
-  int32_t* gl;           // (B, 5 * (an + bn), nslot)
-  int C, an, bn, la_max, lb_max, nslot, nsteps;
+  int32_t* gl;           // global variant: (B, runs words of an_max, bn_max)
+  int C, an, bn, an_max, bn_max, la_max, lb_max, nslot, nsteps;
 };
 
 // a * b + c rounded once to f32: the f64 product of f32 factors is exact
@@ -65,95 +103,190 @@ __device__ __forceinline__ float fma_f64(float a, float b, float c) {
   return (float)((double)a * (double)b + (double)c);
 }
 
-// One pair's view of the gap-run scratch and column arrays.
-struct Pair {
-  const Args& a;
-  int32_t* gl;
-  const float *na_a, *gda, *pga, *na_b, *gdb, *pgb, *wa, *wb;
+// One term of a sum: x * y (f32 values, so the f64 product is exact)
+// added to the sum (an f32 value held in a double) in f64, rounded to
+// f32 and held as a double again.
+__device__ __forceinline__ double add_term(double acc, double x, double y) {
+  return (double)(float)fma(x, y, acc);
+}
 
-  __device__ int32_t* gla(int lane, int i, int k) const {
-    return gl + ((size_t)(lane * a.an + i)) * a.nslot + k;
-  }
-  __device__ int32_t* glb(int lane, int j, int k) const {
-    return gl + ((size_t)(5 * a.an + lane * a.bn + j)) * a.nslot + k;
-  }
-  // gap-run length of lane at slot k (0 outside the band array)
-  __device__ int32_t ga(int lane, int i, int k) const {
-    return (k >= 0 && k < a.nslot) ? *gla(lane, i, k) : 0;
-  }
-  __device__ int32_t gb(int lane, int j, int k) const {
-    return (k >= 0 && k < a.nslot) ? *glb(lane, j, k) : 0;
-  }
+__host__ __device__ constexpr int lanes_of(bool ls3) { return ls3 ? 5 : 3; }
 
-  // sum_i sum_j xa_i * [cmp(i, j)] * yb_j, i outer, j inner, where
-  // xa_i = wa[i] * XA[mc, i] and yb_j = wb[j] * YB[nc, j]; cmp is
-  // gla >= glb (le=false) or glb >= gla (le=true).
-  __device__ float pair_sum(const float* XA, const float* YB, int mc, int nc,
-                            int lane, int k, bool le) const {
-    float acc = 0.0f;
-    for (int i = 0; i < a.an; ++i) {
-      const float x = wa[i] * XA[(size_t)mc * a.an + i];
-      const int32_t gi = ga(lane, i, k);
-      for (int j = 0; j < a.bn; ++j) {
-        const int32_t gj = gb(lane, j, k);
-        const bool c = le ? (gj >= gi) : (gi >= gj);
-        const float y = wb[j] * YB[(size_t)nc * a.bn + j];
-        acc = (float)((double)acc + (c ? (double)x * (double)y : 0.0));
-      }
-    }
-    return acc;
-  }
+// words of gap-run state of one pair: a row of nslot + 2 slots for each
+// lane and member, the first and last slot always 0
+__host__ __device__ inline size_t run_words(bool ls3, int an, int bn,
+                                            int nslot) {
+  return (size_t)lanes_of(ls3) * (an + bn) * (nslot + 2);
+}
 
-  // weighted new-gap count (group.py _wavefront_core.crg) of the state
-  // in `lane` at slot k for the cell (mc, nc), before the gop_scale factor
-  __device__ float crg(int lane, int k, int d3, int mc, int nc) const {
-    if (d3 == 0)
-      return pair_sum(na_a, gdb, mc, nc, lane, k, false) +
-             pair_sum(gda, na_b, mc, nc, lane, k, true);
-    if (d3 > 0) return pair_sum(na_a, pgb, mc, nc, lane, k, false);
-    return pair_sum(pga, na_b, mc, nc, lane, k, true);
+// bytes of dynamic shared memory: the profile scores of the next kSpan
+// steps (f32), then the state block: H, G, F, G2, F2 (f32), the int16
+// runs of the shared variant, Hdir (int8)
+__host__ __device__ inline size_t smem_bytes(bool ls3, bool shared_runs,
+                                             int an_max, int bn_max,
+                                             int nslot) {
+  return (size_t)kSpan * ((nslot + 1) / 2) * sizeof(float) +
+         (size_t)nslot * (5 * sizeof(float) + 1) +
+         (shared_runs ? 2 * run_words(ls3, an_max, bn_max, nslot) : 0);
+}
+
+// One pair's gap-run rows; slot k of a row is at index k + 1.
+template <bool LS3, typename GR>
+struct Runs {
+  GR* base;
+  int an, bn, stride;
+  __device__ GR* a(int lane, int i) const {
+    return base + (size_t)(lane * an + i) * stride + 1;
+  }
+  __device__ GR* b(int lane, int j) const {
+    return base + (size_t)(lanes_of(LS3) * an + lane * bn + j) * stride + 1;
   }
 };
 
-template <bool LS3>
+// The crg sums of the cell at slot k (before the gop_scale factor):
+// out[0] diagonal (GH at k), out[1] GH at k+1, out[2] GG at k+1,
+// out[3] GH at k-1, out[4] GF at k-1, out[5] GG2 at k+1, out[6] GF2 at
+// k-1.  Each is sum_i sum_j x_i [cmp] y_j in that order, i outer.
+// X points at the pair's member factors, column mc; rows of xs doubles
+// (Y likewise, column nc, rows of ys).
+template <bool LS3, typename GR>
+__device__ __forceinline__ void crg_sums(const Runs<LS3, GR>& R,
+                                         const double* __restrict__ X, int xs,
+                                         const double* __restrict__ Y, int ys,
+                                         int k, float* out) {
+  double d1 = 0., d2 = 0., v1 = 0., v2 = 0., h1 = 0., h2 = 0.;
+  double v3 = 0., h3 = 0.;
+  const int stride = R.stride;
+  for (int i = 0; i < R.an; ++i) {
+    const double* x = X + (size_t)i * NCOMP * xs;
+    const double xna = __ldg(x + FNA * xs), xgd = __ldg(x + FGD * xs);
+    const double xpg = __ldg(x + FPG * xs);
+    const GR* ah = R.a(GH, i);
+    const int a_hk = ah[k], a_hh = ah[k + 1], a_hl = ah[k - 1];
+    const int a_gh = R.a(GG, i)[k + 1];
+    const int a_fl = R.a(GF, i)[k - 1];
+    int a_g2h = 0, a_f2l = 0;
+    if (LS3) {
+      a_g2h = R.a(GG2, i)[k + 1];
+      a_f2l = R.a(GF2, i)[k - 1];
+    }
+    const GR* bh = R.b(GH, 0);
+    const GR* bg = R.b(GG, 0);
+    const GR* bf = R.b(GF, 0);
+    const GR* bg2 = LS3 ? R.b(GG2, 0) : bh;
+    const GR* bf2 = LS3 ? R.b(GF2, 0) : bh;
+    const double* y = Y;
+    for (int j = 0; j < R.bn; ++j, y += NCOMP * ys) {
+      const double yna = __ldg(y + FNA * ys), ygd = __ldg(y + FGD * ys);
+      const double ypg = __ldg(y + FPG * ys);
+      const size_t o = (size_t)j * stride;
+      const int b_hk = bh[o + k], b_hh = bh[o + k + 1], b_hl = bh[o + k - 1];
+      const int b_gh = bg[o + k + 1], b_fl = bf[o + k - 1];
+      if (a_hk >= b_hk) d1 = add_term(d1, xna, ygd);
+      if (b_hk >= a_hk) d2 = add_term(d2, xgd, yna);
+      if (a_hh >= b_hh) v1 = add_term(v1, xna, ypg);
+      if (a_gh >= b_gh) v2 = add_term(v2, xna, ypg);
+      if (b_hl >= a_hl) h1 = add_term(h1, xpg, yna);
+      if (b_fl >= a_fl) h2 = add_term(h2, xpg, yna);
+      if (LS3) {
+        if (a_g2h >= (int)bg2[o + k + 1]) v3 = add_term(v3, xna, ypg);
+        if ((int)bf2[o + k - 1] >= a_f2l) h3 = add_term(h3, xpg, yna);
+      }
+    }
+  }
+  out[0] = (float)d1 + (float)d2;
+  out[1] = (float)v1;
+  out[2] = (float)v2;
+  out[3] = (float)h1;
+  out[4] = (float)h2;
+  out[5] = (float)v3;
+  out[6] = (float)h3;
+}
+
+// The profile scores of the cells that slot pair q takes in steps d to
+// d + kSpan - 1: for each, sum_c CA[c, m - 1] * CB[c, n - 1] in channel
+// order.  The kSpan chains are independent, so they run interleaved;
+// out-of-band cells are computed at clamped columns and never read.
+__device__ __forceinline__ void channel_span(const double* __restrict__ CA,
+                                             int la_max,
+                                             const double* __restrict__ CB,
+                                             int lb_max, int C, int d, int q,
+                                             int lw, float* out, int stride) {
+  int ai[kSpan], bi[kSpan];
+  double s[kSpan];
+#pragma unroll
+  for (int j = 0; j < kSpan; ++j) {
+    const int dj = d + j;
+    const int k = 2 * q + ((dj - lw + 1) & 1);
+    const int m = (dj - (lw - 1 + k)) >> 1;
+    ai[j] = min(max(m - 1, 0), la_max - 1);
+    bi[j] = min(max(dj - m - 1, 0), lb_max - 1);
+    s[j] = 0.0;
+  }
+  for (int c = 0; c < C; ++c) {
+    const double* a = CA + (size_t)c * la_max;
+    const double* b = CB + (size_t)c * lb_max;
+#pragma unroll
+    for (int j = 0; j < kSpan; ++j)
+      s[j] = add_term(s[j], __ldg(a + ai[j]), __ldg(b + bi[j]));
+  }
+#pragma unroll
+  for (int j = 0; j < kSpan; ++j) out[j * stride] = (float)s[j];
+}
+
+template <bool LS3, bool SHARED>
 __global__ void __launch_bounds__(kMaxThreads)
 group_wavefront_kernel(Args args) {
+  using GR = typename std::conditional<SHARED, int16_t, int32_t>::type;
   extern __shared__ float smem[];
   const int b = blockIdx.x;
   const int nslot = args.nslot, an = args.an, bn = args.bn;
   const int la_max = args.la_max, lb_max = args.lb_max, C = args.C;
-  const int la = args.iprm[5 * b + 0], lb = args.iprm[5 * b + 1];
-  const int lw = args.iprm[5 * b + 2], up = args.iprm[5 * b + 3];
-  const int k1 = args.iprm[5 * b + 4];
+  const int32_t* ip = args.iprm + 7 * b;
+  const int la = ip[0], lb = ip[1], lw = ip[2], up = ip[3], k1 = ip[4];
+  const int an_b = ip[5], bn_b = ip[6];
   const float u = args.fprm[4 * b + 0], gop_scale = args.fprm[4 * b + 1];
   const float v2divv1 = args.fprm[4 * b + 2], u2divu1 = args.fprm[4 * b + 3];
   const float neg_u = -u;
 
-  const Pair P{args, args.gl + (size_t)b * 5 * (an + bn) * nslot,
-               args.na_a + (size_t)b * (la_max + 1) * an,
-               args.gda + (size_t)b * (la_max + 1) * an,
-               args.pga + (size_t)b * (la_max + 1) * an,
-               args.na_b + (size_t)b * (lb_max + 1) * bn,
-               args.gdb + (size_t)b * (lb_max + 1) * bn,
-               args.pgb + (size_t)b * (lb_max + 1) * bn,
-               args.wa + (size_t)b * an, args.wb + (size_t)b * bn};
-  const float* CA = args.CA + (size_t)b * la_max * C;
-  const float* CB = args.CB + (size_t)b * lb_max * C;
-  const float* ea0 = args.ea0 + (size_t)b * la_max;
-  const float* eb0 = args.eb0 + (size_t)b * lb_max;
-  const float* cfa = args.cfa + (size_t)b * (la_max + 1);
-  const float* efa = args.efa + (size_t)b * (la_max + 1);
-  const float* cfb = args.cfb + (size_t)b * (lb_max + 1);
-  const float* efb = args.efb + (size_t)b * (lb_max + 1);
+  const double* __restrict__ CA = args.CA + (size_t)b * la_max * C;
+  const double* __restrict__ CB = args.CB + (size_t)b * lb_max * C;
+  const int xs = la_max + 1, ys = lb_max + 1;
+  const double* __restrict__ XA = args.XA + (size_t)b * an * NCOMP * xs;
+  const double* __restrict__ YB = args.YB + (size_t)b * bn * NCOMP * ys;
+  const float* __restrict__ ea0 = args.ea0 + (size_t)b * la_max;
+  const float* __restrict__ eb0 = args.eb0 + (size_t)b * lb_max;
+  const float* __restrict__ cfa = args.cfa + (size_t)b * (la_max + 1);
+  const float* __restrict__ efa = args.efa + (size_t)b * (la_max + 1);
+  const float* __restrict__ cfb = args.cfb + (size_t)b * (lb_max + 1);
+  const float* __restrict__ efb = args.efb + (size_t)b * (lb_max + 1);
   int8_t* dirs = args.dirs + (size_t)b * args.nsteps * nslot;
   int8_t* opens = args.opens + (size_t)b * args.nsteps * nslot;
 
-  float* Hval = smem;
+  // the profile scores of the coming steps, (kSpan, npairs); then the
+  // pair's state block: lane values, then (shared variant) the runs, then
+  // Hdir
+  const int npairs = (nslot + 1) / 2;
+  float* Sspan = smem;
+  float* Hval = Sspan + kSpan * npairs;
   float* Gval = Hval + nslot;
   float* Fval = Gval + nslot;
   float* G2val = Fval + nslot;
   float* F2val = G2val + nslot;
-  int8_t* Hdir = (int8_t*)(F2val + nslot);
+  const size_t nrun = run_words(LS3, an_b, bn_b, nslot);
+  GR* runs;
+  int8_t* Hdir;
+  if (SHARED) {
+    runs = reinterpret_cast<GR*>(F2val + nslot);
+    Hdir = reinterpret_cast<int8_t*>(
+        reinterpret_cast<int16_t*>(F2val + nslot) +
+        run_words(LS3, args.an_max, args.bn_max, nslot));
+  } else {
+    runs = reinterpret_cast<GR*>(
+        args.gl + (size_t)b * run_words(LS3, args.an_max, args.bn_max, nslot));
+    Hdir = reinterpret_cast<int8_t*>(F2val + nslot);
+  }
+  const Runs<LS3, GR> R{runs, an_b, bn_b, nslot + 2};
 
   for (int k = threadIdx.x; k < nslot; k += blockDim.x) {
     const bool corner = lw - 1 + k == 0;
@@ -161,13 +294,15 @@ group_wavefront_kernel(Args args) {
     Hdir[k] = corner ? D_DIAG : 0;
     Gval[k] = Fval[k] = G2val[k] = F2val[k] = kNevsel;
   }
-  for (size_t i = threadIdx.x; i < (size_t)5 * (an + bn) * nslot;
-       i += blockDim.x)
-    P.gl[i] = 0;
+  for (size_t i = threadIdx.x; i < nrun; i += blockDim.x) runs[i] = 0;
   __syncthreads();
 
-  const int npairs = (nslot + 1) / 2;
   for (int d = 0; d < args.nsteps; ++d) {
+    // a thread computes the profile scores of its own slots for the next
+    // kSpan steps and alone reads them, so this needs no barrier
+    if (d % kSpan == 0)
+      for (int q = threadIdx.x; q < npairs; q += blockDim.x)
+        channel_span(CA, la_max, CB, lb_max, C, d, q, lw, Sspan + q, npairs);
     int8_t* drow = dirs + (size_t)d * nslot;
     int8_t* orow = opens + (size_t)d * nslot;
     const int par = (d - lw + 1) & 1;   // slots k with (d - r) even
@@ -193,12 +328,11 @@ group_wavefront_kernel(Args args) {
       const bool is_top = m == 0, is_left = n == 0;
       const int mi = min(max(m - 1, 0), la_max - 1);
       const int ni = min(max(n - 1, 0), lb_max - 1);
-      float s_cell = 0.0f;
-      for (int c = 0; c < C; ++c)
-        s_cell = fma_f64(CA[(size_t)mi * C + c], CB[(size_t)ni * C + c], s_cell);
-      const float b0_cell = (m >= 1 && n >= 1) ? ea0[mi] * eb0[ni] : 0.0f;
-      const float pua = cfa[mc] * efb[nc] * neg_u;
-      const float pub = cfb[nc] * efa[mc] * neg_u;
+      const float s_cell = Sspan[(d % kSpan) * npairs + q];
+      const float b0_cell =
+          (m >= 1 && n >= 1) ? __ldg(ea0 + mi) * __ldg(eb0 + ni) : 0.0f;
+      const float pua = __ldg(cfa + mc) * __ldg(efb + nc) * neg_u;
+      const float pub = __ldg(cfb + nc) * __ldg(efa + mc) * neg_u;
 
       const int klo = k - 1, khi = k + 1;
       const float Hval_lo = k > 0 ? Hval[klo] : kNevsel;
@@ -208,15 +342,17 @@ group_wavefront_kernel(Args args) {
       const int8_t Hdir_hi = khi < nslot ? Hdir[khi] : 0;
       const float Gval_hi = khi < nslot ? Gval[khi] : kNevsel;
 
+      float crg[7];
+      crg_sums<LS3, GR>(R, XA + mc, xs, YB + nc, ys, k, crg);
+
       // x + crg * gop_scale and the ls3 rate terms are fused
       // multiply-adds where the plain version's are (ops/group.py)
       // diagonal candidate (same slot, step d-2)
-      const float d_val =
-          fma_f64(P.crg(GH, k, 0, mc, nc), gop_scale, Hval[k] + s_cell);
+      const float d_val = fma_f64(crg[0], gop_scale, Hval[k] + s_cell);
 
       // vertical lane
-      const float rgop_v = P.crg(GH, khi, 1, mc, nc);
-      const float ext_gv = fma_f64(P.crg(GG, khi, 1, mc, nc), gop_scale, Gval_hi);
+      const float rgop_v = crg[1];
+      const float ext_gv = fma_f64(crg[2], gop_scale, Gval_hi);
       const float gop_v = rgop_v * gop_scale;
       const float open_gv = LS3 ? Hval_hi + gop_v : fma_f64(rgop_v, gop_scale, Hval_hi);
       const bool open_v = (Hdir_hi != D_VERT) && (open_gv > ext_gv);
@@ -225,8 +361,8 @@ group_wavefront_kernel(Args args) {
       if (!vert_ok) gv = kNevsel;
 
       // horizontal lane
-      const float rgop_h = P.crg(GH, klo, -1, mc, nc);
-      const float ext_fv = fma_f64(P.crg(GF, klo, -1, mc, nc), gop_scale, Fval_lo);
+      const float rgop_h = crg[3];
+      const float ext_fv = fma_f64(crg[4], gop_scale, Fval_lo);
       const float gop_h = rgop_h * gop_scale;
       const float open_fv = LS3 ? Hval_lo + gop_h : fma_f64(rgop_h, gop_scale, Hval_lo);
       const bool open_h = (Hdir_lo != D_HORI) && (open_fv > ext_fv);
@@ -245,14 +381,12 @@ group_wavefront_kernel(Args args) {
         const float G2val_hi = khi < nslot ? G2val[khi] : kNevsel;
         const float F2val_lo = k > 0 ? F2val[klo] : kNevsel;
         const float open_g2v = fma_f64(v2divv1, gop_v, Hval_hi);
-        const float ext_g2v = fma_f64(
-            v2divv1, P.crg(GG2, khi, 1, mc, nc) * gop_scale, G2val_hi);
+        const float ext_g2v = fma_f64(v2divv1, crg[5] * gop_scale, G2val_hi);
         open_v2 = (Hdir_hi != D_VERT) && (open_g2v > ext_g2v);
         g2v = fma_f64(u2divu1, pua, open_v2 ? open_g2v : ext_g2v);
         if (!vert_ok) g2v = kNevsel;
         const float open_f2v = fma_f64(v2divv1, gop_h, Hval_lo);
-        const float ext_f2v = fma_f64(
-            v2divv1, P.crg(GF2, klo, -1, mc, nc) * gop_scale, F2val_lo);
+        const float ext_f2v = fma_f64(v2divv1, crg[6] * gop_scale, F2val_lo);
         open_h2 = (Hdir_lo != D_HORI) && (open_f2v > ext_f2v);
         f2v = fma_f64(u2divu1, pub, open_h2 ? open_f2v : ext_f2v);
         if (!hori_ok) f2v = kNevsel;
@@ -287,58 +421,64 @@ group_wavefront_kernel(Args args) {
         h_val = left_val; h_dir = D_VERT; h_src = L_VERT;
       }
 
-      // per-member gap-run lengths; slot k's lanes are read before they
+      // per-member gap-run lengths; slot k's runs are read before they
       // are written, and no other slot reads them in this step
-      for (int i = 0; i < an; ++i) {
-        const bool a_gap = P.na_a[(size_t)mc * an + i] <= 0.0f;
-        const int32_t h_old = *P.gla(GH, i, k);
-        const int32_t h_hi = P.ga(GH, i, khi), h_lo = P.ga(GH, i, klo);
-        const int32_t g_gla = a_gap ? (open_v ? h_hi : P.ga(GG, i, khi)) + 1 : 0;
-        const int32_t f_gla = (open_h ? h_lo : P.ga(GF, i, klo)) + 1;
-        int32_t g2_gla = 0, f2_gla = 0;
+      for (int i = 0; i < an_b; ++i) {
+        const bool a_gap =
+            __ldg(XA + ((size_t)i * NCOMP + FMASK) * xs + mc) <= 0.0;
+        GR* rh = R.a(GH, i);
+        GR* rg = R.a(GG, i);
+        GR* rf = R.a(GF, i);
+        const int h_old = rh[k], h_hi = rh[khi], h_lo = rh[klo];
+        const int g_gla = a_gap ? (open_v ? h_hi : rg[khi]) + 1 : 0;
+        const int f_gla = (open_h ? h_lo : rf[klo]) + 1;
+        int g2_gla = 0, f2_gla = 0;
         if (LS3) {
-          g2_gla = a_gap ? (open_v2 ? h_hi : P.ga(GG2, i, khi)) + 1 : 0;
-          f2_gla = (open_h2 ? h_lo : P.ga(GF2, i, klo)) + 1;
+          g2_gla = a_gap ? (open_v2 ? h_hi : R.a(GG2, i)[khi]) + 1 : 0;
+          f2_gla = (open_h2 ? h_lo : R.a(GF2, i)[klo]) + 1;
         }
-        int32_t mx = mx_lane == L_VERT ? g_gla : f_gla;
+        int mx = mx_lane == L_VERT ? g_gla : f_gla;
         if (LS3)
           mx = mx_lane == L_VERT ? g_gla : mx_lane == L_VERT2 ? g2_gla
              : mx_lane == L_HORI ? f_gla : f2_gla;
-        int32_t h_new = nondiag ? mx : (a_gap ? h_old + 1 : 0);
+        int h_new = nondiag ? mx : (a_gap ? h_old + 1 : 0);
         if (is_top) h_new = h_lo + 1;
         else if (is_left) h_new = a_gap ? h_hi + 1 : 0;
-        *P.gla(GH, i, k) = h_new;
-        *P.gla(GG, i, k) = g_gla;
-        *P.gla(GF, i, k) = f_gla;
+        rh[k] = (GR)h_new;
+        rg[k] = (GR)g_gla;
+        rf[k] = (GR)f_gla;
         if (LS3) {
-          *P.gla(GG2, i, k) = g2_gla;
-          *P.gla(GF2, i, k) = f2_gla;
+          R.a(GG2, i)[k] = (GR)g2_gla;
+          R.a(GF2, i)[k] = (GR)f2_gla;
         }
       }
-      for (int j = 0; j < bn; ++j) {
-        const bool b_gap = P.na_b[(size_t)nc * bn + j] <= 0.0f;
-        const int32_t h_old = *P.glb(GH, j, k);
-        const int32_t h_hi = P.gb(GH, j, khi), h_lo = P.gb(GH, j, klo);
-        const int32_t g_glb = (open_v ? h_hi : P.gb(GG, j, khi)) + 1;
-        const int32_t f_glb = b_gap ? (open_h ? h_lo : P.gb(GF, j, klo)) + 1 : 0;
-        int32_t g2_glb = 0, f2_glb = 0;
+      for (int j = 0; j < bn_b; ++j) {
+        const bool b_gap =
+            __ldg(YB + ((size_t)j * NCOMP + FMASK) * ys + nc) <= 0.0;
+        GR* rh = R.b(GH, j);
+        GR* rg = R.b(GG, j);
+        GR* rf = R.b(GF, j);
+        const int h_old = rh[k], h_hi = rh[khi], h_lo = rh[klo];
+        const int g_glb = (open_v ? h_hi : rg[khi]) + 1;
+        const int f_glb = b_gap ? (open_h ? h_lo : rf[klo]) + 1 : 0;
+        int g2_glb = 0, f2_glb = 0;
         if (LS3) {
-          g2_glb = (open_v2 ? h_hi : P.gb(GG2, j, khi)) + 1;
-          f2_glb = b_gap ? (open_h2 ? h_lo : P.gb(GF2, j, klo)) + 1 : 0;
+          g2_glb = (open_v2 ? h_hi : R.b(GG2, j)[khi]) + 1;
+          f2_glb = b_gap ? (open_h2 ? h_lo : R.b(GF2, j)[klo]) + 1 : 0;
         }
-        int32_t mx = mx_lane == L_VERT ? g_glb : f_glb;
+        int mx = mx_lane == L_VERT ? g_glb : f_glb;
         if (LS3)
           mx = mx_lane == L_VERT ? g_glb : mx_lane == L_VERT2 ? g2_glb
              : mx_lane == L_HORI ? f_glb : f2_glb;
-        int32_t h_new = nondiag ? mx : (b_gap ? h_old + 1 : 0);
+        int h_new = nondiag ? mx : (b_gap ? h_old + 1 : 0);
         if (is_top) h_new = b_gap ? h_lo + 1 : 0;
         else if (is_left) h_new = h_hi + 1;
-        *P.glb(GH, j, k) = h_new;
-        *P.glb(GG, j, k) = g_glb;
-        *P.glb(GF, j, k) = f_glb;
+        rh[k] = (GR)h_new;
+        rg[k] = (GR)g_glb;
+        rf[k] = (GR)f_glb;
         if (LS3) {
-          *P.glb(GG2, j, k) = g2_glb;
-          *P.glb(GF2, j, k) = f2_glb;
+          R.b(GG2, j)[k] = (GR)g2_glb;
+          R.b(GF2, j)[k] = (GR)f2_glb;
         }
       }
 
@@ -365,42 +505,62 @@ group_wavefront_kernel(Args args) {
   }
 }
 
+template <bool LS3, bool SHARED>
+int launch(const Args& args, int B, size_t smem, cudaStream_t stream) {
+  int threads = ((args.nslot + 1) / 2 + 31) / 32 * 32;
+  threads = threads < 32 ? 32 : (threads > kMaxThreads ? kMaxThreads : threads);
+  cudaError_t err = cudaFuncSetAttribute(
+      group_wavefront_kernel<LS3, SHARED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  group_wavefront_kernel<LS3, SHARED><<<B, threads, smem, stream>>>(args);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// ``shared`` picks the variant (1: int16 runs in shared memory, 0: int32
+// runs in the global scratch ``gl``); the wrapper chooses it by size
+// (ops/group.py::wavefront_plan) and a shared variant that does not fit
+// is refused.
 extern "C" int group_wavefront_launch(
-    const void* CA, const void* CB, const void* ea0, const void* eb0,
-    const void* na_a, const void* gda, const void* pga, const void* na_b,
-    const void* gdb, const void* pgb, const void* cfa, const void* efa,
-    const void* cfb, const void* efb, const void* wa, const void* wb,
-    const void* iprm, const void* fprm, void* score, void* dirs, void* opens,
-    void* gl, int B, int C, int an, int bn, int la_max, int lb_max,
-    int nslot, int nsteps, int ls3, void* stream) {
-  Args args{(const float*)CA, (const float*)CB, (const float*)ea0,
-            (const float*)eb0, (const float*)na_a, (const float*)gda,
-            (const float*)pga, (const float*)na_b, (const float*)gdb,
-            (const float*)pgb, (const float*)cfa, (const float*)efa,
-            (const float*)cfb, (const float*)efb, (const float*)wa,
-            (const float*)wb, (const int32_t*)iprm, (const float*)fprm,
-            (float*)score, (int8_t*)dirs, (int8_t*)opens, (int32_t*)gl,
-            C, an, bn, la_max, lb_max, nslot, nsteps};
-  const size_t smem = (size_t)nslot * (5 * sizeof(float) + 1);
-  int threads = ((nslot + 1) / 2 + 31) / 32 * 32;
-  threads = threads < 32 ? 32 : (threads > kMaxThreads ? kMaxThreads : threads);
+    const void* CA, const void* CB, const void* XA, const void* YB,
+    const void* ea0, const void* eb0, const void* cfa, const void* efa, const void* cfb, const void* efb,
+    const void* iprm, const void* fprm, void* score,
+    void* dirs, void* opens, void* gl, int B, int C, int an, int bn, int an_max, int bn_max,
+    int la_max, int lb_max, int nslot, int nsteps, int ls3, int shared,
+    void* stream) {
+  Args args{(const double*)CA, (const double*)CB, (const double*)XA,
+            (const double*)YB, (const float*)ea0, (const float*)eb0,
+            (const float*)cfa,
+            (const float*)efa, (const float*)cfb, (const float*)efb,
+            (const int32_t*)iprm, (const float*)fprm,
+            (float*)score,
+            (int8_t*)dirs, (int8_t*)opens, (int32_t*)gl,
+            C, an, bn, an_max, bn_max, la_max, lb_max, nslot, nsteps};
+  const size_t smem = smem_bytes(ls3, shared, an_max, bn_max, nslot);
+  if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (ls3)
+    return shared ? launch<true, true>(args, B, smem, s)
+                  : launch<true, false>(args, B, smem, s);
+  return shared ? launch<false, true>(args, B, smem, s)
+                : launch<false, false>(args, B, smem, s);
+}
+
+// Registers a thread and local (spilled) bytes of one instantiation.
+extern "C" int group_wavefront_attrs(int ls3, int shared, void* out) {
+  cudaFuncAttributes a;
   cudaError_t err;
-  if (ls3) {
-    err = cudaFuncSetAttribute(group_wavefront_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    group_wavefront_kernel<true>
-        <<<B, threads, smem, (cudaStream_t)stream>>>(args);
-  } else {
-    err = cudaFuncSetAttribute(group_wavefront_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    group_wavefront_kernel<false>
-        <<<B, threads, smem, (cudaStream_t)stream>>>(args);
-  }
-  return (int)cudaGetLastError();
+  if (ls3)
+    err = shared ? cudaFuncGetAttributes(&a, group_wavefront_kernel<true, true>)
+                 : cudaFuncGetAttributes(&a, group_wavefront_kernel<true, false>);
+  else
+    err = shared ? cudaFuncGetAttributes(&a, group_wavefront_kernel<false, true>)
+                 : cudaFuncGetAttributes(&a, group_wavefront_kernel<false, false>);
+  if (err != cudaSuccess) return (int)err;
+  int* o = (int*)out;
+  o[0] = a.numRegs;
+  o[1] = (int)a.localSizeBytes;
+  return 0;
 }

@@ -34,7 +34,8 @@ _vp, _int = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "pairwise_scores_launch": [_vp] * 12 + [_int] * 6 + [_vp],
     "pairwise_rows_launch": [_vp] * 12 + [_int] * 6 + [_vp],
-    "group_wavefront_launch": [_vp] * 22 + [_int] * 9 + [_vp],
+    "group_wavefront_launch": [_vp] * 16 + [_int] * 12 + [_vp],
+    "group_wavefront_attrs": [_int, _int, _vp],
     "traceback_launch": [_vp] * 7 + [_int] * 4 + [_vp],
     "spliced_h_wave_launch": [_vp] * 17 + [_int] * 13 + [_vp],
     "spliced_h_wave_scratch_words": [],

@@ -28,6 +28,8 @@ rounded to f32, identically by the plain versions and the kernel.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -554,13 +556,83 @@ def group_wavefront_ref(ins: dict, *, nslot: int, nsteps: int,
         nslot=nslot, nsteps=nsteps, ls3=ls3)
 
 
+# shared memory a block can take on the H100 (bytes)
+SMEM_MAX = 232448
+# steps whose profile scores K2 computes at once (kSpan in the kernel)
+K2_SPAN = 8
+
+
+def member_counts(w: torch.Tensor) -> torch.Tensor:
+    """Per pair, the members up to the last non-zero weight (at least
+    one): the members K2 walks.  The members past it are padding and add
+    only exact zeros to the crg sums."""
+    idx = torch.arange(1, w.shape[1] + 1, dtype=torch.int32,
+                       device=w.device)
+    return torch.where(w != 0, idx, 0).amax(1).clamp_min(1).to(torch.int32)
+
+
+def wavefront_variant(an_max: int, bn_max: int, nslot: int, la_max: int,
+                      lb_max: int, ls3: bool) -> tuple[str, int]:
+    """K2's variant for a launch and its bytes of shared memory.
+
+    "shared" keeps the gap runs (3 lanes, 5 with ls3, of nslot + 2 slots
+    a member) as int16 in shared memory beside the lane values (21 bytes
+    a slot) and the profile scores of the next ``K2_SPAN`` steps (f32, a
+    pair of slots each); "global" keeps the runs as int32 in a global
+    scratch.  Shared needs the runs to fit in int16 (a run is at most
+    la + lb long) and the block's bytes to fit in ``SMEM_MAX``.
+    ``an_max``/``bn_max`` are the largest real member counts of the batch
+    (``member_counts``).
+    """
+    vals = 21 * nslot + 4 * K2_SPAN * ((nslot + 1) // 2)
+    runs = 2 * (5 if ls3 else 3) * (an_max + bn_max) * (nslot + 2)
+    if la_max + lb_max < 32767 and vals + runs <= SMEM_MAX:
+        return "shared", vals + runs
+    return "global", vals
+
+
+def wavefront_plan(ins: dict, *, nslot: int, ls3: bool = False) -> dict:
+    """What K2 walks for a batch: per-pair real member counts, their
+    largest, real and padded member pairs, and the variant."""
+    ca, cb = member_counts(ins["wa"]), member_counts(ins["wb"])
+    host = torch.stack([ca, cb]).cpu().long()
+    an_max, bn_max = int(host[0].max()), int(host[1].max())
+    variant, smem = wavefront_variant(an_max, bn_max, nslot,
+                                      ins["CA"].shape[1], ins["CB"].shape[1],
+                                      ls3)
+    return {"an_b": ca, "bn_b": cb, "an_max": an_max, "bn_max": bn_max,
+            "variant": variant, "smem_bytes": smem,
+            "real_pairs": (host[0] * host[1]).tolist(),
+            "padded_pairs": ins["wa"].shape[1] * ins["wb"].shape[1]}
+
+
+def kernel_operands(ins: dict) -> tuple:
+    """K2's operands made from the stacked inputs: the member factors
+    pre-weighted (f32 products, as the plain version forms them) and
+    widened to f64, (B, members, 4, L + 1) with the column fastest (w *
+    na, w * gd, w * pg and na itself, the gap flag); the channel stacks
+    as f64 (B, C, L)."""
+    def weighted(w, cols):
+        x = [(w[:, None, :] * ins[c]).double() for c in cols]
+        x.append(ins[cols[0]].double())
+        return torch.stack(x, 1).permute(0, 3, 1, 2).contiguous()
+
+    XA = weighted(ins["wa"], ("na_a", "gda", "pga"))
+    YB = weighted(ins["wb"], ("na_b", "gdb", "pgb"))
+    CA, CB = (ins[k].double().transpose(1, 2).contiguous()
+              for k in ("CA", "CB"))
+    return XA, YB, CA, CB
+
+
 def group_wavefront(ins: dict, *, nslot: int, nsteps: int,
                     ls3: bool = False):
     """Banded group wavefront over a batch (kernel K2).
 
     ``ins`` holds the stacked inputs of ``stack_inputs``.  Returns score
     (B,) f32, dirs and opens (B, nsteps, nslot) int8.  CPU tensors take
-    the plain version; CUDA tensors launch the kernel.
+    the plain version; CUDA tensors launch the kernel on the operands of
+    ``kernel_operands``, walking each pair's real members only, in the
+    variant ``wavefront_plan`` picks by size.
     """
     dev = ins["CA"].device
     if dev.type == "cpu":
@@ -581,25 +653,44 @@ def group_wavefront(ins: dict, *, nslot: int, nsteps: int,
               "wa": (Bn, an), "wb": (Bn, bn)}
     for k in _FIELDS:
         _build.require(ins[k], k, torch.float32, shapes[k], dev)
-    iprm = torch.stack([ins[k] for k in _IFIELDS], 1).contiguous()
+    plan = wavefront_plan(ins, nslot=nslot, ls3=ls3)
+    iprm = torch.stack([ins[k] for k in _IFIELDS]
+                       + [plan["an_b"], plan["bn_b"]], 1).contiguous()
     fprm = torch.stack([ins[k] for k in _FFIELDS], 1).contiguous()
-    _build.require(iprm, "iprm", torch.int32, (Bn, 5), dev)
+    _build.require(iprm, "iprm", torch.int32, (Bn, 7), dev)
     _build.require(fprm, "fprm", torch.float32, (Bn, 4), dev)
+    XA, YB, CA, CB = kernel_operands(ins)
     score = torch.empty(Bn, dtype=torch.float32, device=dev)
     dirs = torch.empty((Bn, nsteps, nslot), dtype=torch.int8, device=dev)
     opens = torch.empty((Bn, nsteps, nslot), dtype=torch.int8, device=dev)
-    gl = torch.empty(Bn * 5 * (an + bn) * nslot, dtype=torch.int32,
-                     device=dev)
+    shared = plan["variant"] == "shared"
+    words = (0 if shared else Bn * (5 if ls3 else 3)
+             * (plan["an_max"] + plan["bn_max"]) * (nslot + 2))
+    gl = torch.empty(max(words, 1), dtype=torch.int32, device=dev)
     lib = _build.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.group_wavefront_launch(
-        *(ins[k].data_ptr() for k in _FIELDS), iprm.data_ptr(),
-        fprm.data_ptr(), score.data_ptr(), dirs.data_ptr(),
-        opens.data_ptr(), gl.data_ptr(), Bn, C, an, bn, la_max, lb_max,
-        nslot, nsteps, int(ls3), stream)
+        CA.data_ptr(), CB.data_ptr(), XA.data_ptr(), YB.data_ptr(),
+        *(ins[k].data_ptr() for k in ("ea0", "eb0", "cfa", "efa", "cfb",
+                                      "efb")),
+        iprm.data_ptr(), fprm.data_ptr(),
+        score.data_ptr(), dirs.data_ptr(),
+        opens.data_ptr(), gl.data_ptr(), Bn, C, an, bn, plan["an_max"],
+        plan["bn_max"], la_max, lb_max, nslot, nsteps, int(ls3), int(shared),
+        stream)
     _build.check(err, "group_wavefront_launch")
     _build.LAUNCHES["group_wavefront"] += 1
     return score, dirs, opens
+
+
+def group_wavefront_attrs(ls3: bool, variant: str) -> dict:
+    """Registers a thread and local (spilled) bytes of one of K2's
+    instantiations, as the card's loader reports them."""
+    out = (ctypes.c_int * 2)()
+    _build.check(_build.load().group_wavefront_attrs(
+        int(ls3), int(variant == "shared"), ctypes.addressof(out)),
+        "group_wavefront_attrs")
+    return {"registers": out[0], "local_bytes": out[1]}
 
 
 def traceback_ref(dirs: torch.Tensor, opens: torch.Tensor, La, Lb, lw,

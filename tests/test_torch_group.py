@@ -190,3 +190,93 @@ def test_batch_matches_pallas_interpret():
     for (sw, kw), (sg, kg) in zip(want, got):
         assert kg == kw
         assert sg == pytest.approx(sw, rel=1e-5, abs=1e-3)
+
+
+def _trim_batch(rng, counts, pad, ls3=False, lens=(40, 80)):
+    """Packed inputs of pairs of groups with the given real member counts,
+    every side padded to ``pad`` members (zero-weight phantoms)."""
+    pairs = [(_port(_rand_msa(rng, a, int(rng.integers(*lens)),
+                              weighted=True)),
+              _port(_rand_msa(rng, b, int(rng.integers(*lens)),
+                              weighted=True)))
+             for a, b in counts]
+    la_max = lb_max = tg._bucket(max(max(A.length, B.length)
+                                     for A, B in pairs))
+    wd = [stripe(A.length, B.length, -60) for A, B in pairs]
+    nslot = tg._bucket(max(w.up - w.lw + 3 for w in wd), 128)
+    nsteps = tg._bucket(max(A.length + B.length + 1 for A, B in pairs), 256)
+    items = [tg._pack_inputs(A, B, MTX, 2.0, 9.0, w, pad, pad, la_max,
+                             lb_max, spb=20.0, ls=3 if ls3 else 1)
+             for (A, B), w in zip(pairs, wd)]
+    return items, dict(nslot=nslot, nsteps=nsteps, ls3=ls3)
+
+
+@pytest.mark.parametrize("counts,pad,ls3", [
+    ([(1, 7), (7, 1), (3, 4), (2, 2), (6, 5)], 7, False),
+    ([(1, 18), (9, 10)], 19, False),
+    ([(1, 6), (4, 3), (5, 5)], 7, True)])
+def test_per_pair_trim_is_exact(counts, pad, ls3):
+    """The plain version on a padded batch equals each pair run alone on
+    arrays cut to its own real members, bit for bit: K2 walks each pair's
+    real members only, which is this trim."""
+    items, kw = _trim_batch(np.random.default_rng(41), counts, pad, ls3)
+    ins = tg.stack_inputs(items, "cpu")
+    assert tg.member_counts(ins["wa"]).tolist() == [a for a, _ in counts]
+    assert tg.member_counts(ins["wb"]).tolist() == [b for _, b in counts]
+    score, dirs, opens = tg.group_wavefront_ref(ins, **kw)
+    for p, (a, b) in enumerate(counts):
+        one = {k: v[p:p + 1] for k, v in ins.items()}
+        for k in ("na_a", "gda", "pga"):
+            one[k] = one[k][:, :, :a].contiguous()
+        for k in ("na_b", "gdb", "pgb"):
+            one[k] = one[k][:, :, :b].contiguous()
+        one["wa"], one["wb"] = one["wa"][:, :a], one["wb"][:, :b]
+        s1, d1, o1 = tg.group_wavefront_ref(one, **kw)
+        assert torch.equal(d1[0], dirs[p]) and torch.equal(o1[0], opens[p])
+        assert torch.equal(s1.view(torch.int32), score[p:p + 1].view(
+            torch.int32))
+
+
+@pytest.mark.parametrize("an,bn,nslot,lmax,ls3,want", [
+    (1, 1, 640, 576, False, "shared"),      # a ce13a17 leaf merge
+    (18, 1, 768, 1088, False, "shared"),    # fam19's last refinement
+    (10, 9, 768, 1088, True, "shared"),
+    (19, 19, 768, 1088, False, "shared"),   # 203,976 bytes
+    (40, 24, 640, 384, False, "global"),    # runs of 245,760 bytes
+    (20, 20, 768, 1088, True, "global"),    # five lanes
+    (2, 2, 640, 16384, False, "global"),    # a run could pass int16
+    (2, 2, 640, 16383, False, "shared")])
+def test_wavefront_variant_rule(an, bn, nslot, lmax, ls3, want):
+    variant, smem = tg.wavefront_variant(an, bn, nslot, lmax, lmax, ls3)
+    assert variant == want
+    runs = 2 * (5 if ls3 else 3) * (an + bn) * (nslot + 2)
+    vals = 21 * nslot + 4 * tg.K2_SPAN * (nslot // 2)
+    assert smem == vals + (runs if want == "shared" else 0)
+    assert smem <= tg.SMEM_MAX
+
+
+def test_wavefront_plan_counts_real_pairs():
+    items, kw = _trim_batch(np.random.default_rng(43), [(1, 18), (9, 10)],
+                            19)
+    ins = tg.stack_inputs(items, "cpu")
+    plan = tg.wavefront_plan(ins, nslot=kw["nslot"])
+    assert plan["real_pairs"] == [18, 90]
+    assert plan["padded_pairs"] == 361
+    assert (plan["an_max"], plan["bn_max"]) == (9, 18)
+    assert plan["variant"] == "shared"
+
+
+def test_member_counts_of_a_collapsed_side():
+    """A gap-free side collapses to one effective member of weight 1."""
+    rng = np.random.default_rng(11)
+    m = JMsa(codes=rng.integers(3, 23, (4, 50)).astype(np.int8),
+             molc=jab.PROTEIN, names=[f"s{i}" for i in range(4)],
+             weight=rng.uniform(0.5, 1.5, 4))
+    m.prepare(MTX.shape[0])
+    b = _rand_msa(rng, 3, 50, weighted=True)
+    w = stripe(50, 50, -60)
+    item = tg._pack_inputs(_port(m), _port(b), MTX, 2.0, 9.0, w, 7, 7, 64,
+                           64)
+    ins = tg.stack_inputs([item], "cpu")
+    assert tg.member_counts(ins["wa"]).tolist() == [1]
+    assert tg.member_counts(ins["wb"]).tolist() == [3]

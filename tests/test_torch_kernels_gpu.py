@@ -122,6 +122,57 @@ def test_group_kernels_match_plain(cuda_device, ls3):
     assert torch.equal(mk, mr) and torch.equal(ck, cr)
 
 
+def _k2_case(case):
+    """Packed K2 inputs of one of the shapes the redesign must hold:
+    mixed real member counts padded to 7 and to 19, a gap-free side that
+    collapses to one member, ls3, and members enough for the global
+    variant (57 + 2 at nslot 640: the runs alone take 227,256 bytes)."""
+    rng = np.random.default_rng(37)
+    ls3 = case == "ls3"
+    counts, pad, L = {
+        "mixed7": ([(1, 7), (7, 1), (3, 4), (2, 2), (6, 5)], 7, 120),
+        "mixed19": ([(1, 18), (9, 10), (18, 1)], 19, 150),
+        "collapse": ([(4, 3), (5, 2)], 7, 130),
+        "ls3": ([(1, 6), (4, 3), (5, 5)], 7, 120),
+        "global": ([(57, 2), (30, 1)], 57, 300)}[case]
+    pairs = []
+    for a, b in counts:
+        A = _rand_msa(rng, a, L + int(rng.integers(0, 20)))
+        B = _rand_msa(rng, b, L + int(rng.integers(0, 20)))
+        if case == "collapse":      # a gap-free, weighted A side
+            A.codes[A.codes == ab.GAP] = ab.ALA
+            A.prepare(MTX.shape[0])
+        pairs.append((A, B))
+    la_max = lb_max = tg._bucket(max(max(A.length, B.length)
+                                     for A, B in pairs))
+    sh = -300 if case == "global" else -60
+    wd = [stripe(A.length, B.length, sh) for A, B in pairs]
+    nslot = tg._bucket(max(w.up - w.lw + 3 for w in wd), 128)
+    nsteps = tg._bucket(max(A.length + B.length + 1 for A, B in pairs), 256)
+    items = [tg._pack_inputs(A, B, MTX, 2.0, 9.0, w, pad, pad, la_max,
+                             lb_max, spb=20.0, ls=3 if ls3 else 1)
+             for (A, B), w in zip(pairs, wd)]
+    return items, dict(nslot=nslot, nsteps=nsteps, ls3=ls3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["mixed7", "mixed19", "collapse", "ls3",
+                                  "global"])
+def test_group_wavefront_bit_equal_per_shape(cuda_device, case):
+    """K2 against ``group_wavefront_ref``, bit for bit on the planes and
+    the scores, and the variant the wrapper picks by size."""
+    items, kw = _k2_case(case)
+    ins = tg.stack_inputs(items, cuda_device)
+    plan = tg.wavefront_plan(ins, nslot=kw["nslot"], ls3=kw["ls3"])
+    assert plan["variant"] == ("global" if case == "global" else "shared")
+    if case == "collapse":
+        assert plan["an_b"].tolist() == [1, 1]
+    sk, dk, ok = tg.group_wavefront(ins, **kw)
+    sr, dr, orf = tg.group_wavefront_ref(ins, **kw)
+    assert torch.equal(dk, dr) and torch.equal(ok, orf)
+    assert torch.equal(sk.view(torch.int32), sr.view(torch.int32))
+
+
 @pytest.mark.gpu
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     a = torch.zeros((2, 8), dtype=torch.int64, device=cuda_device)
