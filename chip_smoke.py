@@ -47,7 +47,9 @@ Phases (each raises on failure, so the script exits non-zero):
 9. K4 (spliced sweep) and K4w (its walk) against their plain versions on
    the card, on the inputs ``aln -yl2`` gives them for (a) mini_gen x
    mini_pro and (c) the 2.3 kb CET10B9 window x the ce13a.msa profile:
-   planes, final band and knots equal; times.  On (b), the window x
+   planes, final band and knots equal; times, with K4's launch plan
+   (variant, CTAs, rows a CTA), microseconds a wave, registers and
+   spilled bytes.  On (b), the window x
    ce13a1, the kernels are timed and not held to the plain sweep (it
    takes over a minute there; the output of (b) is still held to its
    fixture in phase 10);
@@ -56,7 +58,7 @@ Phases (each raises on failure, so the script exits non-zero):
    output fixtures (and mini's ``-O 5``/``-O 1`` to the reference's),
    both kernels launched;
 11. the flagship's shape, timing only: a 34.9 kb genome (the window at
-   31,400 in seeded random flanks) x ce13a.msa.
+   31,400 in seeded random flanks) x ce13a.msa, with K4's plan as in 9.
 
 Prints one JSON line per phase, then the card line, the kernels line
 (launches from the cold runs of phases 4 and 10 and, for K1f, from the
@@ -1009,6 +1011,15 @@ def k4_bounds(ins, sw, wk) -> tuple[dict, dict]:
     return k4, k4w
 
 
+def k4_launch(ins: SH.SweepInputs, ms: float) -> dict:
+    """K4's launch plan for these inputs, microseconds a wave, and the
+    chosen variant's registers and spilled bytes."""
+    plan = SH.sweep_plan(ins.M + 1, ins.rlmt - ins.llmt + 1)
+    return {"variant": plan["variant"], "ctas": plan["ctas"],
+            "rows_a_cta": plan["rows"], "us_per_wave": ms * 1e3 / ins.waves,
+            **SH.spliced_h_wave_attrs(plan["variant"])}
+
+
 def phase_k4() -> dict:
     """K4 and K4w against their plain versions on the card, on the inputs
     ``aln -yl2`` gives them; times (CUDA events).  The plain sweep runs
@@ -1047,7 +1058,7 @@ def phase_k4() -> dict:
               "planes_equal": plain_ms is not None,
               "band_equal": plain_ms is not None, "knots_equal": True,
               "knots": len(wk.knots), "walk_steps": wk.steps,
-              "k4": k4, "k4w": k4w})
+              "k4": k4, "k4_launch": k4_launch(ins, k4["ms"]), "k4w": k4w})
         out[name] = (k4, k4w)
     return out
 
@@ -1081,7 +1092,8 @@ def phase_flagship() -> None:
           "planes_mb": tensor_bytes(sw.ev, sw.jd, sw.V, sw.D) / 1e6,
           "wall_s": secs, "k4_ms": ms, "k4w_ms": wms,
           "gcups": ins.band_cells / (ms * 1e6), "k4_bound_ms": b4["bound_ms"],
-          "k4w_bound_ms": b4w["bound_ms"], "exons": exons})
+          "k4w_bound_ms": b4w["bound_ms"], "k4_launch": k4_launch(ins, ms),
+          "exons": exons})
 
 
 def main() -> int:

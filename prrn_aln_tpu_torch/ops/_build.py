@@ -37,7 +37,8 @@ _SIGNATURES = {
     "group_wavefront_launch": [_vp] * 16 + [_int] * 12 + [_vp],
     "group_wavefront_attrs": [_int, _int, _vp],
     "traceback_launch": [_vp] * 7 + [_int] * 4 + [_vp],
-    "spliced_h_wave_launch": [_vp] * 17 + [_int] * 13 + [_vp],
+    "spliced_h_wave_launch": [_vp] * 20 + [_int] * 15 + [_vp],
+    "spliced_h_wave_attrs": [_int, _vp],
     "spliced_h_wave_scratch_words": [],
     "spliced_h_walk_launch": [_vp] * 4 + [_int] * 6 + [_vp],
 }

@@ -22,6 +22,7 @@ table form of ``spliced_jax._penalty``, which the scan engine uses.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import NamedTuple
 
@@ -198,6 +199,14 @@ def pack_sweep(qprof, b, exin, ipen, prm, lw: int, up: int, a_exgr: bool,
     for codes in (tab[:, 0], tab[:, 8:], A1):
         if codes.min() < 0 or codes.max() >= tron.TSIMD:
             raise ValueError("tron code out of the profile's range")
+    # what K4's cluster variant packs: the pair53 row and column (4 bits
+    # each), the A2 column and e3idx (3 bits), the phase marks (3 bits)
+    dinc5 = np.asarray(exin.sig.dinc5)[:N + 1]
+    if (dinc5.min() < 0 or dinc5.max() >= 16 or r1idx.max() >= 5
+            or tab[:, 5].min() < 0 or tab[:, 5].max() >= 16
+            or tab[:, 7].min() < 0 or tab[:, 7].max() >= 5
+            or tab[:, 2:4].min() < -2 or tab[:, 2:4].max() > 2):
+        raise ValueError("a splice-site table is out of its range")
     e1 = e1pre if e1pre is not None else (0.0, 0, 0, 0, 0)
     fvals = dict(gop=prm.gop, gep=prm.gep, gap_e1=prm.gap_e1,
                  gap_e2=prm.gap_e2, gap_w1=prm.gap_w1, gap_w2=prm.gap_w2,
@@ -210,7 +219,7 @@ def pack_sweep(qprof, b, exin, ipen, prm, lw: int, up: int, a_exgr: bool,
 
     return SweepInputs(
         tab=dt(tab, F32),
-        dinc5=dt(np.asarray(exin.sig.dinc5)[:N + 1], I32),
+        dinc5=dt(dinc5, I32),
         r1idx=dt(r1idx, I32), A1=dt(A1, I32),
         pair53=dt(np.asarray(exin.sig.pair53, np.float32), F32),
         qprof=dt(np.asarray(qprof, np.float32), F32),
@@ -709,23 +718,90 @@ def sweep_h(ins: SweepInputs) -> Sweep:
     return _launch_sweep(ins)
 
 
+# K4's launch (csrc/spliced_h_wave.cu): the cluster variant runs one row
+# a thread, at most K4_ROWS_MAX rows a CTA and K4_CLUSTER_MAX CTAs (the
+# portable cluster size), with K4_ROW_WORDS shared words a row (its rings
+# and profile row) beside one more profile row, K4_POS_WORDS words of
+# genome-position tables, the penalty table and pair53; the global
+# variant keeps the penalty table and pair53 in shared memory; at most
+# K4_SMEM_MAX bytes a CTA
+K4_ROWS_MAX = 256
+K4_CLUSTER_MAX = 8
+K4_ROW_WORDS = 162
+K4_POS_WORDS = 6 * 1024
+K4_SMEM_MAX = 232448
+
+
 def rows_per_thread(MR: int) -> tuple[int, int]:
-    """(rows per thread, threads) of the K4 launch for M + 1 rows: one
-    row a thread up to 512 rows, then rows spread evenly over at most
-    512 threads."""
+    """(rows per thread, threads) of K4's global variant for M + 1 rows:
+    one row a thread up to 512 rows, then rows spread evenly over at
+    most 512 threads."""
     rpt = -(-MR // 512)
     threads = -(-MR // rpt)
     return rpt, (threads + 31) // 32 * 32
 
 
-def _launch_sweep(ins: SweepInputs) -> Sweep:
+def sweep_plan(MR: int, npen: int, *, variant: str | None = None,
+               ctas: int | None = None) -> dict:
+    """K4's launch for M + 1 rows and an intron-penalty table of ``npen``
+    entries: the variant, CTAs, rows a CTA, rows a thread and shared
+    bytes a CTA.
+
+    Up to K4_CLUSTER_MAX * K4_ROWS_MAX rows the cluster variant takes
+    them, one row a thread, in slabs of whole warps: by default the
+    smallest slab that K4_CLUSTER_MAX CTAs hold, over as few CTAs as
+    that slab needs.  Past that the global variant takes them in one
+    block (``rows_per_thread``).  ``variant`` and ``ctas`` ask for a
+    variant and a cluster size, as the bench and the tests do; a plan
+    the kernel cannot take raises."""
+    if variant is None:
+        variant = ("cluster" if MR <= K4_CLUSTER_MAX * K4_ROWS_MAX
+                   else "global")
+    if variant == "global":
+        if ctas not in (None, 1):
+            raise ValueError("K4's global variant runs one block")
+        rpt, threads = rows_per_thread(MR)
+        plan = {"variant": "global", "ctas": 1, "rows": threads,
+                "rpt": rpt, "smem": 4 * (npen + 256)}
+    elif variant == "cluster":
+        if ctas is None:
+            ctas = K4_CLUSTER_MAX
+        rows = (-(-MR // max(ctas, 1)) + 31) // 32 * 32
+        if not 1 <= ctas <= K4_CLUSTER_MAX or rows > K4_ROWS_MAX:
+            raise ValueError(f"K4's cluster variant cannot take {MR} rows "
+                             f"over {ctas} CTAs")
+        plan = {"variant": "cluster", "ctas": -(-MR // rows), "rows": rows,
+                "rpt": 1,
+                "smem": 4 * (K4_ROW_WORDS * rows + tron.TSIMD + K4_POS_WORDS
+                             + npen + 256)}
+    else:
+        raise ValueError(f"unknown K4 variant {variant!r}")
+    if plan["smem"] > K4_SMEM_MAX:
+        raise ValueError(f"K4 needs {plan['smem']} bytes of shared memory")
+    return plan
+
+
+def penalty_by_length(ins: SweepInputs) -> torch.Tensor:
+    """The intron penalty of every length 0 ... N + 1 (a donor and an
+    acceptor both lie in [0, N]), as the plain version computes it
+    (``_penalty``), on the inputs' device: the table K4's cluster
+    variant reads in place of the penalty's branches and log tail."""
+    dev = ins.tab.device
+    fp = {k: ins.fprm[i] for i, k in enumerate(FPRM)}
+    fp["nev"] = torch.tensor(NEVSEL, dtype=F32, device=dev)
+    return _penalty(ins.pen, fp, ins.llmt, ins.rlmt,
+                    torch.arange(ins.N + 2, device=dev))
+
+
+def _launch_sweep(ins: SweepInputs, plan: dict | None = None) -> Sweep:
     dev = ins.tab.device
     if dev.type != "cuda":
         raise ValueError(f"sweep_h: unsupported device {dev}")
     M, N = ins.M, ins.N
     MR = M + 1
     W = ins.up - ins.lw + 1
-    rpt, threads = rows_per_thread(MR)
+    if plan is None:
+        plan = sweep_plan(MR, ins.rlmt - ins.llmt + 1)
     for t, name, dtype, shape in (
             (ins.tab, "tab", F32, (N + 2, len(TAB_FILL))),
             (ins.dinc5, "dinc5", I32, (N + 1,)),
@@ -746,22 +822,41 @@ def _launch_sweep(ins: SweepInputs) -> Sweep:
     V = torch.empty((T, MR), dtype=F32, device=dev)
     D = torch.empty((T, MR), dtype=I32, device=dev)
     lib = _build.load()
-    ring = torch.empty((lib.spliced_h_wave_scratch_words() * MR,),
-                       dtype=I32, device=dev)
+    cluster = plan["variant"] == "cluster"
+    ring = pext = tabT = A1T = None
+    if cluster:
+        pext = penalty_by_length(ins)
+        tabT = ins.tab.t().contiguous()
+        A1T = ins.A1.t().contiguous()
+    else:
+        ring = torch.empty((lib.spliced_h_wave_scratch_words() * MR,),
+                           dtype=I32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.spliced_h_wave_launch(
         ins.tab.data_ptr(), ins.dinc5.data_ptr(), ins.r1idx.data_ptr(),
         ins.A1.data_ptr(), ins.pair53.data_ptr(), ins.qprof.data_ptr(),
         ins.api.data_ptr(), ins.pen.data_ptr(), ins.h0v.data_ptr(),
         ins.h0i.data_ptr(), ins.e1i.data_ptr(), ins.fprm.data_ptr(),
-        ring.data_ptr(), ev.data_ptr(), jd.data_ptr(), V.data_ptr(),
-        D.data_ptr(), M, N, ins.lw, ins.up, int(ins.a_exgr), ins.e1pre_t,
-        ins.llmt, ins.rlmt, tron.TRM, tron.TRM2, ab.AMB, rpt, threads,
-        stream)
+        *(None if x is None else x.data_ptr() for x in (pext, tabT, A1T,
+                                                        ring)), ev.data_ptr(),
+        jd.data_ptr(), V.data_ptr(), D.data_ptr(), M, N, ins.lw, ins.up,
+        int(ins.a_exgr), ins.e1pre_t, ins.llmt, ins.rlmt, tron.TRM,
+        tron.TRM2, ab.AMB, int(cluster), plan["ctas"], plan["rows"],
+        plan["rpt"], stream)
     _build.check(err, "spliced_h_wave_launch")
     _build.LAUNCHES["spliced_h_wave"] += 1
     bandV, bandD = _band(ins, V, D)
     return Sweep(ev, jd, V, D, bandV, bandD)
+
+
+def spliced_h_wave_attrs(variant: str) -> dict:
+    """Registers a thread and local (spilled) bytes of one of K4's
+    variants, as the card's loader reports them."""
+    out = (ctypes.c_int * 2)()
+    _build.check(_build.load().spliced_h_wave_attrs(
+        int(variant == "cluster"), ctypes.addressof(out)),
+        "spliced_h_wave_attrs")
+    return {"registers": out[0], "local_bytes": out[1]}
 
 
 # --------------------------------------------------------------------

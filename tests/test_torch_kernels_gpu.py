@@ -203,22 +203,86 @@ def _spliced_calls(genome, protein, device):
     return calls
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("case", ["mini", "random"])
-def test_spliced_kernels_match_plain(cuda_device, case):
-    """K4's planes and final band, and K4w's knots, against the plain
-    versions on the same inputs on the card."""
+def _rich_pair(seed, L, P, share):
+    """A random genome of L nt in which a ``share`` of the draws are
+    splice-like motifs (GT, AG, GTAAGT, TTTCAG), and a random protein of
+    P residues (as tools/k4_bench.py draws them)."""
+    rng = np.random.default_rng(seed)
+    parts, size = [], 0
+    while size < L:
+        if rng.random() < share:
+            part = ("GT", "AG", "GTAAGT", "TTTCAG")[rng.integers(0, 4)]
+        else:
+            part = "ACGT"[rng.integers(0, 4)]
+        parts.append(part)
+        size += len(part)
+    prot = "".join(np.array(list("ACDEFGHIKLMNPQRSTVWY"))[
+        rng.integers(0, 20, P)])
+    return "".join(parts)[:L], prot
+
+
+# K4's cases, each with the plan (variant, CTAs) the wrapper picks or,
+# for the names ending in _one_cta and _global, the plan the test asks for
+_K4_CASES = {
+    "mini": ("cluster", 6),
+    "random": ("cluster", 4),
+    "random_one_cta": ("cluster", 1),
+    "random_global": ("global", 1),
+    "rich": ("cluster", 5),
+    "rows527": ("cluster", 6),
+    "rows1100": ("cluster", 7),
+}
+
+
+_K4_PLAIN = {}
+
+
+def _k4_pair(case):
     if case == "mini":
-        g = tio.sniff_and_read(FIX / "mini_gen.fa")[0].seq
-        p = tio.sniff_and_read(FIX / "mini_pro.fa")[0].seq
-    else:
+        return (tio.sniff_and_read(FIX / "mini_gen.fa")[0].seq,
+                tio.sniff_and_read(FIX / "mini_pro.fa")[0].seq)
+    if case.startswith("random"):
         rng = np.random.default_rng(11)
         g = "".join(np.array(list("ACGT"))[rng.integers(0, 4, 600)])
         p = "".join(np.array(list("ACDEFGHIKLMNPQRSTVWY"))[
             rng.integers(0, 20, 120)])
-    calls = _spliced_calls(g, p, cuda_device)
+        return g, p
+    if case == "rich":
+        return _rich_pair(5, 900, 150, 0.3)
+    if case == "rows527":
+        return _rich_pair(7, 1650, 526, 0.1)
+    return _rich_pair(3, 3360, 1100, 0.1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(_K4_CASES))
+def test_spliced_kernels_match_plain(cuda_device, case):
+    """K4's planes and final band, and K4w's knots, against the plain
+    versions on the same inputs on the card, for each of K4's launch
+    plans: the cluster variant at 173 rows (mini, 6 CTAs of 32 rows),
+    121 rows (4 CTAs, and one CTA when asked), 151 rows of a genome rich
+    in GT and AG, so that the donor candidate lists fill and evict
+    (5 CTAs), 527 rows (6 CTAs of 96) and 1,101 rows (7 CTAs of 160); and
+    the global variant, asked for at 121 rows.  Each case's time is
+    mostly the plain sweep's, about 12 ms a wave on one H100 (PERF.md
+    §6): some 12 s for the 957 waves of the random cases (the plain sweep
+    runs once for the three), 17 s for mini's 1,414, 16 s for rich's
+    1,347, 38 s for the 3,225 waves at 527 rows and 75 s for the 6,657 at
+    1,101."""
+    calls = _spliced_calls(*_k4_pair(case), cuda_device)
+    base = case.split("_")[0]
     ins, sw = calls["sweep"]
-    ref = tsh.sweep_h_ref(ins)
+    MR, npen = ins.M + 1, ins.rlmt - ins.llmt + 1
+    variant, ctas = _K4_CASES[case]
+    if case.endswith(("_one_cta", "_global")):
+        plan = tsh.sweep_plan(MR, npen, variant=variant, ctas=ctas)
+        sw = tsh._launch_sweep(ins, plan)
+    else:
+        plan = tsh.sweep_plan(MR, npen)
+    assert (plan["variant"], plan["ctas"]) == (variant, ctas)
+    if base not in _K4_PLAIN:     # the same inputs: one plain sweep a base
+        _K4_PLAIN[base] = tsh.sweep_h_ref(ins)
+    ref = _K4_PLAIN[base]
     for field in tsh.Sweep._fields:
         assert torch.equal(getattr(sw, field), getattr(ref, field)), field
     wargs, wk = calls["walk"]

@@ -232,3 +232,63 @@ def test_walk_matches_jax_host_walker(case):
                          lambda r: r - lw + 3)
     assert wk.knots == jknots[:-1]
     assert 0 < wk.steps < sh.walk_steps(M, N)
+
+
+# ---------------------------------------------------------------------
+# (iv) K4's launch plan (csrc/spliced_h_wave.cu reads it; pure Python)
+
+# M + 1 -> variant, CTAs, rows a CTA, rows a thread, shared bytes a CTA,
+# with the default 806-entry penalty table: 4 * (162 * rows + 26 + 6,144
+# + 806 + 256) for the cluster variant, 4 * (806 + 256) for the global
+# one
+PLANS = {
+    1: ("cluster", 1, 32, 1, 49664),
+    173: ("cluster", 6, 32, 1, 49664),
+    512: ("cluster", 8, 64, 1, 70400),
+    513: ("cluster", 6, 96, 1, 91136),
+    527: ("cluster", 6, 96, 1, 91136),
+    1100: ("cluster", 7, 160, 1, 132608),
+    2048: ("cluster", 8, 256, 1, 194816),
+    2049: ("global", 1, 416, 5, 4248),
+    4000: ("global", 1, 512, 8, 4248),
+}
+
+
+@pytest.mark.parametrize("MR", list(PLANS))
+def test_sweep_plan(MR):
+    """One row a thread in whole warps over at most 8 CTAs up to 2,048
+    rows, every row covered, the slab the smallest 8 CTAs hold; past
+    that the global variant, rows spread over at most 512 threads."""
+    plan = sh.sweep_plan(MR, 806)
+    assert (plan["variant"], plan["ctas"], plan["rows"], plan["rpt"],
+            plan["smem"]) == PLANS[MR]
+    assert plan["ctas"] * plan["rows"] * plan["rpt"] >= MR
+    if plan["variant"] == "cluster":
+        assert plan["rows"] % 32 == 0
+        assert (plan["ctas"] - 1) * plan["rows"] < MR
+        assert plan["rows"] == sh.sweep_plan(MR, 806, ctas=8)["rows"]
+
+
+@pytest.mark.parametrize("MR, ctas, rows", [(121, 1, 128), (527, 3, 192),
+                                            (527, 4, 160), (1100, 5, 224)])
+def test_sweep_plan_cluster_size_asked(MR, ctas, rows):
+    plan = sh.sweep_plan(MR, 806, variant="cluster", ctas=ctas)
+    assert (plan["variant"], plan["ctas"], plan["rows"]) == \
+        ("cluster", ctas, rows)
+    assert plan["smem"] == 4 * (sh.K4_ROW_WORDS * rows + 26 + 6144 + 806
+                                + 256)
+
+
+@pytest.mark.parametrize("kw", [dict(MR=527, variant="cluster", ctas=2),
+                                dict(MR=100, variant="cluster", ctas=9),
+                                dict(MR=100, variant="global", ctas=2),
+                                dict(MR=100, variant="shared"),
+                                dict(MR=4000, npen=60000)])
+def test_sweep_plan_refuses_what_the_kernel_cannot_take(kw):
+    """More than 256 rows a CTA or 8 CTAs, more than one block of the
+    global variant, an unknown variant, more than 227 KB of shared
+    memory: the plan raises, and nothing falls back to another plan."""
+    kw = dict(kw)
+    MR, npen = kw.pop("MR"), kw.pop("npen", 806)
+    with pytest.raises(ValueError):
+        sh.sweep_plan(MR, npen, **kw)
