@@ -12,34 +12,39 @@ Phases (each raises on failure, so the script exits non-zero):
    (one ``nvcc`` per source, all at once);
 2. K1 (pairwise DP) against its plain PyTorch version on the card, on the
    pairwise fixtures and on 512 random pairs of 512 x 512 at sh=-60,
-   with kernel and plain times and GCUPS;
+   with kernel and plain times, GCUPS and K1's launch plan (variant,
+   slot pairs a lane, warps a pair, microseconds a step, registers and
+   spilled bytes);
 3. K2 (group wavefront) and K3 (traceback) against their plain versions
    on the card, bit for bit (K2's planes and scores), on the galign
    fixtures (ls=1 and ls=3), real member counts 1-7 padded to 7, a shape
    whose gap runs leave shared memory (K2's global variant) and a batch
    of 32 pairs of 8 members x 384 columns; each timed K2 call prints its
    real and padded member pairs, steps, microseconds a step, variant and
-   registers;
+   registers, and the timed K3 call its plan (variant, tile rows,
+   microseconds a move of the longest walk, registers);
 4. the main path: ``prrn -R 0`` on ce13a17_clean.fa through the kernels,
    cold and warm, byte-identical to the JAX package's output fixture,
    every golden row exact, and every kernel launched;
 5. every kernel call of a third ``prrn -R 0`` run, recorded with its
    inputs, against the plain version on the card, and each kernel's time
    at the main path's shapes (K2: the call with the most real member
-   pairs);
+   pairs), through its wrapper (CUDA events) and, for K1 and K3, the
+   kernel's own (``torch.profiler``), with K1's and K3's plans;
 6. the forest path (16 or more sequences): ``prrn -R 0`` on fam19.fa
    (19 proteins) through the kernels, byte-identical to the JAX
    package's output fixture, K1, K2 and K3 launched; then the same run
    once more under ``PRRN_PW_FUSED=1``: K1f launched and K1 not, the
    same edge list and forest, the same bytes; stage walls and summed
    kernel times of both runs (the second, warm run is the one under the
-   switch); then K2's call of the first run with the most real member
-   pairs (the last refinement's) against its plain version, and timed;
+   switch), K3's time summed over the first run's launches; then K2's
+   call of the first run with the most real member pairs (the last
+   refinement's) against its plain version, and timed;
 7. K1f (row-sweep pairwise DP) against its plain version on the card,
    bit for bit, on the global pairwise fixtures, on phase 2's 512 pairs
    and on the edge batch recorded in phase 6; against K1 on the last
    two, at most 4 f32 ulp at the DP's scale; K1 and K1f times and GCUPS
-   on the same inputs;
+   on the same inputs, with K1's plan;
 8. the forest path's shape, timing only: 64 seeded proteins of 150-250
    residues in 8 families through ``prrn -R 0 -I 0`` (no refinement,
    which at 64 members would outlast the script): the device k-mer pass,
@@ -134,6 +139,23 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int, word: str):
+    """A kernel's own time a call on the card, without its wrapper's host
+    work: the device time of the kernels whose names hold ``word``
+    (``torch.profiler``), over ``reps`` warm calls; None where the
+    profiler records none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(ev, "device_time_total", 0) or 0
+                for ev in prof.key_averages() if word in ev.key)
+    return total / reps / 1e3 if total else None
+
+
 def time_once_ms(fn) -> float:
     """One call on the card's stream (CUDA events), for the plain
     versions that take seconds: they have run once already by then."""
@@ -196,6 +218,35 @@ def k2_report(ins: dict, kw: dict, ms: float) -> dict:
             "us_per_step": ms * 1e3 / kw["nsteps"],
             "variant": plan["variant"], "smem_bytes": plan["smem_bytes"],
             **G.group_wavefront_attrs(kw.get("ls3", False), plan["variant"])}
+
+
+def k1_launch(args: tuple, ms: float) -> dict:
+    """K1's launch plan for these arguments, microseconds a step, and the
+    plan's registers and spilled bytes."""
+    a_batch, b_batch, la, lb, lw, up, mtx = args[:7]
+    plan = pairwise.pairwise_plan(int((up - lw).max()) + 3, a_batch.shape[0],
+                                  mtx.shape[0], a_batch.shape[1],
+                                  b_batch.shape[1])
+    steps = int((la + lb).max()) - 1
+    return {"variant": plan["variant"], "lanes": plan["lanes"],
+            "warps_a_pair": plan["warps"],
+            "pairs_a_block": plan["pairs_per_block"], "steps": steps,
+            "us_per_step": ms * 1e3 / steps,
+            **pairwise.pairwise_attrs(plan, bool(args[11]))}
+
+
+def k3_launch(args: tuple, max_iters: int, cnts: torch.Tensor,
+              ms: float) -> dict:
+    """K3's launch plan for these planes, microseconds a move of the
+    longest walk, and the variant's registers and spilled bytes."""
+    dirs = args[0]
+    plan = G.traceback_plan(dirs.shape[1], dirs.shape[2], max_iters)
+    moves = int(cnts.max())
+    return {"variant": plan["variant"], "tile_rows": plan["tile_rows"],
+            "width": plan["width"],
+            "smem_bytes": plan["smem_bytes"], "longest_walk_moves": moves,
+            "us_per_move": ms * 1e3 / max(moves, 1),
+            **G.traceback_attrs(plan["variant"])}
 
 
 def golden_rows(text: str) -> dict:
@@ -297,11 +348,12 @@ def phase_k1(dev) -> tuple:
     plain_ms = time_ms(plain, 5)
     cells = B * pairwise.band_cells(np.array([L]), np.array([L]),
                                     np.array([w.lw]), np.array([w.up]))
+    args = (A, Bm, la, lb, lw, up, mt, u, v, tg, exg, False)
     emit({"phase": "k1_bench", "pairs": B, "len": L, "sh": -60,
           "band_cells": cells, "ms": ms, "plain_ms": plain_ms,
           "gcups": cells / (ms * 1e6), "plain_gcups": cells / (plain_ms * 1e6),
-          "max_abs_err": err})
-    return (A, Bm, la, lb, lw, up, mt, u, v, tg, exg), cells
+          "max_abs_err": err, "k1_launch": k1_launch(args, ms)})
+    return args[:11], cells
 
 
 def phase_k2k3(dev) -> None:
@@ -420,6 +472,7 @@ def phase_k2k3(dev) -> None:
                 lambda: G.group_wavefront_ref(ins, **kw))
             timing["k3_ms"] = time_ms(
                 lambda: G.traceback(*tb, max_iters=mi), 7)
+            timing["k3_launch"] = k3_launch(tb, mi, ck, timing["k3_ms"])
             timing["k3_plain_ms"] = time_ms(
                 lambda: G.traceback_ref(*tb, max_iters=mi), 5)
     emit({"phase": "k2k3_bench", "shape": "32 pairs x (8 x 384)",
@@ -529,6 +582,8 @@ def phase_main_shapes() -> tuple[dict, dict, dict]:
     # a band cell: 3 adds or subtractions and 6 maxima over H, F and G
     k1 = {"max_abs_err": k1_err,
           "ms": time_ms(lambda: pairwise._launch_pairwise(*k1_args), 7),
+          "device_ms": device_ms(lambda: pairwise._launch_pairwise(*k1_args),
+                                 7, "pairwise"),
           "plain_ms": time_ms(lambda: pairwise._plain_pairwise(*k1_args), 5),
           **bound(tensor_bytes(*(x for x in k1_args
                                  if isinstance(x, torch.Tensor)))
@@ -563,10 +618,14 @@ def phase_main_shapes() -> tuple[dict, dict, dict]:
     # a move reads one dirs and one opens byte and writes one move byte
     k3 = {"max_abs_err": k3_err,
           "ms": time_ms(lambda: G.traceback(*tb_args, **tb_kw), 7),
+          "device_ms": device_ms(lambda: G.traceback(*tb_args, **tb_kw), 7,
+                                 "traceback"),
           "plain_ms": time_ms(lambda: G.traceback_ref(*tb_args, **tb_kw), 5),
           **bound(3 * int(cnts.sum()) + 4 * cnts.numel(), 0)}
     emit({"phase": "main_path_kernels",
           "calls": {name: len(c) for name, c in calls.items()},
+          "k1_launch": k1_launch(k1_args, k1["ms"]),
+          "k3_launch": k3_launch(tb_args, tb_kw["max_iters"], cnts, k3["ms"]),
           "k1_shape": {"pairs": a_batch.shape[0],
                        "band_cells": pairwise.band_cells(
                            *(x.cpu().numpy() for x in (la, lb, lw, up)))},
@@ -758,7 +817,10 @@ def phase_forest() -> tuple[dict, tuple]:
     emit({"phase": "prrn_forest_switch", "edges_equal": True,
           "edge_order_equal": True, "forest_equal": True,
           "max_edge_dist_diff": dmax})
-    return ({"cold": runs["cold"][0], "fused": runs["fused"][0]},
+    k3_ms = sum(a.elapsed_time(b)
+                for a, b in runs["cold"][1]["events"]["traceback"])
+    return ({"cold": runs["cold"][0], "fused": runs["fused"][0],
+             "cold_k3_ms": k3_ms},
             runs["fused"][1]["edge_args"][1], runs["cold"][1]["k2_widest"])
 
 
@@ -825,7 +887,8 @@ def k1f_against_k1(name: str, args: tuple, cells: int) -> dict:
           "lanes": int(up.max()) - lw0 + 1, "rows": int(la.max()),
           "band_cells": cells, "equals_plain": True, "vs_k1": ulps,
           "gcups": cells / (out["ms"] * 1e6),
-          "k1_gcups": cells / (out["k1_ms"] * 1e6), **out})
+          "k1_gcups": cells / (out["k1_ms"] * 1e6),
+          "k1_launch": k1_launch((*args, False), out["k1_ms"]), **out})
     return out
 
 
@@ -1131,7 +1194,9 @@ def main() -> int:
         {"name": "pairwise_scores", "route": "cuda",
          "source": "prrn_aln_tpu_torch/csrc/pairwise.cu",
          "replaces": "prrn_aln_tpu/ops/pallas_pairwise.py:123",
-         "launches": launches["pairwise"], **k1},
+         "launches": launches["pairwise"], **k1,
+         "fam19_edges": {"launches": forest_runs["cold"]["pairwise"],
+                         "ms": k1f["k1_ms"]}},
         {"name": "pairwise_rows", "route": "cuda",
          "source": "prrn_aln_tpu_torch/csrc/pairwise_rows.cu",
          "replaces": "prrn_aln_tpu/ops/pallas_pairwise.py:341",
@@ -1146,7 +1211,9 @@ def main() -> int:
         {"name": "traceback", "route": "cuda",
          "source": "prrn_aln_tpu_torch/csrc/traceback.cu",
          "replaces": "prrn_aln_tpu/ops/group.py:595",
-         "launches": launches["traceback"], **k3},
+         "launches": launches["traceback"], **k3,
+         "fam19": {"launches": forest_runs["cold"]["traceback"],
+                   "sum_ms": forest_runs["cold_k3_ms"]}},
         {"name": "spliced_h_wave", "route": "cuda",
          "source": "prrn_aln_tpu_torch/csrc/spliced_h_wave.cu",
          "replaces": "prrn_aln_tpu/ops/pallas_spliced_h.py:201",

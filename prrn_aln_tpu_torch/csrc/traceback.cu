@@ -7,12 +7,34 @@
 //
 // What bounds it on the card: one dependent chain of La + Lb to
 // 3 * max_iters steps per pair, each a two-byte read of the dirs/opens
-// planes at a data-dependent address: latency, not bandwidth.
+// planes at an address that depends on the previous read: latency, not
+// bandwidth.  Read from device memory (L2, where K2 left the planes) a
+// step costs one L2 round trip, ~300 cycles.
 //
-// What the design does about it: one thread per pair walks its planes
-// where K2 left them in device memory, so only the O(La + Lb) move list
-// goes back to the host, never the (nsteps, nslot) planes; the pairs of
-// a batch walk in parallel.
+// What the design does about it ("staged" variant): the walk only moves
+// to lower anti-diagonals d = m + n (a diagonal move lowers d by 2, a gap
+// move by 1, a lane switch keeps it), so the rows it reads next are known
+// ahead: the next lower ones.  One thread block walks one pair.  Its
+// walker thread stages tiles of T full band rows of both planes in shared
+// memory, two tiles in flight: entering tile j it issues the bulk
+// asynchronous copy (cp.async.bulk, completing on an mbarrier) of tile
+// j + 1 into the buffer tile j - 1 left, and crossing into tile j + 1 it
+// waits on that tile's barrier.  A step then reads shared memory.  With
+// one thread walking, a step is a chain of dependent instructions, so the
+// step keeps it short: the index is one multiply-add from (d, slot), the
+// lane machine has no branches, and a tile that holds its rows whole
+// needs no bounds test.
+//
+// A bulk copy needs 16-byte aligned addresses and sizes: each tile's
+// window is rounded out to 16 bytes and clipped to the planes'
+// allocation; in a tile so clipped (only at a misaligned end of the
+// allocation) a read outside the window goes to device memory.  The
+// moves are kept in shared memory during the walk; the block fills them
+// with -1 and writes them out together.
+//
+// The "global" variant, one thread a pair walking the planes in device
+// memory (the earlier design), serves the bands whose tiles of 8 rows do
+// not fit in shared memory (ops/group.py::traceback_plan chooses by size).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -21,15 +43,49 @@ namespace {
 
 constexpr int8_t L_DIAG = 0, L_VERT = 1, L_HORI = 2, L_VERT2 = 3,
                  L_HORI2 = 4;
+constexpr int kThreads = 128;
+// shared memory ahead of the tile buffers: two mbarriers, padded
+constexpr int kHead = 128;
 
-__global__ void traceback_kernel(const int8_t* __restrict__ dirs,
-                                 const int8_t* __restrict__ opens,
-                                 const int32_t* __restrict__ La_,
-                                 const int32_t* __restrict__ Lb_,
-                                 const int32_t* __restrict__ lw_,
-                                 int8_t* __restrict__ moves,
-                                 int32_t* __restrict__ cnts, int B,
-                                 int nsteps, int nslot, int max_iters) {
+// One step of the lane machine (group.py:705-739), without branches:
+// src/op are the planes' bytes at (d, slot), or -1/0 outside the planes.
+// From H (state 0) a DIAG source moves diagonally, any other source
+// switches to its gap lane (VERT -> 1, VERT2 -> 2, HORI2 -> 4, else 3);
+// a gap lane moves and closes on its open bit (1, 4, 2, 8 for lanes 1-4)
+// or at the edge.  Returns the move emitted (-1 for a switch).
+__device__ __forceinline__ int lane_step(int src, int op, int& state, int& m,
+                                         int& n) {
+  const bool h = state == 0;
+  const bool diag = h && src == L_DIAG;
+  const bool vert = state == 1 || state == 2;
+  const bool hori = state >= 3;
+  // H's next lane by source (nibble src of 0x42310), 3 past the codes
+  const int to_gap = (unsigned)src <= 4u ? (0x42310 >> (4 * src)) & 7 : 3;
+  // a gap lane's open bit (nibble state of 0x82410)
+  const int bit = (0x82410 >> (4 * state)) & 15;
+  const bool close = (op & bit) != 0 || (vert ? n == 0 : m == 0);
+  const int emit = h ? (diag ? L_DIAG : -1) : (vert ? L_VERT : L_HORI);
+  state = h ? to_gap : (close ? 0 : state);
+  m -= (diag || vert);
+  n -= (diag || hori);
+  return emit;
+}
+
+// the device walk's dynamic index: negative slots wrap, then clamp
+__device__ __forceinline__ int wrap_slot(int slot, int nslot) {
+  if (slot < 0) slot += nslot;
+  return min(max(slot, 0), nslot - 1);
+}
+
+__global__ void traceback_global_kernel(const int8_t* __restrict__ dirs,
+                                        const int8_t* __restrict__ opens,
+                                        const int32_t* __restrict__ La_,
+                                        const int32_t* __restrict__ Lb_,
+                                        const int32_t* __restrict__ lw_,
+                                        int8_t* __restrict__ moves,
+                                        int32_t* __restrict__ cnts, int B,
+                                        int nsteps, int nslot,
+                                        int max_iters) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const int8_t* dp = dirs + (size_t)b * nsteps * nslot;
@@ -45,50 +101,259 @@ __global__ void traceback_kernel(const int8_t* __restrict__ dirs,
     const int d = m + n;
     int src = -1, op = 0;
     if (d > 0 && d < nsteps) {
-      // the device walk's dynamic index: negative slots wrap, then clamp
-      int slot = off + (n - m);
-      if (slot < 0) slot += nslot;
-      slot = min(max(slot, 0), nslot - 1);
+      const int slot = wrap_slot(off + (n - m), nslot);
       src = dp[(size_t)d * nslot + slot];
       op = op_[(size_t)d * nslot + slot];
     }
-    int emit;
-    if (lane == 0) {
-      if (src == L_DIAG) {
-        emit = L_DIAG;
-        --m;
-        --n;
-      } else {
-        emit = -1;
-        lane = src == L_VERT ? 1 : src == L_VERT2 ? 2 : src == L_HORI2 ? 4 : 3;
-      }
-    } else if (lane == 1 || lane == 2) {
-      emit = L_VERT;
-      --m;
-      if ((op & (lane == 1 ? 1 : 4)) != 0 || n == 0) lane = 0;
-    } else {
-      emit = L_HORI;
-      --n;
-      if ((op & (lane == 3 ? 2 : 8)) != 0 || m == 0) lane = 0;
-    }
+    const int emit = lane_step(src, op, lane, m, n);
     mv[min(cnt, max_iters - 1)] = (int8_t)emit;
     if (emit >= 0) ++cnt;
   }
   cnts[b] = min(cnt, max_iters);
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar,
+                                              uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+      "selp.u32 %0, 1, 0, p;\n\t}"
+      : "=r"(ok)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  while (!mbar_try_wait(bar, parity)) {
+  }
+}
+
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
+                                         uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// a read of both planes in device memory, kept out of line so that the
+// compiler does not load it ahead where the step reads shared memory
+__device__ __noinline__ int2 read_global(const int8_t* dirs,
+                                         const int8_t* opens, long long a) {
+  return make_int2(dirs[a], opens[a]);
+}
+
+// A tile's window in one plane: bytes [lo, hi) from the plane
+// allocation's base, 16-byte aligned in device memory, holding rows
+// [r0, r1] of the pair's plane except where clipped at the allocation's
+// ends.
+struct Window {
+  long long lo, hi;
+};
+
+__device__ __forceinline__ Window tile_window(const int8_t* base,
+                                              long long total,
+                                              long long pair_off, int r0,
+                                              int r1, int nslot) {
+  const uintptr_t b = (uintptr_t)base;
+  const uintptr_t first = (b + 15) & ~(uintptr_t)15;
+  const uintptr_t last = (b + (uintptr_t)total) & ~(uintptr_t)15;
+  uintptr_t lo = (b + pair_off + (long long)r0 * nslot) & ~(uintptr_t)15;
+  uintptr_t hi =
+      (b + pair_off + (long long)(r1 + 1) * nslot + 15) & ~(uintptr_t)15;
+  lo = lo < first ? first : lo;
+  hi = hi > last ? last : hi;
+  if (hi < lo) hi = lo;
+  return {(long long)(lo - b), (long long)(hi - b)};
+}
+
+__global__ void __launch_bounds__(kThreads)
+    traceback_staged_kernel(const int8_t* __restrict__ dirs,
+                            const int8_t* __restrict__ opens,
+                            const int32_t* __restrict__ La_,
+                            const int32_t* __restrict__ Lb_,
+                            const int32_t* __restrict__ lw_,
+                            int8_t* __restrict__ moves,
+                            int32_t* __restrict__ cnts, int nsteps,
+                            int nslot, int max_iters, int T, int cap) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  // buffers: [stage 0 dirs][stage 0 opens][stage 1 dirs][stage 1 opens]
+  int8_t* bufs = reinterpret_cast<int8_t*>(smem + kHead);
+  int8_t* smv = bufs + 4 * (size_t)cap;
+  const int b = blockIdx.x;
+
+  for (int i = threadIdx.x; i < max_iters; i += blockDim.x) smv[i] = -1;
+  if (threadIdx.x == 0) {
+    mbar_init(&bars[0], 1);
+    mbar_init(&bars[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x == 0) {
+    const long long total = (long long)gridDim.x * nsteps * nslot;
+    const long long poff = (long long)b * nsteps * nslot;
+    int m = La_[b], n = Lb_[b];
+    const int off = -(lw_[b] - 1);
+    // rows 1 .. top in tiles of T, from the top down
+    const int top = min(m + n, nsteps - 1);
+    const int ntiles = top >= 1 ? (top + T - 1) / T : 0;
+
+    auto issue = [&](int j) {
+      const int r1 = top - j * T, r0 = max(r1 - T + 1, 1);
+      const Window wd = tile_window(dirs, total, poff, r0, r1, nslot);
+      const Window wo = tile_window(opens, total, poff, r0, r1, nslot);
+      const int s = j & 1;
+      const uint32_t nd = (uint32_t)(wd.hi - wd.lo);
+      const uint32_t no = (uint32_t)(wo.hi - wo.lo);
+      // order this thread's reads of the buffer (generic proxy) before
+      // the copy's writes (async proxy)
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      mbar_expect_tx(&bars[s], nd + no);
+      if (nd) bulk_g2s(bufs + (size_t)(2 * s) * cap, dirs + wd.lo, nd,
+                       &bars[s]);
+      if (no) bulk_g2s(bufs + (size_t)(2 * s + 1) * cap, opens + wo.lo, no,
+                       &bars[s]);
+    };
+
+    int issued = 0;
+    for (; issued < min(ntiles, 2); ++issued) issue(issued);
+
+    int cur = -1;                 // the tile the walker reads
+    int row_lo = top + 1;         // its lowest row
+    Window wd{0, 0}, wo{0, 0};
+    bool whole = false;           // the tile holds its rows whole
+    int td = 0, to = 0;           // shared index 0 as a plane offset
+    const int8_t* sd = bufs;
+    const int8_t* so = bufs;
+    int state = 0;                // 0=H 1=G 2=G2 3=F 4=F2
+    int cnt = 0;
+    const int cap_iters = 3 * max_iters;
+    for (int it = 0; (m > 0 || n > 0) && it < cap_iters; ++it) {
+      const int d = m + n;
+      const bool inside = d > 0 && d < nsteps;
+      if (__builtin_expect(inside && d < row_lo, 0)) {
+        while (d < row_lo) {      // cross into the next tile
+          ++cur;
+          const int s = cur & 1;
+          mbar_wait(&bars[s], (cur >> 1) & 1);
+          const int r1 = top - cur * T;
+          row_lo = max(r1 - T + 1, 1);
+          wd = tile_window(dirs, total, poff, row_lo, r1, nslot);
+          wo = tile_window(opens, total, poff, row_lo, r1, nslot);
+          // the tile's rows whole in both windows: index shared memory
+          // from the pair's plane offset
+          const long long rlo = poff + (long long)row_lo * nslot;
+          const long long rhi = poff + (long long)(r1 + 1) * nslot;
+          whole = wd.lo <= rlo && wd.hi >= rhi && wo.lo <= rlo && wo.hi >= rhi;
+          td = (int)(wd.lo - poff);
+          to = (int)(wo.lo - poff);
+          sd = bufs + (size_t)(2 * s) * cap;
+          so = bufs + (size_t)(2 * s + 1) * cap;
+          // the other buffer (tile cur - 1's) is free: fetch tile cur + 1
+          if (issued == cur + 1 && issued < ntiles) issue(issued++);
+        }
+      }
+      const int i = d * nslot + wrap_slot(off + (n - m), nslot);
+      int src, op;
+      if (__builtin_expect(whole || !inside, 1)) {
+        // outside the planes the step reads byte 0 of a buffer, unused
+        src = sd[inside ? i - td : 0];
+        op = so[inside ? i - to : 0];
+      } else {
+        const long long a = poff + i;
+        if (a >= wd.lo && a < wd.hi && a >= wo.lo && a < wo.hi) {
+          src = sd[a - wd.lo];
+          op = so[a - wo.lo];
+        } else {
+          const int2 g = read_global(dirs, opens, a);
+          src = g.x;
+          op = g.y;
+        }
+      }
+      src = inside ? src : -1;
+      op = inside ? op : 0;
+      const int emit = lane_step(src, op, state, m, n);
+      smv[min(cnt, max_iters - 1)] = (int8_t)emit;
+      cnt += emit >= 0;
+    }
+    // no copy may still be writing when the block exits
+    for (int j = cur + 1; j < issued; ++j) mbar_wait(&bars[j & 1], (j >> 1) & 1);
+    cnts[b] = min(cnt, max_iters);
+  }
+  __syncthreads();
+  int8_t* mv = moves + (size_t)b * max_iters;
+  for (int i = threadIdx.x; i < max_iters; i += blockDim.x) mv[i] = smv[i];
+}
+
 }  // namespace
 
+// variant 0: global (one thread a pair, planes in device memory);
+// variant 1: staged (one block a pair, tiles of tile_rows full rows in two
+// buffers of width bytes a plane); smem_bytes in all
 extern "C" int traceback_launch(const void* dirs, const void* opens,
                                 const void* La, const void* Lb,
                                 const void* lw, void* moves, void* cnts,
                                 int B, int nsteps, int nslot, int max_iters,
-                                void* stream) {
-  const int threads = 32;
-  traceback_kernel<<<(B + threads - 1) / threads, threads, 0,
-                     (cudaStream_t)stream>>>(
-      (const int8_t*)dirs, (const int8_t*)opens, (const int32_t*)La,
-      (const int32_t*)Lb, (const int32_t*)lw, (int8_t*)moves,
-      (int32_t*)cnts, B, nsteps, nslot, max_iters);
+                                int variant, int tile_rows, int width,
+                                int smem_bytes, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int8_t *d8 = (const int8_t*)dirs, *o8 = (const int8_t*)opens;
+  const int32_t *la = (const int32_t*)La, *lb = (const int32_t*)Lb;
+  const int32_t* lw_ = (const int32_t*)lw;
+  int8_t* mv = (int8_t*)moves;
+  int32_t* cn = (int32_t*)cnts;
+  if (variant == 0) {
+    const int threads = 32;
+    traceback_global_kernel<<<(B + threads - 1) / threads, threads, 0, st>>>(
+        d8, o8, la, lb, lw_, mv, cn, B, nsteps, nslot, max_iters);
+    return (int)cudaGetLastError();
+  }
+  if (variant != 1 || tile_rows < 1 || width < tile_rows * nslot + 32 ||
+      width % 128 != 0 || (long long)nsteps * nslot >= (1LL << 31) ||
+      smem_bytes < kHead + 4 * width + max_iters)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      traceback_staged_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  traceback_staged_kernel<<<B, kThreads, smem_bytes, st>>>(
+      d8, o8, la, lb, lw_, mv, cn, nsteps, nslot, max_iters, tile_rows,
+      width);
   return (int)cudaGetLastError();
+}
+
+// registers a thread and local (spilled) bytes of a variant's kernel
+extern "C" int traceback_attrs(int variant, void* out) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(
+      &attr, variant == 0 ? (const void*)traceback_global_kernel
+                          : (const void*)traceback_staged_kernel);
+  if (err != cudaSuccess) return (int)err;
+  ((int*)out)[0] = attr.numRegs;
+  ((int*)out)[1] = (int)attr.localSizeBytes;
+  return 0;
 }

@@ -32,11 +32,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _vp, _int = ctypes.c_void_p, ctypes.c_int
 # C signatures of the kernels' launchers; each returns cudaGetLastError()
 _SIGNATURES = {
-    "pairwise_scores_launch": [_vp] * 12 + [_int] * 6 + [_vp],
+    "pairwise_scores_launch": [_vp] * 12 + [_int] * 11 + [_vp],
     "pairwise_rows_launch": [_vp] * 12 + [_int] * 6 + [_vp],
     "group_wavefront_launch": [_vp] * 16 + [_int] * 12 + [_vp],
     "group_wavefront_attrs": [_int, _int, _vp],
-    "traceback_launch": [_vp] * 7 + [_int] * 4 + [_vp],
+    "pairwise_scores_attrs": [_int, _int, _int, _vp],
+    "traceback_launch": [_vp] * 7 + [_int] * 8 + [_vp],
+    "traceback_attrs": [_int, _vp],
     "spliced_h_wave_launch": [_vp] * 20 + [_int] * 15 + [_vp],
     "spliced_h_wave_attrs": [_int, _vp],
     "spliced_h_wave_scratch_words": [],

@@ -741,13 +741,76 @@ def traceback_ref(dirs: torch.Tensor, opens: torch.Tensor, La, Lb, lw,
             torch.as_tensor(cnts, device=dirs.device))
 
 
+# K3's staged variant: a tile holds at most this many bytes of a plane
+# (fewer rows to wait for before the walk starts, against fewer tile
+# crossings), and at least K3_MIN_ROWS rows, or the global variant walks
+K3_TILE_BYTES = 32768
+K3_MIN_ROWS = 8
+# shared memory ahead of K3's tile buffers (its two mbarriers, padded)
+K3_HEAD = 128
+
+
+def _k3_cap(rows: int, nslot: int) -> int:
+    """Bytes of one of K3's tile buffers for ``rows`` rows: a window
+    rounded out to 16 bytes at both ends, in a multiple of 128."""
+    return -(-(rows * nslot + 32) // 128) * 128
+
+
+def traceback_plan(nsteps: int, nslot: int, max_iters: int, *,
+                   variant: str | None = None,
+                   tile_rows: int | None = None) -> dict:
+    """K3's variant for planes of (nsteps, nslot) and its tiles.
+
+    "staged" walks one pair a block with tiles of ``tile_rows`` band rows
+    of both planes double-buffered in shared memory (four buffers of
+    ``width`` bytes) beside the ``max_iters`` moves; "global" walks the
+    planes in device memory, one thread a pair.  By default a tile holds
+    ``K3_TILE_BYTES`` of a plane (at least ``K3_MIN_ROWS`` rows, at most
+    the plane's rows and what ``SMEM_MAX`` holds), and the global variant
+    takes the bands where ``K3_MIN_ROWS`` rows do not fit.  A variant or
+    tile asked for that the kernel cannot take raises.
+    """
+    if nsteps < 1 or nslot < 1 or max_iters < 1:
+        raise ValueError(f"traceback_plan: empty planes ({nsteps}, {nslot}) "
+                         f"or max_iters {max_iters}")
+    if nsteps * nslot >= 2 ** 31:
+        raise ValueError(f"traceback_plan: planes of {nsteps} x {nslot} "
+                         f"bytes a pair")
+    room = (SMEM_MAX - K3_HEAD - max_iters) // 4 // 128 * 128
+    fit = max((room - 32) // nslot, 0)
+    rows = max(nsteps - 1, 1)
+    if variant is None:
+        variant = "staged" if fit >= min(K3_MIN_ROWS, rows) else "global"
+    if variant == "global":
+        if tile_rows is not None:
+            raise ValueError("traceback_plan: the global variant has no tiles")
+        return {"variant": "global", "tile_rows": 0, "width": 0,
+                "smem_bytes": 0}
+    if variant != "staged":
+        raise ValueError(f"traceback_plan: unknown variant {variant!r}")
+    if tile_rows is None:
+        tile_rows = min(fit, rows, max(K3_MIN_ROWS, K3_TILE_BYTES // nslot))
+    if not 1 <= tile_rows <= fit:
+        raise ValueError(f"traceback_plan: {tile_rows} rows of {nslot} "
+                         f"slots with {max_iters} moves do not fit in "
+                         f"{SMEM_MAX} bytes of shared memory ({fit} rows do)")
+    width = _k3_cap(tile_rows, nslot)
+    return {"variant": "staged", "tile_rows": tile_rows, "width": width,
+            "smem_bytes": K3_HEAD + 4 * width + max_iters}
+
+
+_K3_VARIANTS = {"global": 0, "staged": 1}
+
+
 def traceback(dirs: torch.Tensor, opens: torch.Tensor, La: torch.Tensor,
-              Lb: torch.Tensor, lw: torch.Tensor, *, max_iters: int):
+              Lb: torch.Tensor, lw: torch.Tensor, *, max_iters: int,
+              plan: dict | None = None):
     """Walk the direction planes of a batch from (La, Lb) (kernel K3).
 
     dirs/opens (B, nsteps, nslot) int8; La, Lb, lw (B,) int32.  Returns
     moves (B, max_iters) int8 end to start and counts (B,) int32.  CPU
-    tensors take the plain version; CUDA tensors launch the kernel.
+    tensors take the plain version; CUDA tensors launch the kernel in the
+    variant ``plan`` gives (default: ``traceback_plan`` by size).
     """
     dev = dirs.device
     if dev.type == "cpu":
@@ -759,17 +822,31 @@ def traceback(dirs: torch.Tensor, opens: torch.Tensor, La: torch.Tensor,
     _build.require(opens, "opens", torch.int8, (Bn, nsteps, nslot), dev)
     for t, name in ((La, "La"), (Lb, "Lb"), (lw, "lw")):
         _build.require(t, name, torch.int32, (Bn,), dev)
+    if plan is None:
+        plan = traceback_plan(nsteps, nslot, max_iters)
     moves = torch.empty((Bn, max_iters), dtype=torch.int8, device=dev)
     cnts = torch.empty(Bn, dtype=torch.int32, device=dev)
+    if Bn == 0:
+        return moves, cnts
     lib = _build.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.traceback_launch(
         dirs.data_ptr(), opens.data_ptr(), La.data_ptr(), Lb.data_ptr(),
         lw.data_ptr(), moves.data_ptr(), cnts.data_ptr(), Bn, nsteps,
-        nslot, max_iters, stream)
+        nslot, max_iters, _K3_VARIANTS[plan["variant"]], plan["tile_rows"],
+        plan["width"], plan["smem_bytes"], stream)
     _build.check(err, "traceback_launch")
     _build.LAUNCHES["traceback"] += 1
     return moves, cnts
+
+
+def traceback_attrs(variant: str) -> dict:
+    """Registers a thread and local (spilled) bytes of one of K3's
+    variants, as the card's loader reports them."""
+    out = (ctypes.c_int * 2)()
+    _build.check(_build.load().traceback_attrs(
+        _K3_VARIANTS[variant], ctypes.addressof(out)), "traceback_attrs")
+    return {"registers": out[0], "local_bytes": out[1]}
 
 
 def _skls(moves: torch.Tensor, cnts: torch.Tensor, las, lbs) -> list:

@@ -26,6 +26,7 @@ differ by a few f32 ulp.
 
 from __future__ import annotations
 
+import ctypes
 import os
 
 import numpy as np
@@ -327,8 +328,118 @@ def _launch_rows(a_batch, b_batch, la, lb, lw, up, mtx, u, v, tgapf, exg,
     return out
 
 
+# K1's launch plans (pairwise_plan): slot pairs a lane the register-state
+# variants are built for, pairs a block of the "warp" variant, the widest
+# band the "warp" variant takes by default, slot pairs a lane the "warps"
+# variant starts from, and its most warps a pair
+K1_LANES = (1, 2, 3, 4, 5, 6, 8, 10)
+K1_WARP_PAIRS = 4
+K1_WARP_MAX = 256
+K1_WARPS_LANES = 2
+K1_MAX_WARPS = 16
+SMEM_MAX = 232448
+K1_BLOCK_THREADS = 256
+
+
+def pairwise_plan(maxw: int, B: int, dim: int, Ma: int, Mb: int, *,
+                  variant: str | None = None, lanes: int | None = None,
+                  warps: int | None = None) -> dict:
+    """K1's variant for a batch whose widest band has ``maxw`` slots.
+
+    "warp": one warp a pair, ``K1_WARP_PAIRS`` pairs a block, each lane
+    holding ``lanes`` slot pairs in registers (64 * lanes >= maxw);
+    "warps": ``warps`` warps a pair, one pair a block (64 * lanes * warps
+    >= maxw); "block": one block of 256 threads a pair with the band in
+    shared memory (the earlier design).  By default "warp" takes bands of
+    up to ``K1_WARP_MAX`` slots, "warps" up to 64 * 10 * ``K1_MAX_WARPS``,
+    "block" the rest.  The register-state variants hold the codes as
+    bytes in shared memory (``code_stride`` bytes a pair) beside the
+    matrix, so they need ``dim`` <= 256.  A plan the kernels cannot take
+    raises.
+    """
+    if maxw < 3 or B < 0 or dim < 1:
+        raise ValueError(f"pairwise_plan: band of {maxw} slots, {B} pairs, "
+                         f"dim {dim}")
+    stride = -(-(Ma + Mb) // 16) * 16
+    mtx_bytes = 4 * dim * dim
+
+    def smallest_lanes(need):
+        for n in K1_LANES:
+            if n >= need:
+                return n
+        return None
+
+    if variant is None:
+        if dim > 256:
+            variant = "block"
+        elif maxw <= K1_WARP_MAX:
+            variant = "warp"
+        elif maxw <= 64 * K1_LANES[-1] * K1_MAX_WARPS:
+            variant = "warps"
+        else:
+            variant = "block"
+        fits = {"warp": mtx_bytes + 44 + stride,
+                "warps": mtx_bytes + 44 + stride}
+        if variant in fits and fits[variant] > SMEM_MAX:
+            variant = "block"
+    if variant == "block":
+        if lanes is not None or warps is not None:
+            raise ValueError("pairwise_plan: the block variant has no lanes")
+        smem = 4 * (dim * dim + 3 * maxw + 32)
+        if smem > SMEM_MAX:
+            raise ValueError(f"pairwise_plan: a band of {maxw} slots does "
+                             f"not fit in shared memory")
+        return {"variant": "block", "lanes": 0, "warps": 0,
+                "pairs_per_block": 1, "threads": K1_BLOCK_THREADS,
+                "code_stride": 0, "smem_bytes": smem}
+    if variant not in ("warp", "warps"):
+        raise ValueError(f"pairwise_plan: unknown variant {variant!r}")
+    if dim > 256:
+        raise ValueError(f"pairwise_plan: codes of a {dim}-letter matrix "
+                         f"are not bytes")
+    if variant == "warp":
+        if warps not in (None, 1):
+            raise ValueError("pairwise_plan: the warp variant has one warp "
+                             "a pair")
+        warps = 1
+        if lanes is None:
+            lanes = smallest_lanes(-(-maxw // 64))
+        pairs = K1_WARP_PAIRS
+        while pairs > 1 and mtx_bytes + 44 * pairs + pairs * stride > SMEM_MAX:
+            pairs -= 1
+    else:
+        if lanes is None and warps is None:
+            lanes = smallest_lanes(max(K1_WARPS_LANES,
+                                       -(-maxw // (64 * K1_MAX_WARPS))))
+        if lanes is None:
+            raise ValueError(f"pairwise_plan: a band of {maxw} slots is too "
+                             f"wide for the warps variant")
+        if warps is None:
+            warps = -(-maxw // (64 * lanes))
+        pairs = 1
+    if lanes not in K1_LANES:
+        raise ValueError(f"pairwise_plan: {lanes} slot pairs a lane is not "
+                         f"one of {K1_LANES}")
+    if 64 * lanes * warps < maxw:
+        raise ValueError(f"pairwise_plan: {warps} warps of {lanes} slot "
+                         f"pairs a lane do not hold {maxw} slots")
+    if variant == "warps" and not 1 <= warps <= K1_MAX_WARPS:
+        raise ValueError(f"pairwise_plan: {warps} warps a pair")
+    nwarps = pairs if variant == "warp" else warps
+    smem = mtx_bytes + 44 * nwarps + pairs * stride
+    if smem > SMEM_MAX:
+        raise ValueError(f"pairwise_plan: codes of {Ma} + {Mb} do not fit "
+                         f"in shared memory")
+    return {"variant": variant, "lanes": lanes, "warps": warps,
+            "pairs_per_block": pairs, "threads": 32 * nwarps,
+            "code_stride": stride, "smem_bytes": smem}
+
+
+_K1_VARIANTS = {"block": 0, "warp": 1, "warps": 2}
+
+
 def _launch_pairwise(a_batch, b_batch, la, lb, lw, up, mtx, u, v, tgapf,
-                     exg, local):
+                     exg, local, plan=None):
     exg_u8 = _checked_inputs(a_batch, b_batch, la, lb, lw, up, mtx, u, v,
                              tgapf, exg)
     dev = a_batch.device
@@ -339,16 +450,30 @@ def _launch_pairwise(a_batch, b_batch, la, lb, lw, up, mtx, u, v, tgapf,
     if B == 0:
         return out
     maxw = int((up - lw).max()) + 3
+    if plan is None:
+        plan = pairwise_plan(maxw, B, dim, Ma, Mb)
     lib = _build.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.pairwise_scores_launch(
         a_batch.data_ptr(), b_batch.data_ptr(), la.data_ptr(),
         lb.data_ptr(), lw.data_ptr(), up.data_ptr(), u.data_ptr(),
         v.data_ptr(), tgapf.data_ptr(), exg_u8.data_ptr(), mtx.data_ptr(),
-        out.data_ptr(), B, Ma, Mb, dim, int(local), maxw, stream)
+        out.data_ptr(), B, Ma, Mb, dim, int(local), maxw,
+        _K1_VARIANTS[plan["variant"]], plan["lanes"], plan["threads"],
+        plan["code_stride"], plan["smem_bytes"], stream)
     _build.check(err, "pairwise_scores_launch")
     _build.LAUNCHES["pairwise"] += 1
     return out
+
+
+def pairwise_attrs(plan: dict, local: bool = False) -> dict:
+    """Registers a thread and local (spilled) bytes of the kernel a K1
+    plan launches, as the card's loader reports them."""
+    out = (ctypes.c_int * 2)()
+    _build.check(_build.load().pairwise_scores_attrs(
+        _K1_VARIANTS[plan["variant"]], plan["lanes"], int(local),
+        ctypes.addressof(out)), "pairwise_scores_attrs")
+    return {"registers": out[0], "local_bytes": out[1]}
 
 
 def band_cells(la: np.ndarray, lb: np.ndarray, lw: np.ndarray,

@@ -280,3 +280,57 @@ def test_member_counts_of_a_collapsed_side():
     ins = tg.stack_inputs([item], "cpu")
     assert tg.member_counts(ins["wa"]).tolist() == [1]
     assert tg.member_counts(ins["wb"]).tolist() == [3]
+
+
+@pytest.mark.parametrize("nsteps,nslot,max_iters,want,rows", [
+    (256, 128, 516, "staged", 255),      # a refinement candidate: one tile
+    (1280, 640, 2308, "staged", 51),     # a ce13a17 merge
+    (1280, 768, 4356, "staged", 42),     # fam19's last refinement
+    (2304, 2100, 4356, "staged", 15),    # an sh=-100 retry
+    (8192, 7116, 4356, "staged", 8),     # the widest band staged
+    (8192, 7117, 4356, "global", 0),     # 8 rows no longer fit
+    (2, 64, 8, "staged", 1),             # planes of one row
+])
+def test_traceback_plan_rule(nsteps, nslot, max_iters, want, rows):
+    """K3's tiles: K3_TILE_BYTES of a plane (at least K3_MIN_ROWS rows, at
+    most the plane's rows), four buffers and the moves within SMEM_MAX;
+    the global variant where K3_MIN_ROWS rows do not fit."""
+    plan = tg.traceback_plan(nsteps, nslot, max_iters)
+    assert (plan["variant"], plan["tile_rows"]) == (want, rows)
+    if want == "staged":
+        cap = plan["width"]
+        assert cap % 128 == 0 and cap >= rows * nslot + 32
+        assert plan["smem_bytes"] == tg.K3_HEAD + 4 * cap + max_iters
+        assert plan["smem_bytes"] <= tg.SMEM_MAX
+        # one more row would not fit, or the tile already has its bytes
+        more = tg.K3_HEAD + 4 * tg._k3_cap(rows + 1, nslot) + max_iters
+        assert (more > tg.SMEM_MAX or rows == nsteps - 1
+                or (rows + 1) * nslot > tg.K3_TILE_BYTES)
+    else:
+        assert plan["width"] == plan["smem_bytes"] == 0
+
+
+@pytest.mark.parametrize("args,kw", [
+    ((1280, 640, 2308), {"tile_rows": 90}),          # past shared memory
+    ((1280, 640, 2308), {"tile_rows": 0}),
+    ((1280, 640, 2308), {"variant": "staged", "tile_rows": -3}),
+    ((8192, 7117, 4356), {"variant": "staged", "tile_rows": 8}),
+    ((1280, 640, 2308), {"variant": "global", "tile_rows": 16}),
+    ((1280, 640, 2308), {"variant": "rows"}),
+    ((0, 640, 2308), {}),
+    ((1280, 0, 2308), {}),
+    ((1280, 640, 0), {}),
+    ((1280, 640, 240000), {"variant": "staged"}),    # moves past the room
+    ((65536, 32768, 4356), {}),                     # 2**31 bytes a pair
+])
+def test_traceback_plan_refuses(args, kw):
+    with pytest.raises(ValueError):
+        tg.traceback_plan(*args, **kw)
+
+
+def test_traceback_plan_asked_tiles():
+    plan = tg.traceback_plan(1280, 640, 2308, tile_rows=16)
+    assert (plan["variant"], plan["tile_rows"], plan["width"]) == (
+        "staged", 16, 10368)
+    assert tg.traceback_plan(1280, 640, 2308, variant="global") == {
+        "variant": "global", "tile_rows": 0, "width": 0, "smem_bytes": 0}

@@ -5,6 +5,7 @@ no JAX, so it also runs where JAX is absent:
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 """
 
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -287,3 +288,231 @@ def test_spliced_kernels_match_plain(cuda_device, case):
         assert torch.equal(getattr(sw, field), getattr(ref, field)), field
     wargs, wk = calls["walk"]
     assert tsh.walk_h_ref(*wargs) == wk
+
+
+def _k3_planes(seed, B, nsteps, nslot, device, offset=0, pdiag=0.7,
+               popen=0.2):
+    """Random direction planes: DIAG with probability ``pdiag``, else a
+    gap or lane code; open bits with probability ``popen`` each, so gap
+    runs last a few steps.  ``offset`` bytes ahead of the planes in their
+    allocation leave them unaligned."""
+    rng = np.random.default_rng(seed)
+    dirs = np.where(rng.random((B, nsteps, nslot)) < pdiag, 0,
+                    rng.integers(-1, 5, (B, nsteps, nslot))).astype(np.int8)
+    bits = (rng.random((B, nsteps, nslot, 4)) < popen).astype(np.int8)
+    opens = (bits * np.array([1, 2, 4, 8], np.int8)).sum(-1).astype(np.int8)
+    out = []
+    for x in (dirs, opens):
+        flat = torch.empty(x.size + offset, dtype=torch.int8, device=device)
+        t = flat[offset:].view(B, nsteps, nslot)
+        t.copy_(torch.as_tensor(x))
+        out.append(t)
+    return out
+
+
+def _visited(moves, cnt, La, Lb):
+    """The (m, n) cells of a walk from (La, Lb), from its moves."""
+    m, n, cells = La, Lb, [(La, Lb)]
+    for mv in moves[:cnt]:
+        m -= mv in (0, 1)
+        n -= mv in (0, 2)
+        cells.append((m, n))
+    return cells
+
+
+# K3's cases: B, nsteps, nslot, max_iters (None: the main path's 2 (La +
+# Lb) + 4 of the largest), the planes' offset from an aligned address, the
+# plan asked for, and the variant and tile rows the plan must give
+_K3_CASES = {
+    "staged_640": (1, 1280, 640, None, 0, {}, ("staged", 51)),
+    "tiles_16": (1, 1280, 640, None, 0, {"tile_rows": 16}, ("staged", 16)),
+    "unaligned_640": (1, 1280, 640, None, 3, {}, ("staged", 51)),
+    "odd_nslot": (3, 301, 100, None, 3, {"tile_rows": 9}, ("staged", 9)),
+    "short_walk": (2, 1024, 128, None, 0, {}, ("staged", 256)),
+    "wrap_clamp": (2, 200, 40, 60, 0, {"tile_rows": 8}, ("staged", 8)),
+    "b1_one_tile": (1, 256, 128, None, 0, {}, ("staged", 255)),
+    "b32": (32, 768, 384, None, 0, {}, ("staged", 85)),
+    "b32_global": (32, 768, 384, None, 0, {"variant": "global"},
+                   ("global", 0)),
+    "rows1": (2, 120, 48, None, 5, {"tile_rows": 1}, ("staged", 1)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(_K3_CASES))
+def test_traceback_kernel_matches_plain(cuda_device, case):
+    """K3 against ``traceback_ref``, moves and counts bit for bit, in the
+    plan each case asks for: walks over many tiles whose gap runs cross a
+    tile edge, planes 3 bytes past an aligned address (every pair's
+    offset unaligned, the first and last tiles clipped) with nslot 640
+    and 100, walks from La + Lb far below nsteps - 1, walks past the slot
+    wrap and clamp whose count passes max_iters, one pair in one tile, 32
+    pairs in each variant, and tiles of one row."""
+    B, nsteps, nslot, mi, offset, ask, want = _K3_CASES[case]
+    rng = np.random.default_rng(zlib.crc32(case.encode()))
+    args = _k3_planes(int(rng.integers(1 << 30)), B, nsteps, nslot,
+                      cuda_device, offset)
+    if case == "short_walk":
+        La = rng.integers(40, 60, B)
+        Lb = rng.integers(40, 60, B)
+    else:
+        La = rng.integers((nsteps - 1) // 3, (nsteps - 1) // 2, B)
+        Lb = nsteps - 1 - La - rng.integers(0, 3, B)
+    wrap = case == "wrap_clamp"
+    lw = -La
+    if wrap:    # the first slot at -5 (wrapped) and at nslot + 3 (clamped)
+        lw = Lb - La + 1 + np.array([5, -nslot - 3])
+    lw = lw.astype(np.int32)
+    mi = mi or 2 * int((La + Lb).max()) + 4
+    plan = tg.traceback_plan(nsteps, nslot, mi, **ask)
+    assert (plan["variant"], plan["tile_rows"]) == want
+    if offset:
+        assert args[0].data_ptr() % 16 != 0
+    args += [torch.as_tensor(x.astype(np.int32), device=cuda_device)
+             for x in (La, Lb, lw)]
+    mk, ck = tg.traceback(*args, max_iters=mi, plan=plan)
+    mr, cr = tg.traceback_ref(*args, max_iters=mi)
+    assert torch.equal(mk, mr) and torch.equal(ck, cr)
+    moves, cnts = mr.cpu().numpy(), cr.cpu().numpy()
+    if case in ("staged_640", "tiles_16"):
+        # a gap run crosses a tile edge: rows top - j * T .. stay in tile j
+        T = plan["tile_rows"]
+        top = min(int(La[0] + Lb[0]), nsteps - 1)
+        tile = [(top - m - n) // T if m + n >= 1 else -1
+                for m, n in _visited(moves[0], cnts[0], int(La[0]),
+                                     int(Lb[0]))]
+        gaps = [k for k in range(1, cnts[0])
+                if moves[0, k] == moves[0, k - 1] and moves[0, k] in (1, 2)
+                and tile[k] != tile[k + 1]]
+        assert len(gaps) > 0 and len(set(tile)) > 10
+    if wrap:
+        slots = [int(1 - lw[b] + n - m) for b in range(B)
+                 for m, n in _visited(moves[b], min(cnts[b], mi - 1),
+                                      int(La[b]), int(Lb[b]))
+                 if 0 < m + n < nsteps]
+        assert min(slots) < 0 and max(slots) >= nslot and max(cnts) == mi
+    if case == "short_walk":
+        assert int((La + Lb).max()) < nsteps // 8
+
+
+@pytest.mark.gpu
+def test_traceback_kernel_on_k2_planes(cuda_device):
+    """K3 on planes K2 made on the card, one pair and 32 pairs, in both
+    variants, against ``traceback_ref``."""
+    rng = np.random.default_rng(47)
+    pairs = [(_rand_msa(rng, 4, 150 + int(rng.integers(0, 60))),
+              _rand_msa(rng, 3, 140 + int(rng.integers(0, 60))))
+             for _ in range(32)]
+    wd = [stripe(A.length, B.length, -60) for A, B in pairs]
+    items = [tg._pack_inputs(A, B, MTX, 2.0, 9.0, w, 4, 4, 256, 256)
+             for (A, B), w in zip(pairs, wd)]
+    for sel in (slice(0, 1), slice(0, 32)):
+        ins = tg.stack_inputs(items[sel], cuda_device)
+        _, dirs, opens = tg.group_wavefront(ins, nslot=384, nsteps=512)
+        tb = (dirs, opens, ins["la"], ins["lb"], ins["lw"])
+        mr, cr = tg.traceback_ref(*tb, max_iters=1028)
+        for variant in ("staged", "global"):
+            plan = tg.traceback_plan(512, 384, 1028, variant=variant)
+            mk, ck = tg.traceback(*tb, max_iters=1028, plan=plan)
+            assert torch.equal(mk, mr) and torch.equal(ck, cr), variant
+
+
+def _k1_batch(seed, lens, sh, dna=False, exg=None, tg_half=True):
+    """K1's launch arguments for pairs of the given (la, lb) lengths at
+    shoulder ``sh``, with random codes and gap settings from ``seed``."""
+    rng = np.random.default_rng(seed)
+    mtx = scoring.dna_matrix(AlnParams())[0] if dna else MTX
+    dim = mtx.shape[0]
+    la = np.array([a for a, _ in lens], np.int32)
+    lb = np.array([b for _, b in lens], np.int32)
+    B = len(lens)
+    A = np.zeros((B, int(la.max()) + 5), np.int32)
+    Bm = np.zeros((B, int(lb.max())), np.int32)
+    for i in range(B):
+        A[i, :la[i]] = rng.integers(0, dim, la[i])
+        Bm[i, :lb[i]] = rng.integers(0, dim, lb[i])
+        k = min(la[i], lb[i]) // 2       # a shared stretch: the path bends
+        Bm[i, :k] = A[i, :k]
+    wd = [stripe(int(x), int(y), sh) for x, y in zip(la, lb)]
+    if exg is None:
+        exg = rng.random((B, 4)) < 0.3
+    tg_ = (np.where(rng.random(B) < 0.5, 1.0, 0.5) if tg_half
+           else np.ones(B)).astype(np.float32)
+    arrs = [A, Bm, la, lb, np.array([w.lw for w in wd], np.int32),
+            np.array([w.up for w in wd], np.int32), mtx.astype(np.float32),
+            np.full(B, 2.0, np.float32), np.full(B, 9.0, np.float32), tg_,
+            np.broadcast_to(exg, (B, 4)).copy()]
+    return arrs
+
+
+def _rand_lens(seed, n, lo, hi):
+    rng = np.random.default_rng(seed)
+    return [tuple(int(x) for x in rng.integers(lo, hi, 2)) for _ in range(n)]
+
+
+# K1's cases: the batch (lengths, shoulder, DNA, free end gaps), local,
+# the plan asked for, and the variant, lanes and warps it must give
+_K1_CASES = {
+    "warp": (_rand_lens(1, 32, 100, 200), -20, False, None, False, {},
+             ("warp", 3, 1)),
+    "warp_local": (_rand_lens(2, 32, 100, 200), -20, False, None, True, {},
+                   ("warp", 3, 1)),
+    "warp_wide": (_rand_lens(3, 9, 150, 200), -60, False, None, False, {},
+                  ("warp", 4, 1)),
+    "warps": ([(520, 515), (518, 517), (515, 520)], -60, False, None, False,
+              {}, ("warps", 2, 5)),
+    "warps_local": ([(520, 515), (300, 515)], -60, False, None, True, {},
+                    ("warps", 2, 5)),
+    "warps_1x10": ([(520, 515), (518, 517), (515, 520)], -60, False, None,
+                   False, {"variant": "warps", "lanes": 1}, ("warps", 1, 10)),
+    "odd_w": ([(300, 240), (250, 260)], -50, False, None, False, {},
+              ("warps", 2, 3)),
+    "exg0": ([(200, 300)] * 2, -60, False, [1, 0, 0, 0], False, {},
+             ("warps", 2, 3)),
+    "exg1": ([(200, 300)] * 2, -60, False, [0, 1, 0, 0], False, {},
+             ("warps", 2, 3)),
+    "exg2": ([(300, 200)] * 2, -60, False, [0, 0, 1, 0], False, {},
+             ("warps", 2, 3)),
+    "exg3": ([(300, 200)] * 2, -60, False, [0, 0, 0, 1], False, {},
+             ("warps", 2, 3)),
+    "dna": (_rand_lens(4, 8, 300, 420), -30, True, None, False, {},
+            ("warps", 2, 3)),
+    "dna_local": (_rand_lens(5, 8, 100, 120), -30, True, None, True, {},
+                  ("warp", 2, 1)),
+    "full_width": ([(700, 650), (640, 700)], -100, False, None, False, {},
+                   ("warps", 2, 11)),
+    "mixed": ([(150, 520), (518, 515), (145, 157), (520, 157), (516, 519),
+               (157, 150)], -60, False, None, False, {}, ("warps", 2, 5)),
+    "ask_warp_10": ([(520, 515), (515, 520)], -60, False, None, False,
+                    {"variant": "warp", "lanes": 10}, ("warp", 10, 1)),
+    "ask_warps_4x3": ([(520, 515), (515, 520)], -60, False, None, False,
+                      {"variant": "warps", "lanes": 4, "warps": 3},
+                      ("warps", 4, 3)),
+    "ask_block": ([(520, 515), (150, 520)], -60, False, None, True,
+                  {"variant": "block"}, ("block", 0, 0)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(_K1_CASES))
+def test_pairwise_kernel_plans_match_plain(cuda_device, case):
+    """K1 against ``wavefront_scores_ref``, bit for bit, in each plan:
+    one warp a pair (bands of 81 to 231 slots), several warps a pair
+    (ce13a17's 626-slot band, of one and of two slot pairs a lane, an
+    odd width, full-width bands), local scores, each free end gap alone,
+    the DNA matrix, a batch mixing 145- and 520-residue sequences, and
+    the plans asked for (one warp of 10 slot pairs a lane, 3 warps of 4,
+    the block variant)."""
+    lens, sh, dna, exg, local, ask, want = _K1_CASES[case]
+    arrs = _k1_batch(zlib.crc32(case.encode()), lens, sh, dna=dna,
+                     exg=None if exg is None else np.array(exg, bool))
+    args = [torch.as_tensor(x, device=cuda_device) for x in arrs]
+    maxw = int((arrs[5] - arrs[4]).max()) + 3
+    if case == "odd_w":
+        assert maxw % 2 == 1
+    plan = tpw.pairwise_plan(maxw, len(lens), arrs[6].shape[0],
+                             arrs[0].shape[1], arrs[1].shape[1], **ask)
+    assert (plan["variant"], plan["lanes"], plan["warps"]) == want
+    got = tpw._launch_pairwise(*args, local, plan)
+    ref = tpw._plain_pairwise(*args, local)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))

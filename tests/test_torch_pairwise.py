@@ -134,3 +134,70 @@ def test_band_cells_counts_the_stripe():
     want = int((((n - m) >= lw) & ((n - m) <= up)).sum())
     assert tpw.band_cells(np.array([la]), np.array([lb]), np.array([lw]),
                           np.array([up])) == want
+
+
+@pytest.mark.parametrize("maxw,B,want", [
+    (3, 21, ("warp", 1, 1)),
+    (64, 21, ("warp", 1, 1)),
+    (65, 21, ("warp", 2, 1)),
+    (128, 21, ("warp", 2, 1)),
+    (129, 21, ("warp", 3, 1)),
+    (256, 512, ("warp", 4, 1)),       # the widest band of one warp a pair
+    (257, 21, ("warps", 2, 3)),
+    (627, 21, ("warps", 2, 5)),       # ce13a17's distance pass
+    (627, 101, ("warps", 2, 5)),      # fam19's edge batch
+    (617, 512, ("warps", 2, 5)),      # the 512 x 512 bench at sh=-60
+    (2048, 21, ("warps", 2, 16)),
+    (2049, 21, ("warps", 3, 11)),     # past 16 warps of 2 slot pairs
+    (10240, 21, ("warps", 10, 16)),
+    (10241, 21, ("block", 0, 0)),
+])
+def test_pairwise_plan_rule(maxw, B, want):
+    """K1's variant by band width: one warp a pair up to 4 x 64 slots,
+    then warps of 2 slot pairs a lane up to 16 warps (more slot pairs a
+    lane past that), then one block a pair with the band in shared
+    memory; the batch's size does not change it."""
+    plan = tpw.pairwise_plan(maxw, B, 23, 520, 520)
+    assert (plan["variant"], plan["lanes"], plan["warps"]) == want
+    assert plan["smem_bytes"] <= tpw.SMEM_MAX
+    if plan["variant"] == "block":
+        assert plan["smem_bytes"] == 4 * (23 * 23 + 3 * maxw + 32)
+        return
+    assert 64 * plan["lanes"] * plan["warps"] >= maxw
+    pairs = plan["pairs_per_block"]
+    assert pairs == (tpw.K1_WARP_PAIRS if plan["variant"] == "warp" else 1)
+    assert plan["threads"] == 32 * (pairs if plan["variant"] == "warp"
+                                    else plan["warps"])
+    assert plan["code_stride"] == 1040
+    nwarps = plan["threads"] // 32
+    assert plan["smem_bytes"] == 4 * 23 * 23 + 44 * nwarps + pairs * 1040
+
+
+@pytest.mark.parametrize("kw", [
+    {"variant": "warp", "lanes": 2},               # 128 slots < 300
+    {"variant": "warp", "lanes": 7},               # not built
+    {"variant": "warp", "warps": 2},
+    {"variant": "warps", "lanes": 1, "warps": 4},  # 256 slots < 300
+    {"variant": "warps", "lanes": 1, "warps": 17},
+    {"variant": "block", "lanes": 2},
+    {"variant": "rows"},
+])
+def test_pairwise_plan_refuses(kw):
+    with pytest.raises(ValueError):
+        tpw.pairwise_plan(300, 8, 23, 200, 200, **kw)
+
+
+def test_pairwise_plan_limits():
+    # codes as bytes: no register-state variant past 256 letters, and the
+    # block variant's matrix does not fit either
+    for variant in (None, "warp", "warps", "block"):
+        with pytest.raises(ValueError):
+            tpw.pairwise_plan(200, 4, 300, 200, 200, variant=variant)
+    # codes past shared memory take the block variant
+    assert tpw.pairwise_plan(200, 4, 23, 120000, 120000)["variant"] == "block"
+    # fewer pairs a block where four pairs' codes do not fit
+    plan = tpw.pairwise_plan(200, 4, 23, 40000, 40000)
+    assert (plan["variant"], plan["pairs_per_block"]) == ("warp", 2)
+    # a band past the block variant's shared memory
+    with pytest.raises(ValueError):
+        tpw.pairwise_plan(20000, 4, 23, 200, 200)

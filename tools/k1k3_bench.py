@@ -1,0 +1,415 @@
+#!/usr/bin/env python3
+"""Time kernels K1 (the banded pairwise scorer, ``csrc/pairwise.cu``) and
+K3 (the group traceback walk, ``csrc/traceback.cu``) on the port's own
+shapes, on one CUDA card.
+
+Run from the repository root:
+
+    python3 tools/k1k3_bench.py --inputs build/k1k3.pt
+    python3 tools/k1k3_bench.py --inputs build/k1k3.pt --root DIR
+    python3 tools/k1k3_bench.py --inputs build/k1k3.pt \\
+        --k3-plans staged:16,global --k1-plans warp:10,warps:2x5,block
+    python3 tools/k1k3_bench.py --inputs build/k1k3.pt --ablate nobar
+
+Shapes:
+
+- ``ce13a17``: every K1 and K3 call of ``prrn -R 0`` on
+  ``tests/fixtures/ce13a17_clean.fa`` (one K1 call of 21 pairs; 28 K3
+  calls of one pair: 6 merges at nslot 640 and 22 refinement candidates
+  at nslot 128); K3 is timed at its longest walk (``widest``), at the
+  longest refinement walk and summed over the 28 calls;
+- ``fam19``: ``prrn -R 0`` on ``tests/fixtures/fam19.fa``: K1 on the
+  forest's edge batch (101 pairs of 145-520 residues) and K3 summed over
+  its 231 calls (the run takes about a minute on the card);
+- ``bench32``: K3 on 32 pairs of 8 x 384 seeded random groups (the
+  planes K2 makes of them);
+- ``bench512``: K1 on 512 seeded random pairs of 512 x 512 at sh=-60
+  (a band of 617 slots), and ``bench150`` on 512 pairs of 150 x 150 (183
+  slots: the band one warp a pair takes).
+
+The recorded inputs are written to ``--inputs`` by the first run and read
+back by later ones, so another checkout's kernels (``--root``: an
+unpacked parent commit, whose ``prrn_aln_tpu_torch`` is imported in its
+place) are timed on the same inputs in the same call.  Every timed
+kernel call is held to its plain version bit for bit, or the script
+raises.  In this checkout, ``--k3-plans`` times K3 in other plans
+(``staged:T`` for T rows a tile, ``global``),
+``--k1-plans`` K1 in other plans (``warp:L``, ``warps:LxW``
+for L slot pairs a lane and W warps a pair, ``block``).  ``--ablate``
+builds a copy of the sources under ``build/`` with a part of K1's step
+taken out (ABLATIONS: its scores are wrong and not checked; the time
+says what the part costs).  ``--shapes`` leaves out the ``fam19`` run,
+``--kernels`` one of the two kernels.
+
+Prints the card and its power limit, then one JSON line a timed call:
+the median of warm calls through the wrapper (CUDA events, host work of
+the wrapper included, as the main path sees it), the kernel's own time
+on the card (``device_ms``, from ``torch.profiler``; null where it shows
+none), the plan, microseconds a walk move (K3, of the longest walk) or a
+step (K1), and the plan's registers and spilled bytes.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import shutil
+import statistics
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import numpy as np
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+FIX = REPO / "tests" / "fixtures"
+# parts of K1's step an ablation takes out in a copy of the sources
+ABLATIONS = {
+    # the named barrier of a step (the warps variant)
+    "nobar": [("        wb[4 * warp + 3] = st.Fo[L - 1];\n      }\n"
+               "      named_sync(blockDim.x);",
+               "        wb[4 * warp + 3] = st.Fo[L - 1];\n      }")],
+    # the substitution scores' loads (a constant score)
+    "noscore": [("s[i] = smtx[sa[mc] * dim + sb[nc]];", "s[i] = 1.0f;")],
+    # the shuffles between lanes (each lane its own neighbour)
+    "noshfl": [("__shfl_up_sync(kFull, st.Ho[L - 1], 1)", "st.Ho[L - 1]"),
+               ("__shfl_up_sync(kFull, st.Fo[L - 1], 1)", "st.Fo[L - 1]"),
+               ("__shfl_down_sync(kFull, st.He[0], 1)", "st.He[0]"),
+               ("__shfl_down_sync(kFull, st.Ge[0], 1)", "st.Ge[0]")],
+}
+
+
+def device_ms(fn, reps: int, word: str):
+    """The kernel's own time a call on the card: the device time of the
+    kernels whose names hold ``word``, from ``torch.profiler``, over
+    ``reps`` calls; None where the profiler records none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for ev in prof.key_averages():
+        if word in ev.key:
+            total += (getattr(ev, "device_time_total", 0)
+                      or getattr(ev, "cuda_time_total", 0))
+    return total / reps / 1e3 if total else None
+
+
+def ablated_sources(part: str) -> Path:
+    """A copy of the kernel sources with the part ``part`` taken out."""
+    out = REPO / "build" / f"k1_ablate_{part}"
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(REPO / "prrn_aln_tpu_torch" / "csrc", out)
+    src = out / "pairwise.cu"
+    text = src.read_text()
+    for old, new in ABLATIONS[part]:
+        if old not in text:
+            raise ValueError(f"no {old!r} in {src}")
+        text = text.replace(old, new)
+    src.write_text(text)
+    return out
+
+
+def time_ms(fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def to(obj, dev):
+    """Tensors of nested tuples and dicts moved to ``dev``."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(dev)
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(to(x, dev) for x in obj)
+    if isinstance(obj, dict):
+        return {k: to(x, dev) for k, x in obj.items()}
+    return obj
+
+
+def record_prrn(pkg, fasta: Path) -> dict:
+    """Run ``prrn -R 0`` on the card with recorders at K1's and K3's
+    launch points; returns their calls' arguments on the host."""
+    from importlib import import_module
+    pw = import_module(f"{pkg}.ops.pairwise")
+    G = import_module(f"{pkg}.ops.group")
+    cli = import_module(f"{pkg}.cli")
+    calls = {"k1": [], "k3": []}
+    real_k1, real_k3 = pw._launch_pairwise, G.traceback
+
+    def k1(*args):
+        calls["k1"].append(to(args, "cpu"))
+        return real_k1(*args)
+
+    def k3(*args, **kw):
+        calls["k3"].append((to(args, "cpu"), kw["max_iters"]))
+        return real_k3(*args, **kw)
+
+    pw._launch_pairwise, G.traceback = k1, k3
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            rc = cli.prrn_main(["-R", "0", str(fasta), "-o",
+                                str(Path(tmp) / "out.txt"), "--device",
+                                "cuda"])
+    finally:
+        pw._launch_pairwise, G.traceback = real_k1, real_k3
+    if rc != 0:
+        raise AssertionError(f"prrn_main returned {rc} on {fasta.name}")
+    return calls
+
+
+def bench32_k3(dev) -> list:
+    """K3's arguments on K2's planes of 32 pairs of 8 x 384 groups."""
+    from prrn_aln_tpu_torch import alphabet as ab, scoring
+    from prrn_aln_tpu_torch.config import AlnParams
+    from prrn_aln_tpu_torch.msa.msa import Msa
+    from prrn_aln_tpu_torch.ops import group as G
+    from prrn_aln_tpu_torch.ops.window import stripe
+    mtx, _ = scoring.protein_matrix(AlnParams(pam=150))
+    rng = np.random.default_rng(0)
+
+    def new(many, L):
+        codes = (rng.integers(0, 20, size=(many, L)) + ab.ALA).astype(np.int8)
+        codes[rng.random((many, L)) < 0.08] = ab.GAP
+        codes[:, 0] = ab.ALA + rng.integers(0, 20)
+        m = Msa(codes=codes, molc=ab.PROTEIN,
+                names=[f"s{i}" for i in range(many)],
+                weight=rng.random(many) + 0.5)
+        m.prepare(mtx.shape[0])
+        return m
+
+    pairs = [(new(8, 384), new(8, 384)) for _ in range(32)]
+    wd = [stripe(A.length, B.length, -60) for A, B in pairs]
+    nslot = G._bucket(max(w.up - w.lw + 3 for w in wd), 128)
+    nsteps = G._bucket(max(A.length + B.length + 1 for A, B in pairs), 256)
+    items = [G._pack_inputs(A, B, mtx, 2.0, 9.0, w, 8, 8, 384, 384,
+                            spb=20.0) for (A, B), w in zip(pairs, wd)]
+    ins = G.stack_inputs(items, dev)
+    _, dirs, opens = G.group_wavefront(ins, nslot=nslot, nsteps=nsteps)
+    args = (dirs, opens, ins["la"], ins["lb"], ins["lw"])
+    return [(to(args, "cpu"), 2 * (384 + 384) + 4)]
+
+
+def bench512_k1(L: int = 512) -> tuple:
+    """K1's arguments on 512 random pairs of L x L at sh=-60."""
+    from prrn_aln_tpu_torch import scoring
+    from prrn_aln_tpu_torch.config import AlnParams
+    from prrn_aln_tpu_torch.ops.window import stripe
+    rng = np.random.default_rng(0)
+    B = 512
+    A = torch.as_tensor(rng.integers(3, 23, size=(B, L)).astype(np.int32))
+    Bm = torch.as_tensor(rng.integers(3, 23, size=(B, L)).astype(np.int32))
+    w = stripe(L, L, -60)
+    full = lambda x, dt: torch.full((B,), x, dtype=dt)  # noqa: E731
+    prot, _ = scoring.protein_matrix(AlnParams(pam=150))
+    return (A, Bm, full(L, torch.int32), full(L, torch.int32),
+            full(w.lw, torch.int32), full(w.up, torch.int32),
+            torch.as_tensor(prot), *(full(x, torch.float32)
+                                     for x in (2.0, 9.0, 1.0)),
+            torch.zeros((B, 4), dtype=torch.bool), False)
+
+
+def record_inputs(path: Path, dev, fam19: bool) -> dict:
+    ce = record_prrn("prrn_aln_tpu_torch", FIX / "ce13a17_clean.fa")
+    data = {"ce13a17": ce, "bench32": bench32_k3(dev),
+            "bench512": bench512_k1(), "bench150": bench512_k1(150)}
+    if fam19:
+        data["fam19"] = record_prrn("prrn_aln_tpu_torch", FIX / "fam19.fa")
+    torch.save(data, path)
+    return data
+
+
+def parse_k3_plan(text: str) -> dict:
+    variant, _, rows = text.partition(":")
+    if variant == "global":
+        return {"variant": "global"}
+    return {"variant": "staged", "tile_rows": int(rows)}
+
+
+def parse_k1_plan(text: str) -> dict:
+    if text == "block":
+        return {"variant": "block"}
+    variant, _, size = text.partition(":")
+    if variant == "warp":
+        return {"variant": "warp", "lanes": int(size)}
+    lanes, _, warps = size.partition("x")
+    return {"variant": "warps", "lanes": int(lanes), "warps": int(warps)}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--inputs", type=Path, required=True)
+    ap.add_argument("--root", type=Path, default=REPO)
+    ap.add_argument("--k3-plans", default="")
+    ap.add_argument("--ablate", choices=sorted(ABLATIONS))
+    ap.add_argument("--shapes", default="ce13a17,fam19,bench")
+    ap.add_argument("--kernels", default="k1,k3")
+    ap.add_argument("--k1-plans", default="")
+    ap.add_argument("--reps", type=int, default=7)
+    ap.add_argument("--out", type=Path)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("k1k3_bench: CUDA is not available", file=sys.stderr)
+        return 1
+    root = args.root.resolve()
+    sys.path.insert(0, str(root))
+    from prrn_aln_tpu_torch.ops import _build, group as G, pairwise as pw
+    if args.ablate:
+        _build._CSRC = ablated_sources(args.ablate)
+        _build._BUILD = REPO / "build" / f"k1_ablate_{args.ablate}_lib"
+    check = not args.ablate
+    shapes = args.shapes.split(",")
+    kernels = args.kernels.split(",")
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    print(card, flush=True)
+    if args.inputs.exists():
+        data = torch.load(args.inputs)
+    else:
+        if root != REPO:
+            raise SystemExit("record the inputs with this checkout first")
+        args.inputs.parent.mkdir(parents=True, exist_ok=True)
+        data = record_inputs(args.inputs, dev, "fam19" in shapes)
+    here = root == REPO
+
+    def emit(obj):
+        obj = {"root": str(root), "ablate": args.ablate, **obj}
+        print(json.dumps(obj), flush=True)
+        if args.out:
+            with args.out.open("a") as f:
+                f.write(json.dumps(obj) + "\n")
+
+    # K3: the plans to time, each held to the plain walk
+    k3_plans = [None]
+    if here and args.k3_plans:
+        k3_plans += [parse_k3_plan(t) for t in args.k3_plans.split(",")]
+
+    def k3_run(call, ask):
+        (dirs, opens, La, Lb, lw), mi = to(call, dev)
+        kw = {"max_iters": mi}
+        plan = None
+        if ask is not None:
+            plan = G.traceback_plan(dirs.shape[1], dirs.shape[2], mi, **ask)
+            kw["plan"] = plan
+        elif hasattr(G, "traceback_plan"):
+            plan = G.traceback_plan(dirs.shape[1], dirs.shape[2], mi)
+        fn = lambda: G.traceback(dirs, opens, La, Lb, lw, **kw)  # noqa
+        mk, ck = fn()
+        mr, cr = G.traceback_ref(dirs, opens, La, Lb, lw, max_iters=mi)
+        torch.cuda.synchronize()
+        if not (torch.equal(mk, mr) and torch.equal(ck, cr)):
+            raise AssertionError(f"K3 != plain ({plan})")
+        return fn, plan, int(cr.max()), dirs.shape
+
+    def k3_report(name, calls, ask, total=False):
+        ms, dms, moves, plan, shape = [], [], 0, None, None
+        for call in calls:
+            try:
+                fn, plan, walk, shape = k3_run(call, ask)
+            except ValueError as err:     # a plan the kernel cannot take
+                emit({"kernel": "K3", "shape": name, "ask": ask,
+                      "refused": str(err)})
+                return
+            ms.append(time_ms(fn, args.reps if not total else 3))
+            dms.append(device_ms(fn, args.reps if not total else 3,
+                                 "traceback"))
+            moves = max(moves, walk)
+        dev_ms = None if None in dms else sum(dms)
+        attrs = ({} if plan is None or not hasattr(G, "traceback_attrs")
+                 else G.traceback_attrs(plan["variant"]))
+        dims = ({} if total else
+                {"pairs": shape[0], "nsteps": shape[1], "nslot": shape[2]})
+        emit({"kernel": "K3", "shape": name, "calls": len(calls),
+              "ms": sum(ms), "device_ms": dev_ms, "max_call_ms": max(ms),
+              **dims,
+              "longest_walk_moves": moves,
+              "us_per_move": max(ms) * 1e3 / max(moves, 1),
+              "plan": None if total else plan, **attrs, "checked": check})
+
+    ce_k3 = data["ce13a17"]["k3"]
+    walks = [int((c[0][2] + c[0][3]).max()) for c in ce_k3]
+    widest = max(range(len(ce_k3)), key=lambda i: walks[i])
+    refine = [i for i, c in enumerate(ce_k3) if c[0][0].shape[2] == 128]
+    longest_refine = max(refine, key=lambda i: walks[i]) if refine else widest
+    if "k3" not in kernels:
+        k3_plans, check3 = [], False
+    else:
+        check3 = check
+    for ask in k3_plans if check3 else ():
+        k3_report("ce13a17_widest", [ce_k3[widest]], ask)
+        k3_report("ce13a17_refine", [ce_k3[longest_refine]], ask)
+        if "bench" in shapes:
+            k3_report("bench32", data["bench32"], ask)
+    if check3:
+        k3_report("ce13a17_all", ce_k3, None, total=True)
+    if check3 and "fam19" in shapes:
+        k3_report("fam19_all", data["fam19"]["k3"], None, total=True)
+
+    # K1: the default plan, and the plans asked for, each held to the plain
+    # version
+    k1_asks = [None]
+    if here and args.k1_plans:
+        k1_asks += [parse_k1_plan(t) for t in args.k1_plans.split(",")]
+    k1_sets = [("ce13a17", data["ce13a17"]["k1"][0])] if "k1" in kernels else []
+    if "fam19" in shapes and k1_sets:
+        k1_sets.append(("fam19_edges", data["fam19"]["k1"][0]))
+    if "bench" in shapes and k1_sets:
+        k1_sets.append(("bench512", data["bench512"]))
+        k1_sets.append(("bench150", data["bench150"]))
+    for name, call in k1_sets:
+        call = to(call, dev)
+        ref = pw._plain_pairwise(*call)
+        a_batch, b_batch, la, lb, lw, up = call[:6]
+        cells = pw.band_cells(*(x.cpu().numpy() for x in (la, lb, lw, up)))
+        maxw = int((up - lw).max()) + 3
+        for ask in k1_asks:
+            plan = None
+            extra = ()
+            if hasattr(pw, "pairwise_plan"):
+                try:
+                    plan = pw.pairwise_plan(
+                        maxw, a_batch.shape[0], call[6].shape[0],
+                        a_batch.shape[1], b_batch.shape[1], **(ask or {}))
+                except ValueError as err:
+                    emit({"kernel": "K1", "shape": name, "ask": ask,
+                          "refused": str(err)})
+                    continue
+                extra = (plan,)
+            fn = lambda: pw._launch_pairwise(*call, *extra)  # noqa: E731
+            got = fn()
+            torch.cuda.synchronize()
+            if check and not torch.equal(got.view(torch.int32),
+                                         ref.view(torch.int32)):
+                raise AssertionError(f"K1 != plain on {name} ({plan})")
+            ms = time_ms(fn, args.reps)
+            dev_ms = device_ms(fn, args.reps, "pairwise")
+            steps = int((la + lb).max()) - 1
+            attrs = ({} if plan is None or not hasattr(pw, "pairwise_attrs")
+                     else pw.pairwise_attrs(plan, bool(call[11])))
+            emit({"kernel": "K1", "shape": name, "ms": ms,
+                  "device_ms": dev_ms,
+                  "pairs": a_batch.shape[0], "maxw": maxw, "steps": steps,
+                  "us_per_step": ms * 1e3 / steps, "band_cells": cells,
+                  "gcups": cells / (ms * 1e6), "plan": plan, **attrs,
+                  "checked": check})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
