@@ -42,9 +42,13 @@ Phases (each raises on failure, so the script exits non-zero):
    refinement's) against its plain version, and timed;
 7. K1f (row-sweep pairwise DP) against its plain version on the card,
    bit for bit, on the global pairwise fixtures, on phase 2's 512 pairs
-   and on the edge batch recorded in phase 6; against K1 on the last
-   two, at most 4 f32 ulp at the DP's scale; K1 and K1f times and GCUPS
-   on the same inputs, with K1's plan;
+   and on the edge batch recorded in phase 6 (with the packing the edge
+   pass launched); against K1 on the last two, at most 4 f32 ulp at the
+   DP's scale; K1 and K1f times through the wrapper, K1f's on the device
+   (launches queued back to back), and GCUPS, on the same inputs, with
+   both plans (K1f: variant, lanes a
+   thread, warps a pair, pairs a block, microseconds a row, registers
+   and spilled bytes);
 8. the forest path's shape, timing only: 64 seeded proteins of 150-250
    residues in 8 families through ``prrn -R 0 -I 0`` (no refinement,
    which at 64 members would outlast the script): the device k-mer pass,
@@ -54,7 +58,11 @@ Phases (each raises on failure, so the script exits non-zero):
    mini_pro and (c) the 2.3 kb CET10B9 window x the ce13a.msa profile:
    planes, final band and knots equal; times, with K4's launch plan
    (variant, CTAs, rows a CTA), microseconds a wave, registers and
-   spilled bytes.  On (b), the window x
+   spilled bytes, and K4w's time on the device (launches queued back
+   to back) beside the wrapper's,
+   its plan (ring waves, rows a slot, staging warps), walk steps,
+   microseconds a step, reads of ev from the ring and from device
+   memory, registers and spilled bytes.  On (b), the window x
    ce13a1, the kernels are timed and not held to the plain sweep (it
    takes over a minute there; the output of (b) is still held to its
    fixture in phase 10);
@@ -63,7 +71,8 @@ Phases (each raises on failure, so the script exits non-zero):
    output fixtures (and mini's ``-O 5``/``-O 1`` to the reference's),
    both kernels launched;
 11. the flagship's shape, timing only: a 34.9 kb genome (the window at
-   31,400 in seeded random flanks) x ce13a.msa, with K4's plan as in 9.
+   31,400 in seeded random flanks) x ce13a.msa, with K4's and K4w's
+   plans as in 9.
 
 Prints one JSON line per phase, then the card line, the kernels line
 (launches from the cold runs of phases 4 and 10 and, for K1f, from the
@@ -153,7 +162,29 @@ def device_ms(fn, reps: int, word: str):
         torch.cuda.synchronize()
     total = sum(getattr(ev, "device_time_total", 0) or 0
                 for ev in prof.key_averages() if word in ev.key)
+    if not total:
+        print(f"device_ms: no device time under {word!r} in "
+              f"{[ev.key[:60] for ev in prof.key_averages()]}",
+              file=sys.stderr, flush=True)
     return total / reps / 1e3 if total else None
+
+
+def queued_ms(launch, reps: int) -> float:
+    """A kernel's own time a launch on the card: CUDA events around
+    ``reps`` launches enqueued back to back, with no synchronisation
+    between them, so that the card and not the host sets the pace (each
+    launch's host work runs while the previous kernel does).  ``launch``
+    enqueues the kernel alone and waits for nothing."""
+    launch()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        launch()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def time_once_ms(fn) -> float:
@@ -861,14 +892,33 @@ def ulp_diffs(a: torch.Tensor, b: torch.Tensor, la, lb, u, v) -> dict:
                 np.maximum(mag, pen).astype(np.float32))).max())}
 
 
-def k1f_against_k1(name: str, args: tuple, cells: int) -> dict:
+def k1f_launch(args: tuple, nlane: int, ms: float, dms) -> dict:
+    """K1f's launch plan for these arguments, microseconds a row (through
+    the wrapper and on the device), and the plan's registers and spilled
+    bytes."""
+    a_batch, b_batch, la = args[:3]
+    plan = pairwise.rows_plan(nlane, a_batch.shape[0], args[6].shape[0],
+                              a_batch.shape[1], b_batch.shape[1])
+    rows = int(la.max())
+    return {"variant": plan["variant"], "lanes_a_thread": plan["lanes"],
+            "warps_a_pair": plan["warps"],
+            "pairs_a_block": plan["pairs_per_block"], "rows": rows,
+            "us_per_row": ms * 1e3 / rows,
+            "device_us_per_row": None if dms is None else dms * 1e3 / rows,
+            **pairwise.rows_attrs(plan)}
+
+
+def k1f_against_k1(name: str, args: tuple, cells: int, lw0=None,
+                   nlane=None) -> dict:
     """K1f on one batch: bit for bit against its plain version, within 4
     ulp (at the DP's scale) of K1, and both kernels' times."""
     la, lb, lw, up = args[2:6]
     u, v = args[7:9]
-    lw0 = int(lw.min())
-    rows = lambda: pairwise._launch_rows(*args, lw0)          # noqa: E731
-    plain = lambda: pairwise._plain_rows(*args, lw0)          # noqa: E731
+    if lw0 is None:
+        lw0 = int(lw.min())
+        nlane = int(up.max()) - lw0 + 1
+    rows = lambda: pairwise._launch_rows(*args, lw0, nlane)   # noqa: E731
+    plain = lambda: pairwise._plain_rows(*args, lw0, nlane)   # noqa: E731
     wave = lambda: pairwise._launch_pairwise(*args, False)    # noqa: E731
     got, ref, k1 = rows(), plain(), wave()
     torch.cuda.synchronize()
@@ -878,16 +928,22 @@ def k1f_against_k1(name: str, args: tuple, cells: int) -> dict:
     ulps = ulp_diffs(got, k1, la, lb, u, v)
     if ulps["max_ulp_at_dp_scale"] > 4:
         raise AssertionError(f"K1f differs from K1 on {name}: {ulps}")
+    # the free-end-gap flags as bytes already: the launch then enqueues
+    # K1f alone
+    exg_u8 = args[10].to(torch.uint8)
+    queued = lambda: pairwise._launch_rows(    # noqa: E731
+        *args[:10], exg_u8, lw0, nlane)
     out = {"max_abs_err": float((got - ref).abs().max()),
-           "ms": time_ms(rows, 7), "k1_ms": time_ms(wave, 7),
-           "plain_ms": time_ms(plain, 3),
+           "ms": time_ms(rows, 7), "device_ms": queued_ms(queued, 20),
+           "k1_ms": time_ms(wave, 7), "plain_ms": time_ms(plain, 3),
            # a band cell: as K1, 3 adds or subtractions and 6 maxima
            **bound(tensor_bytes(*args) + 4 * args[0].shape[0], 9 * cells)}
     emit({"phase": f"k1f_{name}", "pairs": args[0].shape[0],
-          "lanes": int(up.max()) - lw0 + 1, "rows": int(la.max()),
+          "lanes": nlane, "lw0": lw0, "rows": int(la.max()),
           "band_cells": cells, "equals_plain": True, "vs_k1": ulps,
           "gcups": cells / (out["ms"] * 1e6),
           "k1_gcups": cells / (out["k1_ms"] * 1e6),
+          "k1f_launch": k1f_launch(args, nlane, out["ms"], out["device_ms"]),
           "k1_launch": k1_launch((*args, False), out["k1_ms"]), **out})
     return out
 
@@ -900,8 +956,9 @@ def phase_k1f(dev, bench_args, bench_cells, edge_args) -> dict:
         if local:
             continue                 # the row sweep has no local mode
         lw0 = int(args[4].min())
-        got = pairwise._launch_rows(*args, lw0)
-        ref = pairwise._plain_rows(*args, lw0)
+        nlane = int(args[5].max()) - lw0 + 1
+        got = pairwise._launch_rows(*args, lw0, nlane)
+        ref = pairwise._plain_rows(*args, lw0, nlane)
         torch.cuda.synchronize()
         if not torch.equal(got, ref):
             raise AssertionError(f"K1f != plain on fixtures molc={molc}")
@@ -912,9 +969,11 @@ def phase_k1f(dev, bench_args, bench_cells, edge_args) -> dict:
     emit({"phase": "k1f_fixtures", "cases": ncase, "max_abs_err": 0.0,
           "equals_plain": True})
     k1f_against_k1("bench", bench_args, bench_cells)
+    # the edge pass's own packing (lw0, nlane), as the wrapper launched it
+    lw0, nlane = edge_args[11:13]
     edge_args = edge_args[:11]
     cells = pairwise.band_cells(*(x.cpu().numpy() for x in edge_args[2:6]))
-    return k1f_against_k1("fam19_edges", edge_args, cells)
+    return k1f_against_k1("fam19_edges", edge_args, cells, lw0, nlane)
 
 
 def write_family64(path: Path) -> None:
@@ -1074,6 +1133,23 @@ def k4_bounds(ins, sw, wk) -> tuple[dict, dict]:
     return k4, k4w
 
 
+def k4w_launch(wargs: tuple, wk, ms: float, dms) -> dict:
+    """K4w's launch plan for these planes, microseconds a step (through
+    the wrapper and on the device), the walk's reads of ev from the ring
+    and from device memory, and the kernel's registers and spilled
+    bytes."""
+    SH._launch_walk(*wargs)
+    reads = dict(SH.WALK_READS)
+    plan = SH.walk_plan(*wargs[0].shape)
+    steps = max(wk.steps, 1)
+    return {"variant": plan["variant"], "ring_waves": plan["depth"],
+            "rows_a_slot": plan["rows"], "stagers": plan["stagers"],
+            "walk_steps": wk.steps, "ring_reads": reads["ring"],
+            "device_reads": reads["device"], "us_per_step": ms * 1e3 / steps,
+            "device_us_per_step": None if dms is None else dms * 1e3 / steps,
+            **SH.spliced_h_walk_attrs()}
+
+
 def k4_launch(ins: SH.SweepInputs, ms: float) -> dict:
     """K4's launch plan for these inputs, microseconds a wave, and the
     chosen variant's registers and spilled bytes."""
@@ -1113,15 +1189,18 @@ def phase_k4() -> dict:
         b4, b4w = k4_bounds(ins, sw, wk)
         k4 = {"max_abs_err": err, "ms": time_ms(
             lambda: SH._launch_sweep(ins), 5), "plain_ms": plain_ms, **b4}
-        k4w = {"max_abs_err": 0.0, "ms": time_ms(
-            lambda: SH._launch_walk(*wargs), 7), "plain_ms": walk_plain_ms,
-            **b4w}
+        walk = lambda: SH._launch_walk(*wargs)        # noqa: E731
+        k4w = {"max_abs_err": 0.0, "ms": time_ms(walk, 7),
+               "device_ms": queued_ms(lambda: SH._enqueue_walk(*wargs), 20),
+               "plain_ms": walk_plain_ms, **b4w}
         emit({"phase": f"k4_{name}", "waves": ins.waves, "rows": ins.M + 1,
               "genome": ins.N, "band_cells": ins.band_cells,
               "planes_equal": plain_ms is not None,
               "band_equal": plain_ms is not None, "knots_equal": True,
               "knots": len(wk.knots), "walk_steps": wk.steps,
-              "k4": k4, "k4_launch": k4_launch(ins, k4["ms"]), "k4w": k4w})
+              "k4": k4, "k4_launch": k4_launch(ins, k4["ms"]), "k4w": k4w,
+              "k4w_launch": k4w_launch(wargs, wk, k4w["ms"],
+                                       k4w["device_ms"])})
         out[name] = (k4, k4w)
     return out
 
@@ -1147,13 +1226,15 @@ def phase_flagship() -> None:
     wargs, wk = calls["walk"][0]
     ms = time_ms(lambda: SH._launch_sweep(ins), 3)
     wms = time_ms(lambda: SH._launch_walk(*wargs), 5)
+    wdms = queued_ms(lambda: SH._enqueue_walk(*wargs), 20)
     exons = "".join(line[3:] for line in text.splitlines()
                     if line.startswith(";C "))
     b4, b4w = k4_bounds(ins, sw, wk)
     emit({"phase": "flagship_shape", "genome": ins.N, "rows": ins.M + 1,
           "waves": ins.waves, "band_cells": ins.band_cells,
           "planes_mb": tensor_bytes(sw.ev, sw.jd, sw.V, sw.D) / 1e6,
-          "wall_s": secs, "k4_ms": ms, "k4w_ms": wms,
+          "wall_s": secs, "k4_ms": ms, "k4w_ms": wms, "k4w_device_ms": wdms,
+          "k4w_launch": k4w_launch(wargs, wk, wms, wdms),
           "gcups": ins.band_cells / (ms * 1e6), "k4_bound_ms": b4["bound_ms"],
           "k4w_bound_ms": b4w["bound_ms"], "k4_launch": k4_launch(ins, ms),
           "exons": exons})

@@ -15,33 +15,47 @@
 // E(n) = max(E(n-1) - u, X(n-1) - v - u) is a running maximum over the
 // row, E = cummax_j(C + j*u) - j*u with C(j) = X(j-1) - v - u, so a
 // pair takes La dependent rows instead of La + Lb - 1 anti-diagonals.
+// Every pair sweeps the batch's W lanes, as the plain version does.
 //
 // The score lookup.  The TPU has no gather, so it selected
 // mtx[a[m], b[n]] as a one-hot (K, 32) x (32, WW) product on its matrix
 // unit.  A one-hot product returns exactly one matrix entry, so here the
-// same numbers come from a lookup: the pair's codes and the dim x dim
-// matrix sit in shared memory and a lane reads mtx[a[m]*dim + b[n]].
-// Columns outside b's array read 0, as the TPU kernel's out-of-range
-// code selects its zero row.  No score image exists in device memory
-// and no tensor-core product is wanted.
+// same numbers come from a lookup in shared memory.  Columns outside b's
+// array read 0, as the TPU kernel's out-of-range code selects its zero
+// row: the register variants give the matrix a zero column `dim` and
+// such a column the code `dim`.
 //
-// What bounds it on the card: the chain of La rows, each closed by two
-// block barriers and a two-level shuffle scan.  Device-memory traffic
-// is tiny: the two code rows and the matrix.
+// What bounds it on the card: the chain of La rows, each a running
+// maximum across the band.  Device-memory traffic is tiny: the two code
+// rows and the matrix.  So a row's latency sets the pace of a small
+// batch, and the instructions a warp can start that of a batch that
+// fills the card.
 //
-// What the design does about it: one thread block per pair, so the
-// batch's pairs run side by side on the 132 SMs.  Each thread owns L
-// adjacent lanes (L = 1 up to 1,024 lanes).  Step 1 of a row reads the
-// previous row's H and G from shared memory and forms X, the new G and
-// the thread's running maximum of C + j*u; a thread recomputes X of the
-// lane left of its own instead of waiting for its neighbour, which saves
-// a barrier.  Warp shuffles scan the threads' maxima, one word per warp
-// crosses through shared memory (barrier 1), then step 2 folds the
-// carries in, masks the band and writes H and G in place (barrier 2).
-// The last row is the loop's final H; the right-column candidates are a
-// running maximum in the one thread that holds column lb - 1.
+// What the design does about it (the register variants): a thread holds
+// L adjacent lanes' H and G in registers, and their b codes as a window
+// that shifts by one column a row (one new code a row).  A row forms X
+// and the new G of each lane from the thread's own registers and, for
+// its last lane, the next thread's first lane by one __shfl_down_sync;
+// X of the lane left of its first lane comes by one __shfl_up_sync.  The
+// running maximum is a serial maximum over the thread's L lanes, a warp
+// scan of five shuffles, and the carry folded into the L prefixes kept
+// in registers.  Since a rounded subtraction is monotone,
+// max(P, carry) - j*u = max(P - j*u, carry - j*u), so a lane keeps
+// Y = max(X, P - j*u) in the place of its old H, and H = max(Y,
+// carry - j*u): no second array.
+//
+// Variants (ops/pairwise.py::rows_plan chooses by band width):
+// "warp", one warp a pair and several pairs a block, with no barrier in
+// the row loop; "warps", several warps a pair (one pair a block): each
+// warp publishes its scan total, its first lane's Y and new G and its
+// last lane's Y and in-warp carry into double-buffered shared slots, and
+// the warps meet at one named barrier a row, after which each warp
+// finishes its neighbours' edge lanes itself; "block", the first design
+// (one block of up to 1,024 threads a pair, the row in shared memory, two
+// block barriers a row) for bands wider than the "warps" variant holds.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -49,6 +63,7 @@ namespace {
 constexpr float kNegSent = -1879048192.0f;   // -(2**31 // 8) * 7
 constexpr float kNevsel = -1.0e30f;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kFar = 1 << 30;                // a lane index no lane has
 
 // inclusive running maximum over the lanes of a warp
 __device__ __forceinline__ float warp_cummax(float x, int lane) {
@@ -59,6 +74,354 @@ __device__ __forceinline__ float warp_cummax(float x, int lane) {
   return x;
 }
 
+__device__ __forceinline__ float warp_max(float x) {
+  for (int off = 16; off > 0; off >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(kFull, x, off));
+  return x;
+}
+
+__device__ __forceinline__ void named_sync(int nthreads) {
+  asm volatile("bar.sync 1, %0;" ::"r"(nthreads) : "memory");
+}
+
+struct RowPair {
+  int La, Lb, LW, UP;
+  float u, v, fa_l, fa_r, fb_l, fb_r;
+};
+
+__device__ __forceinline__ RowPair load_pair(
+    int p, const int32_t* la_, const int32_t* lb_, const int32_t* lw_,
+    const int32_t* up_, const float* u_, const float* v_, const float* tg_,
+    const uint8_t* exg_) {
+  RowPair q;
+  q.La = la_[p];
+  q.Lb = lb_[p];
+  q.LW = lw_[p];
+  q.UP = up_[p];
+  q.u = u_[p];
+  q.v = v_[p];
+  const float tg = tg_[p];
+  q.fa_l = exg_[4 * p + 0] ? 0.0f : tg;
+  q.fa_r = exg_[4 * p + 1] ? 0.0f : tg;
+  q.fb_l = exg_[4 * p + 2] ? 0.0f : tg;
+  q.fb_r = exg_[4 * p + 3] ? 0.0f : tg;
+  return q;
+}
+
+// H of lane j in the virtual boundary row m = -1 (lane j holds
+// n = -1 + lw0 + j, readable only where slot n + 1 lies in the band)
+__device__ __forceinline__ float boundary_h(const RowPair& q, int j, int lw0,
+                                            int W) {
+  const int nv = lw0 - 1 + j, r = lw0 + j;
+  if (j >= W) return kNegSent;
+  if (nv == -1) return 0.0f;
+  if (nv >= 0 && r >= q.LW && r <= q.UP)
+    return -(q.v + (float)(nv + 1) * q.u) * q.fa_l;
+  return kNegSent;
+}
+
+// H of lane j after row m from its value before the band mask: inside
+// the band and the pair it stays, at n == -1 it is the left column's
+// value while that is open, else NEG_SENT
+__device__ __forceinline__ float mask_lane(float h, const RowPair& q, int j,
+                                           int m, int lw0, int W, float colb,
+                                           bool colb_ok) {
+  const int n = m + lw0 + j, r = lw0 + j;
+  if (n >= 0 && n < q.Lb && r >= q.LW && r <= q.UP) return h;
+  return (n == -1 && colb_ok && j < W) ? colb : kNegSent;
+}
+
+// Pass 1 of a row over a thread's L lanes: X, the new G, the in-thread
+// running maximum P of C + j*u, and Y = max(X, P - j*u) in the place of
+// H.  COLB: the left column is open (lane rz opens its gap from it); PAD:
+// the lanes from rW on keep G at NEVSEL.  Returns P of the last lane.
+template <int L, bool COLB, bool PAD>
+__device__ __forceinline__ float row_pass1(
+    float (&H)[L], float (&G)[L], const float (&ju)[L], const int (&cd)[L],
+    const float* srow, float hs, float gs, float x_last, float xprev,
+    float u, float v, int rz, float colc, int rW) {
+  float run = kNevsel;
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    const float hn = i < L - 1 ? H[i + 1] : hs;
+    const float gn = i < L - 1 ? G[i + 1] : gs;
+    const float g0 = fmaxf(hn - v, gn) - u;
+    const float x = i < L - 1 ? fmaxf(H[i] + srow[cd[i]], g0) : x_last;
+    float c = (xprev - v) - u;
+    if (COLB) c = i == rz ? colc : c;
+    run = fmaxf(run, c + ju[i]);
+    H[i] = fmaxf(x, run - ju[i]);
+    G[i] = PAD && i >= rW ? kNevsel : g0;
+    xprev = x;
+  }
+  return run;
+}
+
+// Pass 2: H = max(Y, carry - j*u) inside the band [lo, hi], the left
+// column's value at lane rv while it is open (COLB), NEG_SENT elsewhere.
+// BCOL: returns H of lane rb (the right column).
+template <int L, bool COLB, bool BCOL>
+__device__ __forceinline__ float row_pass2(float (&H)[L],
+                                           const float (&ju)[L], float carry,
+                                           int lo, int hi, int rv, float colb,
+                                           int rb) {
+  float bsel = kNegSent;
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    float h = fmaxf(H[i], carry - ju[i]);
+    h = (i >= lo && i <= hi) ? h : (COLB && i == rv ? colb : kNegSent);
+    if (BCOL) bsel = i == rb ? h : bsel;
+    H[i] = h;
+  }
+  return bsel;
+}
+
+// The register-state kernel.  WARPS = false: the "warp" variant (warp w
+// of a block sweeps pair blockIdx.x * (blockDim.x / 32) + w); WARPS =
+// true: the "warps" variant (the block's warps sweep pair blockIdx.x
+// together, L lanes a thread, 32 L a warp).
+template <int L, bool WARPS>
+__global__ void __launch_bounds__(WARPS ? 512 : 128) pairwise_rows_reg_kernel(
+    const int32_t* __restrict__ a_batch, const int32_t* __restrict__ b_batch,
+    const int32_t* __restrict__ la_, const int32_t* __restrict__ lb_,
+    const int32_t* __restrict__ lw_, const int32_t* __restrict__ up_,
+    const float* __restrict__ u_, const float* __restrict__ v_,
+    const float* __restrict__ tg_, const uint8_t* __restrict__ exg_,
+    const float* __restrict__ mtx, float* __restrict__ out, int B, int Ma,
+    int Mb, int dim, int lw0, int W, int code_stride) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int ms = dim + 1;                    // matrix row stride
+  float* smtx = reinterpret_cast<float*>(smem);
+  // warps variant: edges[2][nwarps][5] and red[3][nwarps] after the matrix
+  float* edges = smtx + dim * ms;
+  float* red = edges + 10 * nwarps;
+  uint8_t* codes = reinterpret_cast<uint8_t*>(red + 3 * nwarps);
+  const int npairs = WARPS ? 1 : nwarps;     // pairs of this block
+
+  for (int i = threadIdx.x; i < dim * ms; i += blockDim.x) {
+    const int r = i / ms, c = i - r * ms;
+    smtx[i] = c < dim ? mtx[r * dim + c] : 0.0f;
+  }
+  for (int k = 0; k < npairs; ++k) {
+    const int p = WARPS ? blockIdx.x : blockIdx.x * nwarps + k;
+    if (p >= B) break;
+    uint8_t* ca = codes + (size_t)k * code_stride;
+    uint8_t* cb = ca + Ma;
+    const int La = min(la_[p], Ma);
+    for (int i = threadIdx.x; i < La; i += blockDim.x)
+      ca[i] = (uint8_t)a_batch[(size_t)p * Ma + i];
+    for (int i = threadIdx.x; i < Mb; i += blockDim.x)
+      cb[i] = (uint8_t)b_batch[(size_t)p * Mb + i];
+  }
+  __syncthreads();
+
+  const int p = WARPS ? blockIdx.x : blockIdx.x * nwarps + warp;
+  if (p >= B) return;
+  const uint8_t* sa = codes + (size_t)(WARPS ? 0 : warp) * code_stride;
+  const uint8_t* sb = sa + Ma;
+  const RowPair q = load_pair(p, la_, lb_, lw_, up_, u_, v_, tg_, exg_);
+  const int gt = WARPS ? threadIdx.x : lane;   // thread within the pair
+  const int j0 = gt * L;
+  const float u = q.u, v = q.v;
+  // (the same for every thread of a pair, so a warps block leaves whole)
+  if (q.La <= 0 || q.La > Ma || q.LW < lw0 || q.UP - lw0 >= W) {
+    // no row ever becomes the last row, or the band lies outside the
+    // packing the launch was given: NEVSEL as the plain version, NaN
+    if (gt == 0) out[p] = q.La <= 0 ? kNevsel : nanf("");
+    return;
+  }
+
+  float H[L], G[L], ju[L];
+  int cd[L];
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    const int j = j0 + i;
+    ju[i] = (float)j * u;
+    H[i] = boundary_h(q, j, lw0, W);
+    G[i] = kNevsel;
+    const int n = lw0 + j;
+    cd[i] = (n >= 0 && n < Mb) ? sb[n] : dim;
+  }
+  // warps variant: lane 0 keeps H of the lane left of j0 and its code,
+  // lane 31 H and G of the lane right of its last (previous row)
+  float hL = kNegSent, hF = kNegSent, gF = kNevsel;
+  int cdl = dim;
+  if (WARPS && lane == 0 && gt > 0) {
+    hL = boundary_h(q, j0 - 1, lw0, W);
+    const int n = lw0 + j0 - 1;
+    cdl = (n >= 0 && n < Mb) ? sb[n] : dim;
+  }
+  if (WARPS && lane == 31 && warp < nwarps - 1)
+    hF = boundary_h(q, j0 + L, lw0, W);
+
+  float bcol = kNevsel;              // right-column terminal candidates
+  // the score reads them only with a free right end of b
+  const bool bcol_on = q.fb_r < 1.0f;
+  // lanes past W keep G at NEVSEL, as the plain version's missing lanes;
+  // for u >= 0 their G, (NEG_SENT - v) - u at most, never beats the
+  // NEG_SENT - v of lane W - 1's vertical opening, so it needs no mask
+  const bool force_pad = !(u >= 0.0f);
+  for (int m = 0; m < q.La; ++m) {
+    const float mf = (float)m;
+    const float* srow = smtx + (int)sa[m] * ms;
+    const float colb = -(v + (mf + 1.0f) * u) * q.fb_l;   // H(m, -1)
+    const bool colb_ok = m < -q.LW;
+    const int base = m + lw0;        // column of lane 0
+    // the lanes, relative to j0, that the row treats apart: the band
+    // [lo, hi], the left column's lane (n == -1), the lane that opens its
+    // gap from the left column (n == 0), the right column's (n == Lb - 1)
+    // and the first lane past the batch's W
+    const int lo = max(q.LW - lw0, -base) - j0;
+    const int hi = min(q.UP - lw0, q.Lb - 1 - base) - j0;
+    const int rv = (colb_ok && -1 - base < W) ? -1 - base - j0 : -kFar;
+    const int rz = colb_ok ? -base - j0 : -kFar;
+    const int jb = q.Lb - 1 - base;
+    const int rb = jb < W ? jb - j0 : -kFar;
+    const int rW = W - j0;
+    const float colc = (colb - v) - u;
+
+    // the next lane's H and G of the previous row, past the thread's last
+    float hs = __shfl_down_sync(kFull, H[0], 1);
+    float gs = __shfl_down_sync(kFull, G[0], 1);
+    if (lane == 31) {
+      hs = hF;
+      gs = gF;
+    }
+    // X of the thread's last lane first: the next thread reads it
+    const float x_last =
+        fmaxf(H[L - 1] + srow[cd[L - 1]], fmaxf(hs - v, gs) - u);
+    float xprev = __shfl_up_sync(kFull, x_last, 1);
+    if (lane == 0) {
+      // warps variant: X of the previous warp's last lane, recomputed
+      xprev = (WARPS && gt > 0)
+                  ? fmaxf(hL + srow[cdl], fmaxf(H[0] - v, G[0]) - u)
+                  : kNegSent;
+    }
+
+    // pass 1, in the form the row needs (the branches are the same for
+    // every thread of the pair)
+    float run;
+    if (colb_ok)
+      run = force_pad ? row_pass1<L, true, true>(H, G, ju, cd, srow, hs, gs,
+                                                 x_last, xprev, u, v, rz,
+                                                 colc, rW)
+                      : row_pass1<L, true, false>(H, G, ju, cd, srow, hs, gs,
+                                                  x_last, xprev, u, v, rz,
+                                                  colc, rW);
+    else
+      run = force_pad ? row_pass1<L, false, true>(H, G, ju, cd, srow, hs, gs,
+                                                  x_last, xprev, u, v, rz,
+                                                  colc, rW)
+                      : row_pass1<L, false, false>(H, G, ju, cd, srow, hs, gs,
+                                                   x_last, xprev, u, v, rz,
+                                                   colc, rW);
+
+    // the carry from the threads (and warps) to the left
+    const float incl = warp_cummax(run, lane);
+    float carry = __shfl_up_sync(kFull, incl, 1);
+    if (lane == 0) carry = kNevsel;
+    if (WARPS) {
+      // slots of this row: the warps' totals, first lanes' Y and G, last
+      // lanes' Y and in-warp carry, nwarps words each
+      float* eb = edges + 5 * nwarps * (m & 1);
+      if (lane == 0) {
+        eb[nwarps + warp] = H[0];
+        eb[2 * nwarps + warp] = G[0];
+      }
+      if (lane == 31) {
+        eb[warp] = incl;
+        eb[3 * nwarps + warp] = H[L - 1];
+        eb[4 * nwarps + warp] = carry;
+      }
+      named_sync(blockDim.x);
+      // the running maxima of the totals into warps warp - 1, warp and
+      // warp + 1 (each word a broadcast read)
+      float c_prev = kNevsel, c_in = kNevsel, c_next = kNevsel;
+      for (int k = 0; k <= warp; ++k) {
+        const float t = eb[k];
+        c_prev = k < warp - 1 ? fmaxf(c_prev, t) : c_prev;
+        c_in = k < warp ? fmaxf(c_in, t) : c_in;
+        c_next = fmaxf(c_next, t);
+      }
+      carry = fmaxf(carry, c_in);
+      // the neighbouring warps' edge lanes of this row, for the next row
+      if (lane == 31 && warp < nwarps - 1) {
+        const int jF = j0 + L;
+        hF = mask_lane(fmaxf(eb[nwarps + warp + 1], c_next - (float)jF * u),
+                       q, jF, m, lw0, W, colb, colb_ok);
+        gF = eb[2 * nwarps + warp + 1];
+      }
+      if (lane == 0 && warp > 0) {
+        const int jL = j0 - 1;
+        const float cl = fmaxf(c_prev, eb[4 * nwarps + warp - 1]);
+        hL = mask_lane(fmaxf(eb[3 * nwarps + warp - 1], cl - (float)jL * u),
+                       q, jL, m, lw0, W, colb, colb_ok);
+      }
+    }
+
+    // pass 2: fold in the carry, mask the band, and keep the right
+    // column's value where the score reads it
+    if (bcol_on && m < q.La - 1) {
+      const float bsel = colb_ok
+          ? row_pass2<L, true, true>(H, ju, carry, lo, hi, rv, colb, rb)
+          : row_pass2<L, false, true>(H, ju, carry, lo, hi, rv, colb, rb);
+      if (rb >= 0 && rb < L)
+        bcol = fmaxf(bcol, bsel - (v + (float)(q.La - 1 - m) * u) * q.fb_r);
+    } else if (colb_ok) {
+      row_pass2<L, true, false>(H, ju, carry, lo, hi, rv, colb, rb);
+    } else {
+      row_pass2<L, false, false>(H, ju, carry, lo, hi, rv, colb, rb);
+    }
+
+    // the code window moves one column to the right
+    if (WARPS) cdl = cd[0];
+#pragma unroll
+    for (int i = 0; i < L - 1; ++i) cd[i] = cd[i + 1];
+    const int nn = base + 1 + j0 + L - 1;
+    cd[L - 1] = (nn >= 0 && nn < Mb) ? sb[nn] : dim;
+  }
+
+  // finish: H is the last row.  Corner, last-row and right-column
+  // maxima with the terminal-gap factors
+  float corner = kNevsel, brow = kNevsel;
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    const int j = j0 + i;
+    const int n_last = q.La - 1 + lw0 + j;
+    const int kfb = q.Lb - 1 - n_last;
+    if (j < W && kfb == 0) corner = fmaxf(corner, H[i]);
+    if (j < W && kfb > 0 && n_last >= 0)
+      brow = fmaxf(brow, H[i] - (v + (float)kfb * u) * q.fa_r);
+  }
+  corner = warp_max(corner);
+  brow = warp_max(brow);
+  bcol = warp_max(bcol);
+  if (WARPS) {
+    if (lane == 0) {
+      red[warp] = corner;
+      red[nwarps + warp] = brow;
+      red[2 * nwarps + warp] = bcol;
+    }
+    named_sync(blockDim.x);
+    if (gt == 0) {
+      for (int w = 1; w < nwarps; ++w) {
+        corner = fmaxf(corner, red[w]);
+        brow = fmaxf(brow, red[nwarps + w]);
+        bcol = fmaxf(bcol, red[2 * nwarps + w]);
+      }
+    }
+  }
+  if (gt == 0) {
+    float score = corner;
+    if (q.fa_r < 1.0f) score = fmaxf(score, brow);
+    if (q.fb_r < 1.0f) score = fmaxf(score, bcol);
+    out[p] = score;
+  }
+}
+
+// the maximum over a block (block variant)
 __device__ float block_max(float x, float* red) {
   for (int off = 16; off > 0; off >>= 1)
     x = fmaxf(x, __shfl_down_sync(kFull, x, off));
@@ -78,7 +441,17 @@ __device__ float block_max(float x, float* red) {
   return r;
 }
 
-__global__ void pairwise_rows_kernel(
+// The "block" variant, the first design: one thread block per pair, L
+// adjacent lanes a thread (L = 1 up to 1,024 lanes).  Step 1 of a row
+// reads the previous row's H and G from shared memory and forms X, the
+// new G and the thread's running maximum of C + j*u; a thread recomputes
+// X of the lane left of its own instead of waiting for its neighbour.
+// Warp shuffles scan the threads' maxima, one word per warp crosses
+// through shared memory (barrier 1), then step 2 folds the carries in,
+// masks the band and writes H and G in place (barrier 2).  The last row
+// is the loop's final H; the right-column candidates are a running
+// maximum in the one thread that holds column lb - 1.
+__global__ void pairwise_rows_block_kernel(
     const int32_t* __restrict__ a_batch, const int32_t* __restrict__ b_batch,
     const int32_t* __restrict__ la_, const int32_t* __restrict__ lb_,
     const int32_t* __restrict__ lw_, const int32_t* __restrict__ up_,
@@ -86,7 +459,7 @@ __global__ void pairwise_rows_kernel(
     const float* __restrict__ tg_, const uint8_t* __restrict__ exg_,
     const float* __restrict__ mtx, float* __restrict__ out,
     int Ma, int Mb, int dim, int lw0, int W, int L) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
   const int p = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarp = blockDim.x >> 5;
@@ -96,12 +469,14 @@ __global__ void pairwise_rows_kernel(
   const float fa_r = exg_[4 * p + 1] ? 0.0f : tgapf;
   const float fb_l = exg_[4 * p + 2] ? 0.0f : tgapf;
   const float fb_r = exg_[4 * p + 3] ? 0.0f : tgapf;
-  if (La <= 0) {                     // no row ever becomes the last row
-    if (tid == 0) out[p] = kNevsel;
+  if (La <= 0 || La > Ma || LW < lw0 || UP - lw0 >= W) {
+    // as the register variants: NEVSEL with no row, NaN outside the
+    // packing
+    if (tid == 0) out[p] = La <= 0 ? kNevsel : nanf("");
     return;
   }
 
-  float* smtx = smem;                // dim * dim
+  float* smtx = reinterpret_cast<float*>(smem);   // dim * dim
   float* H = smtx + dim * dim;       // previous row, W lanes each
   float* G = H + W;
   float* Xs = G + W;                 // this row's X, new G, running max
@@ -211,28 +586,104 @@ __global__ void pairwise_rows_kernel(
   if (tid == 0) out[p] = score;
 }
 
+using RowsKernel = void (*)(const int32_t*, const int32_t*, const int32_t*,
+                            const int32_t*, const int32_t*, const int32_t*,
+                            const float*, const float*, const float*,
+                            const uint8_t*, const float*, float*, int, int,
+                            int, int, int, int, int);
+
+// the register-state kernel of a variant (1: warp, 2: warps), or null
+RowsKernel pick_kernel(int variant, int lanes) {
+  if (variant == 1) {
+    switch (lanes) {
+      case 2: return pairwise_rows_reg_kernel<2, false>;
+      case 4: return pairwise_rows_reg_kernel<4, false>;
+      case 8: return pairwise_rows_reg_kernel<8, false>;
+      case 12: return pairwise_rows_reg_kernel<12, false>;
+      case 16: return pairwise_rows_reg_kernel<16, false>;
+      case 20: return pairwise_rows_reg_kernel<20, false>;
+      case 24: return pairwise_rows_reg_kernel<24, false>;
+      case 28: return pairwise_rows_reg_kernel<28, false>;
+      case 32: return pairwise_rows_reg_kernel<32, false>;
+    }
+  }
+  if (variant == 2) {
+    switch (lanes) {
+      case 4: return pairwise_rows_reg_kernel<4, true>;
+      case 8: return pairwise_rows_reg_kernel<8, true>;
+      case 12: return pairwise_rows_reg_kernel<12, true>;
+      case 16: return pairwise_rows_reg_kernel<16, true>;
+    }
+  }
+  return nullptr;
+}
+
 }  // namespace
 
+// variant 0: block (L = ceil(W / 1024) lanes a thread, threads and
+// code_stride ignored); 1: warp (threads / 32 pairs a block); 2: warps
+// (threads / 32 warps a pair).  lanes: lanes a thread of the register
+// variants; code_stride: bytes of a pair's codes in shared memory.
 extern "C" int pairwise_rows_launch(
     const void* a_batch, const void* b_batch, const void* la, const void* lb,
     const void* lw, const void* up, const void* u, const void* v,
     const void* tgapf, const void* exg, const void* mtx, void* out,
-    int B, int Ma, int Mb, int dim, int lw0, int W, void* stream) {
-  if (W < 1 || dim > 256) return (int)cudaErrorInvalidValue;
-  // L adjacent lanes a thread, threads a multiple of the warp
-  const int L = (W + 1023) / 1024;
-  const int threads = (((W + L - 1) / L + 31) / 32) * 32;
-  const size_t smem = sizeof(float) * ((size_t)dim * dim + 5 * (size_t)W + 32)
-                      + (size_t)Mb + (size_t)Ma;
+    int B, int Ma, int Mb, int dim, int lw0, int W, int variant, int lanes,
+    int threads, int code_stride, int smem_bytes, void* stream) {
+  const int32_t* a = (const int32_t*)a_batch;
+  const int32_t* b = (const int32_t*)b_batch;
+  const int32_t *la_ = (const int32_t*)la, *lb_ = (const int32_t*)lb;
+  const int32_t *lw_ = (const int32_t*)lw, *up_ = (const int32_t*)up;
+  const float *u_ = (const float*)u, *v_ = (const float*)v;
+  const float* tg_ = (const float*)tgapf;
+  const uint8_t* exg_ = (const uint8_t*)exg;
+  const float* mtx_ = (const float*)mtx;
+  float* out_ = (float*)out;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (W < 1 || dim > 256 || B < 1) return (int)cudaErrorInvalidValue;
+  if (variant == 0) {
+    // L adjacent lanes a thread, threads a multiple of the warp
+    const int L = (W + 1023) / 1024;
+    const int nthreads = (((W + L - 1) / L + 31) / 32) * 32;
+    const size_t smem =
+        sizeof(float) * ((size_t)dim * dim + 5 * (size_t)W + 32) +
+        (size_t)Mb + (size_t)Ma;
+    cudaError_t err = cudaFuncSetAttribute(
+        pairwise_rows_block_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    pairwise_rows_block_kernel<<<B, nthreads, smem, st>>>(
+        a, b, la_, lb_, lw_, up_, u_, v_, tg_, exg_, mtx_, out_, Ma, Mb, dim,
+        lw0, W, L);
+    return (int)cudaGetLastError();
+  }
+  const RowsKernel kern = pick_kernel(variant, lanes);
+  const int nw = threads / 32;
+  if (kern == nullptr || threads < 32 || threads % 32 != 0 || dim > 255 ||
+      (variant == 1 && (threads > 128 || 32 * lanes < W)) ||
+      (variant == 2 && (threads > 512 || 32 * lanes * nw < W)) ||
+      code_stride < Ma + Mb)
+    return (int)cudaErrorInvalidValue;
+  const int per_block = variant == 1 ? nw : 1;
   cudaError_t err = cudaFuncSetAttribute(
-      pairwise_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  pairwise_rows_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
-      (const int32_t*)a_batch, (const int32_t*)b_batch, (const int32_t*)la,
-      (const int32_t*)lb, (const int32_t*)lw, (const int32_t*)up,
-      (const float*)u, (const float*)v, (const float*)tgapf,
-      (const uint8_t*)exg, (const float*)mtx, (float*)out, Ma, Mb, dim, lw0,
-      W, L);
+  kern<<<(B + per_block - 1) / per_block, threads, smem_bytes, st>>>(
+      a, b, la_, lb_, lw_, up_, u_, v_, tg_, exg_, mtx_, out_, B, Ma, Mb, dim,
+      lw0, W, code_stride);
   return (int)cudaGetLastError();
+}
+
+// registers a thread and local (spilled) bytes of a variant's kernel
+extern "C" int pairwise_rows_attrs(int variant, int lanes, void* out) {
+  cudaFuncAttributes attr;
+  const cudaError_t err =
+      variant == 0 ? cudaFuncGetAttributes(&attr, pairwise_rows_block_kernel)
+      : pick_kernel(variant, lanes) == nullptr
+          ? cudaErrorInvalidValue
+          : cudaFuncGetAttributes(&attr, pick_kernel(variant, lanes));
+  if (err != cudaSuccess) return (int)err;
+  ((int*)out)[0] = attr.numRegs;
+  ((int*)out)[1] = (int)attr.localSizeBytes;
+  return 0;
 }

@@ -61,13 +61,15 @@ def all_pairs_scores(seqs: list[np.ndarray], mtx: np.ndarray,
     def dev(x):
         return torch.as_tensor(np.ascontiguousarray(x), device=device)
 
+    # lengths and band diagonals go as host arrays: the row sweep (K1f)
+    # takes its packing from them without reading the device
     scores = pairwise_scores(
         dev(padded[ai]), dev(padded[bi]),
-        dev(np.array([lens[i] for i in ai], np.int32)),
-        dev(np.array([lens[j] for j in bi], np.int32)),
+        np.array([lens[i] for i in ai], np.int32),
+        np.array([lens[j] for j in bi], np.int32),
         dev(mtx.astype(np.float32)), u, v,
-        lw=dev(np.array([w.lw for w in wdws], np.int32)),
-        up=dev(np.array([w.up for w in wdws], np.int32)), lossy=lossy)
+        lw=np.array([w.lw for w in wdws], np.int32),
+        up=np.array([w.up for w in wdws], np.int32), lossy=lossy)
     return scores.cpu().numpy()
 
 

@@ -33,7 +33,8 @@ _vp, _int = ctypes.c_void_p, ctypes.c_int
 # C signatures of the kernels' launchers; each returns cudaGetLastError()
 _SIGNATURES = {
     "pairwise_scores_launch": [_vp] * 12 + [_int] * 11 + [_vp],
-    "pairwise_rows_launch": [_vp] * 12 + [_int] * 6 + [_vp],
+    "pairwise_rows_launch": [_vp] * 12 + [_int] * 11 + [_vp],
+    "pairwise_rows_attrs": [_int, _int, _vp],
     "group_wavefront_launch": [_vp] * 16 + [_int] * 12 + [_vp],
     "group_wavefront_attrs": [_int, _int, _vp],
     "pairwise_scores_attrs": [_int, _int, _int, _vp],
@@ -42,7 +43,8 @@ _SIGNATURES = {
     "spliced_h_wave_launch": [_vp] * 20 + [_int] * 15 + [_vp],
     "spliced_h_wave_attrs": [_int, _vp],
     "spliced_h_wave_scratch_words": [],
-    "spliced_h_walk_launch": [_vp] * 4 + [_int] * 6 + [_vp],
+    "spliced_h_walk_launch": [_vp] * 3 + [_int] * 10 + [_vp],
+    "spliced_h_walk_attrs": [_vp],
 }
 
 _lib = None

@@ -215,6 +215,23 @@ def _per_pair(x, B: int, dtype, device) -> torch.Tensor:
     return t.expand(B).contiguous() if t.dim() == 0 else t
 
 
+def _band_range(lw_in, up_in, la_in, lb_in, lw, up) -> tuple[int, int]:
+    """The batch's smallest ``lw`` and largest ``up``: from the host values
+    the caller gave (``lw_in``/``up_in`` None: ``-la``/``lb``), else in one
+    device read of the packed ``lw`` and ``up``."""
+    if lw.numel() == 0:
+        return 0, 0
+    raw = (la_in if lw_in is None else lw_in, lb_in if up_in is None else up_in)
+    if any(isinstance(x, torch.Tensor) and x.device.type != "cpu"
+           for x in raw):
+        lo, hi = torch.stack([lw.min(), up.max()]).tolist()
+        return int(lo), int(hi)
+    lo_x, hi_x = (np.asarray(x.numpy() if isinstance(x, torch.Tensor) else x)
+                  for x in raw)
+    lo = -int(lo_x.max()) if lw_in is None else int(lo_x.min())
+    return lo, int(hi_x.max())
+
+
 def pairwise_scores(a_batch: torch.Tensor, b_batch: torch.Tensor,
                     la, lb, mtx: torch.Tensor, u, v, tgapf=1.0,
                     exg=None, lw=None, up=None,
@@ -238,6 +255,7 @@ def pairwise_scores(a_batch: torch.Tensor, b_batch: torch.Tensor,
     """
     dev = a_batch.device
     B = a_batch.shape[0]
+    lw_in, up_in, la_in, lb_in = lw, up, la, lb
     la = _per_pair(la, B, torch.int32, dev)
     lb = _per_pair(lb, B, torch.int32, dev)
     lw = -la if lw is None else _per_pair(lw, B, torch.int32, dev)
@@ -251,11 +269,16 @@ def pairwise_scores(a_batch: torch.Tensor, b_batch: torch.Tensor,
     fused = (os.environ.get("PRRN_PW_FUSED", "0") == "1"
              and mtx.shape[0] <= 32 and not local)
     if fused:
+        lo, hi = _band_range(lw_in, up_in, la_in, lb_in, lw, up)
         if lw0 is None:
-            lw0 = int(lw.min()) if B else 0
+            lw0 = lo
+        nlane = hi - lw0 + 1
+        if lo < lw0 or nlane < 1:
+            raise ValueError(f"pairwise_scores: lw0={lw0} does not cover the "
+                             f"batch's bands")
         run = _plain_rows if dev.type == "cpu" else _launch_rows
         return run(a_batch, b_batch, la, lb, lw, up, mtx, u, v, tgapf, exg,
-                   lw0)
+                   lw0, nlane)
     if lossy:
         mtx = mtx.to(torch.bfloat16).to(torch.float32)
     run = _plain_pairwise if dev.type == "cpu" else _launch_pairwise
@@ -271,11 +294,10 @@ def _plain_pairwise(a_batch, b_batch, la, lb, lw, up, mtx, u, v, tgapf,
 
 
 def _plain_rows(a_batch, b_batch, la, lb, lw, up, mtx, u, v, tgapf, exg,
-                lw0):
+                lw0, nlane):
     """The plain version on the arguments ``_launch_rows`` takes."""
     return row_scores_ref(a_batch, b_batch, la, lb, lw, up, mtx, u, v, tgapf,
-                          exg, lw0=lw0, nlane=int(up.max()) - lw0 + 1,
-                          nrow=int(la.max()))
+                          exg, lw0=lw0, nlane=nlane, nrow=int(la.max()))
 
 
 def _checked_inputs(a_batch, b_batch, la, lb, lw, up, mtx, u, v, tgapf, exg):
@@ -302,7 +324,11 @@ def _checked_inputs(a_batch, b_batch, la, lb, lw, up, mtx, u, v, tgapf, exg):
 
 
 def _launch_rows(a_batch, b_batch, la, lb, lw, up, mtx, u, v, tgapf, exg,
-                 lw0):
+                 lw0, nlane, plan=None):
+    """K1f on CUDA tensors: ``nlane`` lanes from the packing offset
+    ``lw0``, which the caller checked to cover every pair's band
+    (``pairwise_scores`` does, from host values or in one read); a pair
+    outside them scores NaN.  Reads nothing back from the device."""
     exg_u8 = _checked_inputs(a_batch, b_batch, la, lb, lw, up, mtx, u, v,
                              tgapf, exg)
     dev = a_batch.device
@@ -312,20 +338,151 @@ def _launch_rows(a_batch, b_batch, la, lb, lw, up, mtx, u, v, tgapf, exg,
     out = torch.empty(B, dtype=torch.float32, device=dev)
     if B == 0:
         return out
-    nlane = int(up.max()) - lw0 + 1
-    if int(lw.min()) < lw0 or nlane < 1:
-        raise ValueError(f"pairwise_scores: lw0={lw0} does not cover the "
-                         f"batch's bands")
+    if plan is None:
+        plan = rows_plan(nlane, B, dim, Ma, Mb)
     lib = _build.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.pairwise_rows_launch(
         a_batch.data_ptr(), b_batch.data_ptr(), la.data_ptr(),
         lb.data_ptr(), lw.data_ptr(), up.data_ptr(), u.data_ptr(),
         v.data_ptr(), tgapf.data_ptr(), exg_u8.data_ptr(), mtx.data_ptr(),
-        out.data_ptr(), B, Ma, Mb, dim, lw0, nlane, stream)
+        out.data_ptr(), B, Ma, Mb, dim, lw0, nlane,
+        _K1F_VARIANTS[plan["variant"]], plan["lanes"], plan["threads"],
+        plan["code_stride"], plan["smem_bytes"], stream)
     _build.check(err, "pairwise_rows_launch")
     _build.LAUNCHES["pairwise_rows"] += 1
     return out
+
+
+# K1f's launch plans (rows_plan): lanes a thread the "warp" and "warps"
+# variants are built for, the fewest lanes a thread the "warps" variant
+# takes by default when the batch fills the card, its most warps a pair,
+# the most pairs a block of the "warp" variant (a power of two), and the
+# card's SMs: a batch of fewer pairs spreads each pair over warps
+K1F_WARP_LANES = (2, 4, 8, 12, 16, 20, 24, 28, 32)
+K1F_WARPS_LANES = (4, 8, 12, 16)
+K1F_WARPS_MIN_LANES = 8
+K1F_MAX_WARPS = 16
+K1F_WARP_PAIRS = 4
+K1F_SMS = 132
+_K1F_VARIANTS = {"block": 0, "warp": 1, "warps": 2}
+
+
+def rows_plan(nlane: int, B: int, dim: int, Ma: int, Mb: int, *,
+              variant: str | None = None, lanes: int | None = None,
+              warps: int | None = None, pairs: int | None = None) -> dict:
+    """K1f's variant for a batch of ``B`` pairs swept over ``nlane`` lanes.
+
+    "warp": one warp a pair, ``pairs`` pairs a block (by default the
+    largest power of two up to ``K1F_WARP_PAIRS`` that leaves a block for
+    every SM), ``lanes`` lanes a thread in registers (32 * lanes >=
+    nlane); "warps": ``warps`` warps a pair, one pair a block (32 * lanes
+    * warps >= nlane); "block": one block of up to 1,024 threads a pair,
+    the row in shared memory (the first design).  By default a batch of
+    at least ``K1F_SMS`` pairs takes "warp" up to 32 * 32 lanes, and a
+    smaller batch "warps" of 4 lanes a thread from 129 lanes on (each
+    pair has an SM to itself, so its row's latency sets the pace); past
+    that "warps" (at least ``K1F_WARPS_MIN_LANES`` lanes a thread for a
+    full batch) up to 32 * 16 * ``K1F_MAX_WARPS`` lanes, "block" the
+    rest.  The register variants hold the codes as bytes in shared memory
+    (``code_stride`` bytes a pair) beside the matrix and its zero column,
+    so they need ``dim`` <= 255.  A plan the kernels cannot take raises.
+    """
+    if nlane < 1 or B < 0 or dim < 1:
+        raise ValueError(f"rows_plan: {nlane} lanes, {B} pairs, dim {dim}")
+    stride = -(-(Ma + Mb) // 16) * 16
+    mtx_bytes = 4 * dim * (dim + 1)
+
+    def smallest(choices, need):
+        return next((n for n in choices if n >= need), None)
+
+    def reg_smem(nwarps, npairs):
+        return mtx_bytes + 52 * nwarps + npairs * stride
+
+    spread = B < K1F_SMS and nlane > 32 * K1F_WARPS_LANES[0]
+    if variant is None:
+        if dim > 255 or reg_smem(1, 1) > SMEM_MAX:
+            variant = "block"
+        elif nlane <= 32 * K1F_WARP_LANES[-1] and not spread:
+            variant = "warp"
+        elif nlane <= 32 * K1F_WARPS_LANES[-1] * K1F_MAX_WARPS:
+            variant = "warps"
+        else:
+            variant = "block"
+    if variant == "block":
+        if lanes is not None or warps is not None or pairs is not None:
+            raise ValueError("rows_plan: the block variant takes no lanes, "
+                             "warps or pairs")
+        L = -(-nlane // 1024)
+        smem = 4 * (dim * dim + 5 * nlane + 32) + Ma + Mb
+        if smem > SMEM_MAX or dim > 256:
+            raise ValueError(f"rows_plan: a row of {nlane} lanes does not "
+                             f"fit in shared memory")
+        return {"variant": "block", "lanes": L, "warps": 0,
+                "pairs_per_block": 1,
+                "threads": (-(-nlane // L) + 31) // 32 * 32,
+                "code_stride": 0, "smem_bytes": smem}
+    if variant not in ("warp", "warps"):
+        raise ValueError(f"rows_plan: unknown variant {variant!r}")
+    if dim > 255:
+        raise ValueError(f"rows_plan: codes of a {dim}-letter matrix and "
+                         f"its zero column are not bytes")
+    if variant == "warp":
+        if warps not in (None, 1):
+            raise ValueError("rows_plan: the warp variant has one warp a "
+                             "pair")
+        warps = 1
+        if lanes is None:
+            lanes = smallest(K1F_WARP_LANES, -(-nlane // 32))
+        if lanes not in K1F_WARP_LANES:
+            raise ValueError(f"rows_plan: {lanes} lanes a thread is not one "
+                             f"of {K1F_WARP_LANES}")
+        if pairs is None:
+            pairs = K1F_WARP_PAIRS
+            while pairs > 1 and (B < pairs * K1F_SMS
+                                 or reg_smem(pairs, pairs) > SMEM_MAX):
+                pairs //= 2
+        if not 1 <= pairs <= K1F_WARP_PAIRS:
+            raise ValueError(f"rows_plan: {pairs} pairs a block")
+        nwarps = pairs
+    else:
+        if pairs not in (None, 1):
+            raise ValueError("rows_plan: the warps variant has one pair a "
+                             "block")
+        pairs = 1
+        if lanes is None:
+            need = -(-nlane // (32 * (warps or K1F_MAX_WARPS)))
+            least = K1F_WARPS_LANES[0] if spread else K1F_WARPS_MIN_LANES
+            lanes = smallest(K1F_WARPS_LANES,
+                             need if warps else max(least, need))
+        if lanes not in K1F_WARPS_LANES:
+            raise ValueError(f"rows_plan: {lanes} lanes a thread is not one "
+                             f"of {K1F_WARPS_LANES}")
+        if warps is None:
+            warps = -(-nlane // (32 * lanes))
+        if not 1 <= warps <= K1F_MAX_WARPS:
+            raise ValueError(f"rows_plan: {warps} warps a pair")
+        nwarps = warps
+    if 32 * lanes * warps < nlane:
+        raise ValueError(f"rows_plan: {warps} warps of {lanes} lanes a "
+                         f"thread do not hold {nlane} lanes")
+    smem = reg_smem(nwarps, pairs)
+    if smem > SMEM_MAX:
+        raise ValueError(f"rows_plan: codes of {Ma} + {Mb} do not fit in "
+                         f"shared memory")
+    return {"variant": variant, "lanes": lanes, "warps": warps,
+            "pairs_per_block": pairs, "threads": 32 * nwarps,
+            "code_stride": stride, "smem_bytes": smem}
+
+
+def rows_attrs(plan: dict) -> dict:
+    """Registers a thread and local (spilled) bytes of the kernel a K1f
+    plan launches, as the card's loader reports them."""
+    out = (ctypes.c_int * 2)()
+    _build.check(_build.load().pairwise_rows_attrs(
+        _K1F_VARIANTS[plan["variant"]], plan["lanes"], ctypes.addressof(out)),
+        "pairwise_rows_attrs")
+    return {"registers": out[0], "local_bytes": out[1]}
 
 
 # K1's launch plans (pairwise_plan): slot pairs a lane the register-state

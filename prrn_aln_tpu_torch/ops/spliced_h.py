@@ -949,32 +949,102 @@ def walk_h_ref(ev, jd, t_min: int, M: int, N: int, om: int,
 def walk_h(ev, jd, t_min: int, M: int, N: int, om: int, on: int) -> Walk:
     """The traceback walk (kernel K4w).  CPU tensors take the plain
     version; CUDA tensors launch ``csrc/spliced_h_walk.cu``, and only
-    the knot list comes back to the host."""
+    the counters and the knot list come back to the host."""
     if ev.device.type == "cpu":
         return walk_h_ref(ev, jd, t_min, M, N, om, on)
     return _launch_walk(ev, jd, t_min, M, N, om, on)
 
 
-def _launch_walk(ev, jd, t_min, M, N, om, on):
+# K4w's launch (walk_plan): the ring's waves by default, its bounds, the
+# staging warps beside the walker (csrc/spliced_h_walk.cu's kStagers), and
+# the knots that come back with the counters in one copy
+K4W_DEPTH = 128
+K4W_DEPTH_MIN = 8
+K4W_STAGERS = 4
+K4W_KNOTS_AHEAD = 256
+K4W_HEAD = 16
+K4W_HEAD_WORDS = 8
+# the last walk's reads of ev from the ring and from device memory
+WALK_READS = {"ring": 0, "device": 0}
+
+
+def walk_plan(T: int, MR: int, *, depth: int | None = None) -> dict:
+    """K4w's launch for planes of ``T`` waves by ``MR`` rows: a ring of
+    ``depth`` waves (a power of two, at least K4W_DEPTH_MIN) in shared
+    memory, each slot ``rows`` = ceil(depth / 3) + 2 rows of ev rounded
+    out to 16 bytes (``slot_words`` words), staged by K4W_STAGERS warps
+    ahead of one walker thread.  A plan the kernel cannot take raises:
+    a depth that is not a power of two, a ring past shared memory, or
+    planes of 2**31 words or more (the kernel indexes ev in 32 bits)."""
+    if T < 1 or MR < 1:
+        raise ValueError(f"walk_plan: planes of {T} waves x {MR} rows")
+    if T * MR >= 1 << 31:
+        raise ValueError(f"walk_plan: {T} x {MR} words of ev do not index "
+                         f"in 32 bits")
+    if depth is None:
+        depth = K4W_DEPTH
+    if depth < K4W_DEPTH_MIN or depth & (depth - 1):
+        raise ValueError(f"walk_plan: a ring of {depth} waves is not a "
+                         f"power of two of at least {K4W_DEPTH_MIN}")
+    rows = -(-depth // 3) + 2
+    slot_words = -(-(rows + 3) // 4) * 4
+    smem = K4W_HEAD + 8 * depth + 4 * depth * slot_words
+    if smem > K4_SMEM_MAX:
+        raise ValueError(f"walk_plan: a ring of {depth} waves needs {smem} "
+                         f"bytes of shared memory")
+    return {"variant": "staged", "depth": depth, "rows": rows,
+            "slot_words": slot_words, "stagers": K4W_STAGERS,
+            "threads": 32 * (1 + K4W_STAGERS), "smem_bytes": smem}
+
+
+def _enqueue_walk(ev, jd, t_min, M, N, om, on, plan=None) -> torch.Tensor:
+    """Launch K4w on the current stream and return its output buffer on
+    the card: the counters (knots, m, n, steps, ring and device reads),
+    then 3 knots a step at most.  Waits for nothing."""
     dev = ev.device
     if dev.type != "cuda":
         raise ValueError(f"walk_h: unsupported device {dev}")
     T, MR = ev.shape
     _build.require(ev, "ev", I32, (T, MR), dev)
     _build.require(jd, "jd", I32, (T, 4, MR), dev)
+    if plan is None:
+        plan = walk_plan(T, MR)
     steps = walk_steps(M, N)
-    knots = torch.empty((3 * steps, 2), dtype=I32, device=dev)
-    out = torch.empty(4, dtype=I32, device=dev)
+    buf = torch.empty(K4W_HEAD_WORDS + 6 * steps, dtype=I32, device=dev)
     lib = _build.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.spliced_h_walk_launch(
-        ev.data_ptr(), jd.data_ptr(), knots.data_ptr(), out.data_ptr(),
-        T, MR, t_min, om, on, steps, stream)
+        ev.data_ptr(), jd.data_ptr(), buf.data_ptr(), T, MR, t_min, om, on,
+        steps, plan["depth"], plan["rows"], plan["slot_words"],
+        plan["smem_bytes"], stream)
     _build.check(err, "spliced_h_walk_launch")
     _build.LAUNCHES["spliced_h_walk"] += 1
-    cnt, m, n, taken = (int(x) for x in out.cpu())
-    kn = knots[:cnt].cpu().numpy()
+    return buf
+
+
+def _launch_walk(ev, jd, t_min, M, N, om, on, plan=None):
+    buf = _enqueue_walk(ev, jd, t_min, M, N, om, on, plan)
+    # one copy brings the counters and the first knots; a second only for
+    # a walk of more knots
+    h = K4W_HEAD_WORDS
+    head = buf[:h + 2 * K4W_KNOTS_AHEAD].cpu().numpy()
+    cnt, m, n, taken, ring, device = (int(x) for x in head[:6])
+    kn = head[h:h + 2 * min(cnt, K4W_KNOTS_AHEAD)]
+    if cnt > K4W_KNOTS_AHEAD:
+        kn = np.concatenate(
+            [kn, buf[h + 2 * K4W_KNOTS_AHEAD:h + 2 * cnt].cpu().numpy()])
+    kn = kn.reshape(-1, 2)
+    WALK_READS.update(ring=ring, device=device)
     return Walk([(int(a), int(b)) for a, b in kn], m, n, taken)
+
+
+def spliced_h_walk_attrs() -> dict:
+    """Registers a thread and local (spilled) bytes of K4w's kernel, as
+    the card's loader reports them."""
+    out = (ctypes.c_int * 2)()
+    _build.check(_build.load().spliced_h_walk_attrs(ctypes.addressof(out)),
+                 "spliced_h_walk_attrs")
+    return {"registers": out[0], "local_bytes": out[1]}
 
 
 def _init_tail(m, n, N, init0_k, initc, idx):

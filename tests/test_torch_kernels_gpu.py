@@ -84,8 +84,9 @@ def test_pairwise_rows_kernel_matches_plain(cuda_device, lo, hi, n):
             rng.random((n, 4)) < 0.3]
     args = [torch.as_tensor(x, device=cuda_device) for x in arrs]
     lw0 = int(arrs[4].min())
-    got = tpw._launch_rows(*args, lw0)
-    ref = tpw._plain_rows(*args, lw0)
+    nlane = int(arrs[5].max()) - lw0 + 1
+    got = tpw._launch_rows(*args, lw0, nlane)
+    ref = tpw._plain_rows(*args, lw0, nlane)
     assert torch.equal(got, ref)
     assert tpw._build.LAUNCHES["pairwise_rows"] >= 1
 
@@ -516,3 +517,186 @@ def test_pairwise_kernel_plans_match_plain(cuda_device, case):
     got = tpw._launch_pairwise(*args, local, plan)
     ref = tpw._plain_pairwise(*args, local)
     assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+def _k1f_batch(seed, lens, nlane=None, sh=-60, dna=False, exg=None,
+               u=2.0):
+    """K1f's launch arguments for pairs of the given (la, lb) lengths: the
+    band of ``stripe`` at shoulder ``sh``, or, with ``nlane``, bands that
+    together span exactly ``nlane`` lanes from lw0 = min(lw)."""
+    arrs = _k1_batch(seed, lens, sh, dna=dna, exg=exg)
+    if nlane is not None:
+        la = arrs[2]
+        lw = -(la // 2).astype(np.int32)
+        lw[0] = lw.min()
+        up = np.minimum(lw + int(la.min()), lw[0] + nlane - 1)
+        up[0] = lw[0] + nlane - 1
+        arrs[4], arrs[5] = lw, up.astype(np.int32)
+        assert int(up.max()) - int(lw.min()) + 1 == nlane
+    arrs[7] = np.full(len(lens), u, np.float32)
+    return arrs
+
+
+# K1f's cases: the batch (seed, lengths, lanes or None for sh=-60, DNA,
+# free end gaps, u), the plan asked for, and the variant, lanes a thread,
+# warps a pair and pairs a block it must give
+_K1F_CASES = {
+    "warp_1024": ((1, _rand_lens(1, 132, 300, 400), 1024, False, None, 2.0),
+                  {}, ("warp", 32, 1, 1)),
+    "warps_1025": ((2, _rand_lens(2, 132, 300, 400), 1025, False, None,
+                    2.0), {}, ("warps", 8, 5, 1)),
+    "small_128": ((3, _rand_lens(3, 4, 150, 200), 128, False, None, 2.0),
+                  {}, ("warp", 4, 1, 1)),
+    "small_129": ((4, _rand_lens(4, 4, 150, 200), 129, False, None, 2.0),
+                  {}, ("warps", 4, 2, 1)),
+    "warps_8192": ((5, [(300, 320), (310, 290)], 8192, False, None, 2.0),
+                   {}, ("warps", 16, 16, 1)),
+    "block_8193": ((6, [(300, 320), (310, 290)], 8193, False, None, 2.0),
+                   {}, ("block", 9, 0, 1)),
+    "pairs4_mixed": ((7, _rand_lens(7, 528, 40, 300), None, False, None,
+                      2.0), {}, ("warp", 20, 1, 4)),
+    "pairs2_mixed": ((8, _rand_lens(8, 264, 40, 300), None, False, None,
+                      2.0), {}, ("warp", 20, 1, 2)),
+    "exg0_warp": ((9, [(200, 300)] * 140, None, False, [1, 0, 0, 0], 2.0),
+                  {}, ("warp", 12, 1, 1)),
+    "exg1_warp": ((10, [(200, 300)] * 140, None, False, [0, 1, 0, 0], 2.0),
+                  {}, ("warp", 12, 1, 1)),
+    "exg2_warps": ((11, [(300, 200)] * 3, None, False, [0, 0, 1, 0], 2.0),
+                   {}, ("warps", 4, 3, 1)),
+    "exg3_warps": ((12, [(300, 200)] * 3, None, False, [0, 0, 0, 1], 2.0),
+                   {}, ("warps", 4, 3, 1)),
+    "dna_warps": ((13, _rand_lens(13, 8, 300, 420), None, True, None, 2.0),
+                  {}, ("warps", 4, 5, 1)),
+    "dna_warp": ((14, _rand_lens(14, 8, 100, 150), None, True, None, 2.0),
+                 {"variant": "warp"}, ("warp", 8, 1, 1)),
+    "ask_warp_2": ((15, _rand_lens(15, 6, 20, 30), None, False, None, 2.0),
+                   {"variant": "warp", "lanes": 2}, ("warp", 2, 1, 1)),
+    "ask_warps_16x2": ((16, [(520, 515), (515, 520)], None, False, None,
+                        2.0), {"variant": "warps", "lanes": 16, "warps": 2},
+                       ("warps", 16, 2, 1)),
+    "ask_warps_12": ((17, [(520, 515), (150, 520)], None, False, None, 2.0),
+                     {"variant": "warps", "lanes": 12}, ("warps", 12, 3, 1)),
+    "ask_block": ((18, [(520, 515), (150, 520)], None, False, None, 2.0),
+                  {"variant": "block"}, ("block", 1, 0, 1)),
+    "negative_u": ((19, _rand_lens(19, 4, 150, 200), None, False, None,
+                    -0.5), {"variant": "warp"}, ("warp", 12, 1, 1)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(_K1F_CASES))
+def test_pairwise_rows_plans_match_plain(cuda_device, case):
+    """K1f against ``row_scores_ref``, bit for bit, in each plan: one warp
+    a pair at its limit of 1,024 lanes and several warps past it, a small
+    batch on either side of 128 lanes, the warps variant at its limit of
+    8,192 lanes and the block variant past it, four and two pairs a block
+    of mixed lengths, each free end gap alone in both register variants,
+    the DNA matrix, plans asked for, and a negative gap extension (the
+    lanes past the batch's width then keep their G masked)."""
+    (seed, lens, nlane, dna, exg, u), ask, want = _K1F_CASES[case]
+    arrs = _k1f_batch(seed, lens, nlane, dna=dna,
+                      exg=None if exg is None else np.array(exg, bool), u=u)
+    args = [torch.as_tensor(x, device=cuda_device) for x in arrs]
+    lw0 = int(arrs[4].min())
+    width = int(arrs[5].max()) - lw0 + 1
+    plan = tpw.rows_plan(width, len(lens), arrs[6].shape[0],
+                         arrs[0].shape[1], arrs[1].shape[1], **ask)
+    assert (plan["variant"], plan["lanes"], plan["warps"],
+            plan["pairs_per_block"]) == want
+    got = tpw._launch_rows(*args, lw0, width, plan)
+    ref = tpw._plain_rows(*args, lw0, width)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert torch.isfinite(got).all()
+
+
+def _walk_planes(seed, T, MR, device, offset=0, pjump=0.002, pgap=0.1,
+                 drop=(30, 700), loop_at_start=False):
+    """Seeded ev and jd planes for K4w: mostly plain diagonal cells, gap
+    states with probability ``pgap``, each jump flag with ``pjump``, jd
+    targets ``drop`` waves down (many past the ring), a few dead cells;
+    ``offset`` words ahead of ev in its allocation leave it off 16-byte
+    alignment.  Returns the planes, t_min and the start cell."""
+    rng = np.random.default_rng(seed)
+    t_min = int(rng.integers(-50, 50))
+    w = np.where(rng.random((T, MR)) < pgap, rng.integers(1, 3, (T, MR)), 0)
+    flags = np.zeros((T, MR), np.int64)
+    for bit in (tsh.EVH_JXH, tsh.EVH_SJ, tsh.EVH_JXF, tsh.EVH_JXG):
+        flags |= np.where(rng.random((T, MR)) < pjump, bit, 0)
+    flags |= np.where(rng.random((T, MR)) < 0.5, tsh.EVH_CSH, 0)
+    ev = (w | flags | (rng.integers(0, 16, (T, MR)) << 3)).astype(np.int32)
+    ev[rng.random((T, MR)) < 0.002] = -1
+    ti = np.arange(T)[:, None, None]
+    mm = np.arange(MR)[None, None, :]
+    jd = (ti + t_min - 3 * mm
+          - rng.integers(drop[0], drop[1], (T, 4, MR))).astype(np.int32)
+    om = MR - 1
+    on = T - 1 + t_min - 3 * om
+    if loop_at_start:                # w = 3: state 0 -> 3 -> 0, no move
+        ev[T - 1, om] = 3
+    flat = torch.empty(T * MR + offset, dtype=torch.int32, device=device)
+    evd = flat[offset:].view(T, MR)
+    evd.copy_(torch.as_tensor(ev))
+    return evd, torch.as_tensor(jd, device=device), t_min, om, on
+
+
+# K4w's cases on seeded planes: T, MR, offset in words, jump probability,
+# gap probability, the ring depth asked for (None: the default)
+_K4W_CASES = {
+    "ring8_crossed": (3000, 300, 0, 0.002, 0.1, 8),
+    "ring32": (3000, 300, 0, 0.002, 0.1, 32),
+    "default_527": (3875, 527, 0, 0.0005, 0.05, None),
+    "jumps_past_ring": (4000, 200, 0, 0.02, 0.1, 64),
+    "offset_1_word": (3000, 300, 1, 0.002, 0.1, None),
+    "offset_3_words": (3000, 300, 3, 0.002, 0.1, 16),
+    "rows_clipped_40": (2500, 40, 3, 0.002, 0.3, 128),
+    "ring256": (3000, 300, 0, 0.002, 0.1, 256),
+    "flagship_shape": (36475, 527, 0, 0.0002, 0.05, None),
+    "walk_steps_cap": (900, 120, 0, 0.0, 0.0, None),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(_K4W_CASES))
+def test_walk_kernel_matches_plain(cuda_device, case):
+    """K4w against ``walk_h_ref`` on seeded planes: the same knots, stop
+    cell and steps, in the plan each case asks for.  Walks that cross a
+    ring of 8 and 32 waves many times, junction jumps that land past the
+    ring, ev 1 and 3 words past a 16-byte boundary (every window's first
+    chunk read word by word), 40 rows (windows clipped at row 1 and past
+    row MR - 1 reach into the neighbouring waves), a ring of 256, the
+    flagship's 36,475 waves, and a walk that runs into ``walk_steps``."""
+    T, MR, offset, pjump, pgap, depth = _K4W_CASES[case]
+    cap = case == "walk_steps_cap"
+    ev, jd, t_min, om, on = _walk_planes(zlib.crc32(case.encode()), T, MR,
+                                         cuda_device, offset, pjump, pgap,
+                                         loop_at_start=cap)
+    M, N = MR - 1, on + 10
+    plan = tsh.walk_plan(T, MR, depth=depth)
+    assert plan["depth"] == (depth or tsh.K4W_DEPTH)
+    if offset:
+        assert ev.data_ptr() % 16 != 0
+    got = tsh._launch_walk(ev, jd, t_min, M, N, om, on, plan)
+    ref = tsh.walk_h_ref(ev, jd, t_min, M, N, om, on)
+    assert got == ref
+    reads = tsh.WALK_READS
+    assert reads["ring"] + reads["device"] >= ref.steps
+    if cap:
+        assert ref.steps == tsh.walk_steps(M, N) and not ref.knots
+    else:
+        assert ref.steps > 50 and len(ref.knots) > 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [8, 32, 128, 256])
+def test_walk_kernel_on_k4_planes(cuda_device, depth):
+    """K4w on the planes K4 made on the card for the GT/AG-rich genome of
+    ``test_spliced_kernels_match_plain`` and for mini, at each ring
+    depth, against ``walk_h_ref``; the knots come back in one copy or,
+    past K4W_KNOTS_AHEAD, two."""
+    for genome, protein in (_k4_pair("rich"), _k4_pair("mini")):
+        calls = _spliced_calls(genome, protein, cuda_device)
+        wargs, wk = calls["walk"]
+        ev, jd, t_min, M, N, om, on = wargs
+        plan = tsh.walk_plan(*ev.shape, depth=depth)
+        got = tsh._launch_walk(*wargs, plan)
+        assert got == tsh.walk_h_ref(*wargs) == wk

@@ -203,3 +203,101 @@ def test_lw0_is_part_of_the_function(monkeypatch):
     shifted = tpw.pairwise_scores(*args, lw0=int(x["lw"].min()) - 5, **kw)
     assert torch.equal(default, same)
     assert _ulp_at_dp_scale(shifted.numpy(), default.numpy(), x) <= 4
+
+
+# ---------------------------------------------------------------------
+# K1f's launch plan (csrc/pairwise_rows.cu reads it; pure Python)
+
+# (lanes, pairs) -> variant, lanes a thread, warps a pair, pairs a block
+ROWS_PLANS = {
+    (20, 512): ("warp", 2, 1, 2),
+    (615, 512): ("warp", 20, 1, 2),       # the 512 x 512 bench at sh=-60
+    (615, 528): ("warp", 20, 1, 4),       # four pairs a block from 528 pairs
+    (1024, 132): ("warp", 32, 1, 1),      # the widest band of one warp
+    (1025, 132): ("warps", 8, 5, 1),
+    (128, 21): ("warp", 4, 1, 1),         # a small batch: one warp still
+    (129, 21): ("warps", 4, 2, 1),        # then four lanes a thread
+    (777, 101): ("warps", 4, 7, 1),       # fam19's edge batch
+    (2048, 8): ("warps", 4, 16, 1),
+    (2049, 8): ("warps", 8, 9, 1),
+    (4096, 512): ("warps", 8, 16, 1),
+    (4097, 512): ("warps", 12, 11, 1),
+    (8192, 2): ("warps", 16, 16, 1),      # the widest band of the warps
+    (8193, 2): ("block", 9, 0, 1),
+}
+
+
+@pytest.mark.parametrize("nlane, B", list(ROWS_PLANS))
+def test_rows_plan_rule(nlane, B):
+    """K1f's variant by band width and batch: one warp a pair (lanes in
+    registers) up to 1,024 lanes for a batch that fills the card's SMs,
+    several warps a pair for a smaller batch and up to 8,192 lanes, the
+    first design (one block, the row in shared memory) past that."""
+    plan = tpw.rows_plan(nlane, B, 25, 520, 520)
+    assert (plan["variant"], plan["lanes"], plan["warps"],
+            plan["pairs_per_block"]) == ROWS_PLANS[(nlane, B)]
+    assert plan["smem_bytes"] <= tpw.SMEM_MAX
+    if plan["variant"] == "block":
+        assert plan["smem_bytes"] == 4 * (25 * 25 + 5 * nlane + 32) + 1040
+        assert plan["threads"] * plan["lanes"] >= nlane
+        return
+    assert 32 * plan["lanes"] * plan["warps"] >= nlane
+    nwarps = plan["threads"] // 32
+    assert nwarps == (plan["pairs_per_block"] if plan["variant"] == "warp"
+                      else plan["warps"])
+    assert plan["code_stride"] == 1040
+    assert plan["smem_bytes"] == (4 * 25 * 26 + 52 * nwarps
+                                  + plan["pairs_per_block"] * 1040)
+
+
+@pytest.mark.parametrize("kw", [
+    {"variant": "warp", "lanes": 8},               # 256 lanes < 300
+    {"variant": "warp", "lanes": 6},               # not built
+    {"variant": "warp", "warps": 2},
+    {"variant": "warp", "lanes": 16, "pairs": 8},
+    {"variant": "warps", "lanes": 2},              # not built for warps
+    {"variant": "warps", "lanes": 4, "warps": 2},  # 256 lanes < 300
+    {"variant": "warps", "lanes": 4, "warps": 17},
+    {"variant": "warps", "lanes": 16, "pairs": 2},
+    {"variant": "block", "lanes": 2},
+    {"variant": "rows"},
+])
+def test_rows_plan_refuses(kw):
+    with pytest.raises(ValueError):
+        tpw.rows_plan(300, 8, 25, 200, 200, **kw)
+
+
+def test_rows_plan_limits():
+    # the matrix and its zero column in shared memory: 240 letters fit,
+    # 241 fit no variant (nor the block variant's matrix beside its row)
+    assert tpw.rows_plan(200, 4, 240, 200, 200)["variant"] == "warps"
+    for variant in (None, "warp", "warps", "block"):
+        with pytest.raises(ValueError):
+            tpw.rows_plan(200, 4, 241, 200, 200, variant=variant)
+    # codes are bytes: no register variant past 255 letters
+    with pytest.raises(ValueError):
+        tpw.rows_plan(200, 4, 256, 20, 20, variant="warp")
+    # a row past the block variant's shared memory
+    with pytest.raises(ValueError):
+        tpw.rows_plan(12000, 4, 25, 200, 200)
+    # fewer pairs a block where four pairs' codes do not fit
+    plan = tpw.rows_plan(300, 600, 25, 40000, 40000)
+    assert (plan["variant"], plan["pairs_per_block"]) == ("warp", 2)
+    with pytest.raises(ValueError):
+        tpw.rows_plan(0, 4, 25, 200, 200)
+
+
+def test_band_range_reads_host_values_first():
+    """``pairwise_scores`` takes the packing's range from host values
+    where the caller gave them (no device read); on tensors it reads the
+    packed ``lw`` and ``up`` once.  Both give the batch's bounds."""
+    x = CASES["banded_protein"]["x"]
+    lw_t, up_t = torch.as_tensor(x["lw"]), torch.as_tensor(x["up"])
+    want = (int(x["lw"].min()), int(x["up"].max()))
+    assert tpw._band_range(x["lw"], x["up"], x["la"], x["lb"], lw_t,
+                           up_t) == want
+    assert tpw._band_range(lw_t, up_t, None, None, lw_t, up_t) == want
+    la, lb = torch.as_tensor(x["la"]), torch.as_tensor(x["lb"])
+    assert tpw._band_range(None, None, x["la"], x["lb"], -la, lb) == (
+        -int(x["la"].max()), int(x["lb"].max()))
+    assert tpw._band_range(None, None, 30, 40, -la[:1], lb[:1]) == (-30, 40)

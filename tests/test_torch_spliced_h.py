@@ -292,3 +292,47 @@ def test_sweep_plan_refuses_what_the_kernel_cannot_take(kw):
     MR, npen = kw.pop("MR"), kw.pop("npen", 806)
     with pytest.raises(ValueError):
         sh.sweep_plan(MR, npen, **kw)
+
+
+# ---------------------------------------------------------------------
+# (v) K4w's launch plan (csrc/spliced_h_walk.cu reads it; pure Python)
+
+# depth -> rows a slot, words a slot, shared bytes: 16 + 8 D + 4 D S
+WALK_PLANS = {
+    8: (5, 8, 336),
+    16: (8, 12, 912),
+    64: (24, 28, 7696),
+    128: (45, 48, 25616),
+    256: (88, 92, 96272),
+}
+
+
+@pytest.mark.parametrize("depth", list(WALK_PLANS))
+def test_walk_plan(depth):
+    """A ring of D waves, each slot R = ceil(D / 3) + 2 rows of ev (the
+    rows the next D waves below the walker can reach) rounded out to 16
+    bytes, staged by four warps beside the walker; D = 128 by default."""
+    plan = sh.walk_plan(3875, 527, depth=depth)
+    assert (plan["rows"], plan["slot_words"], plan["smem_bytes"]) == \
+        WALK_PLANS[depth]
+    assert plan["rows"] >= -(-depth // 3) + 2
+    assert plan["slot_words"] % 4 == 0
+    assert plan["slot_words"] >= plan["rows"] + 3
+    assert plan["threads"] == 32 * (1 + sh.K4W_STAGERS)
+    assert plan["depth"] % sh.K4W_STAGERS == 0
+    assert sh.walk_plan(3875, 527)["depth"] == sh.K4W_DEPTH == 128
+
+
+@pytest.mark.parametrize("T, MR, kw", [
+    (3875, 527, {"depth": 4}),        # below the smallest ring
+    (3875, 527, {"depth": 7}),        # not a power of two
+    (3875, 527, {"depth": 96}),
+    (3875, 527, {"depth": 512}),      # 360 KB of shared memory
+    (0, 527, {}),
+    (3875, 0, {}),
+    (2 ** 22, 2 ** 9, {}),            # 2**31 words of ev
+])
+def test_walk_plan_refuses_what_the_kernel_cannot_take(T, MR, kw):
+    with pytest.raises(ValueError):
+        sh.walk_plan(T, MR, **kw)
+    assert sh.walk_plan(2 ** 22 - 1, 2 ** 9)["depth"] == 128

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Time kernels K1 (the banded pairwise scorer, ``csrc/pairwise.cu``) and
-K3 (the group traceback walk, ``csrc/traceback.cu``) on the port's own
-shapes, on one CUDA card.
+"""Time kernels K1 (the banded pairwise scorer, ``csrc/pairwise.cu``), K3
+(the group traceback walk, ``csrc/traceback.cu``), K1f (the row-sweep
+pairwise scorer, ``csrc/pairwise_rows.cu``) and K4w (the fwd2h traceback
+walk, ``csrc/spliced_h_walk.cu``) on the port's own shapes, on one CUDA
+card.
 
 Run from the repository root:
 
@@ -10,6 +12,8 @@ Run from the repository root:
     python3 tools/k1k3_bench.py --inputs build/k1k3.pt \\
         --k3-plans staged:16,global --k1-plans warp:10,warps:2x5,block
     python3 tools/k1k3_bench.py --inputs build/k1k3.pt --ablate nobar
+    python3 tools/k1k3_bench.py --inputs build/k1k3.pt --kernels k1f,k4w \\
+        --k1f-plans warp:32,warps:8,block --k4w-depths 64,256
 
 Shapes:
 
@@ -25,7 +29,16 @@ Shapes:
   planes K2 makes of them);
 - ``bench512``: K1 on 512 seeded random pairs of 512 x 512 at sh=-60
   (a band of 617 slots), and ``bench150`` on 512 pairs of 150 x 150 (183
-  slots: the band one warp a pair takes).
+  slots: the band one warp a pair takes);
+- K1f (``--kernels k1f``) on fam19's recorded edge call and on
+  ``bench512``, each with the packing ``pairwise_scores`` gives it (lw0
+  the batch's smallest lw);
+- K4w (``--kernels k4w``) on the walks ``aln -yl2`` records on the card
+  for (a) mini_gen x mini_pro, (c) the CET10B9 window x ce13a.msa and
+  the flagship's shape (the window at 31,400 in seeded random flanks of
+  34.9 kb, x ce13a.msa); recorded anew in each run (the planes take
+  40 MB at (c) and 390 MB at the flagship shape), by whichever package
+  runs.
 
 The recorded inputs are written to ``--inputs`` by the first run and read
 back by later ones, so another checkout's kernels (``--root``: an
@@ -45,13 +58,19 @@ Prints the card and its power limit, then one JSON line a timed call:
 the median of warm calls through the wrapper (CUDA events, host work of
 the wrapper included, as the main path sees it), the kernel's own time
 on the card (``device_ms``, from ``torch.profiler``; null where it shows
-none), the plan, microseconds a walk move (K3, of the longest walk) or a
-step (K1), and the plan's registers and spilled bytes.
+none; for K1f and K4w also ``queued_ms``, CUDA events around launches
+enqueued back to back), the plan, microseconds a walk move (K3, of the longest walk) or a
+step (K1), a row (K1f) or a walk step (K4w), K4w's reads of ev from its
+ring and from device memory, and the plan's registers and spilled bytes.
+``--root`` runs another checkout's K1f and K4w on the same inputs too
+(its wrappers may take fewer arguments: the older K1f takes no
+``nlane``, the older K4w no plan).
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import shutil
 import statistics
@@ -113,6 +132,22 @@ def ablated_sources(part: str) -> Path:
         text = text.replace(old, new)
     src.write_text(text)
     return out
+
+
+def queued_ms(launch, reps: int) -> float:
+    """A kernel's time a launch with launches enqueued back to back (CUDA
+    events, no synchronisation between them): ``launch`` enqueues the
+    kernel alone, so the card and not the host sets the pace."""
+    launch()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        launch()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def time_ms(fn, reps: int) -> float:
@@ -259,6 +294,8 @@ def main(argv=None) -> int:
     ap.add_argument("--shapes", default="ce13a17,fam19,bench")
     ap.add_argument("--kernels", default="k1,k3")
     ap.add_argument("--k1-plans", default="")
+    ap.add_argument("--k1f-plans", default="")
+    ap.add_argument("--k4w-depths", default="")
     ap.add_argument("--reps", type=int, default=7)
     ap.add_argument("--out", type=Path)
     args = ap.parse_args(argv)
@@ -408,7 +445,160 @@ def main(argv=None) -> int:
                   "us_per_step": ms * 1e3 / steps, "band_cells": cells,
                   "gcups": cells / (ms * 1e6), "plan": plan, **attrs,
                   "checked": check})
+
+    if "k1f" in kernels:
+        k1f_sets = [("bench512", data["bench512"][:11])]
+        if "fam19" in data:
+            k1f_sets.insert(0, ("fam19_edges", data["fam19"]["k1"][0][:11]))
+        asks = [None]
+        if here and args.k1f_plans:
+            asks += [parse_k1f_plan(t) for t in args.k1f_plans.split(",")]
+        for name, call in k1f_sets:
+            k1f_report(emit, pw, name, to(call, dev), asks, args.reps)
+    if "k4w" in kernels:
+        from importlib import import_module
+        SH = import_module("prrn_aln_tpu_torch.ops.spliced_h")
+        depths = [None]
+        if here and args.k4w_depths:
+            depths += [int(t) for t in args.k4w_depths.split(",")]
+        for name, wargs in record_walks(SH).items():
+            k4w_report(emit, SH, name, wargs, depths, args.reps)
     return 0
+
+
+def parse_k1f_plan(text: str) -> dict:
+    if text == "block":
+        return {"variant": "block"}
+    variant, _, size = text.partition(":")
+    lanes, _, warps = size.partition("x")
+    ask = {"variant": variant, "lanes": int(lanes)}
+    if warps:
+        ask["warps"] = int(warps)
+    return ask
+
+
+def k1f_report(emit, pw, name, call, asks, reps) -> None:
+    """K1f on one batch in each plan asked for, held to its plain
+    version bit for bit."""
+    a_batch, b_batch, la, lb, lw, up = call[:6]
+    lw0 = int(lw.min())
+    nlane = int(up.max()) - lw0 + 1
+    ref = pw.row_scores_ref(*call, lw0=lw0, nlane=nlane, nrow=int(la.max()))
+    cells = pw.band_cells(*(x.cpu().numpy() for x in (la, lb, lw, up)))
+    new = "nlane" in inspect.signature(pw._launch_rows).parameters
+    rows = int(la.max())
+    for ask in asks:
+        plan = None
+        extra = (lw0,)
+        if new:
+            try:
+                plan = pw.rows_plan(nlane, a_batch.shape[0],
+                                    call[6].shape[0], a_batch.shape[1],
+                                    b_batch.shape[1], **(ask or {}))
+            except ValueError as err:
+                emit({"kernel": "K1f", "shape": name, "ask": ask,
+                      "refused": str(err)})
+                continue
+            extra = (lw0, nlane, plan)
+        fn = lambda: pw._launch_rows(*call, *extra)  # noqa: E731
+        got = fn()
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+            raise AssertionError(f"K1f != plain on {name} ({plan})")
+        ms = time_ms(fn, reps)
+        dms = device_ms(fn, reps, "pairwise_rows")
+        exg_u8 = call[10].to(torch.uint8)
+        qms = queued_ms(lambda: pw._launch_rows(*call[:10], exg_u8, *extra),
+                        20)
+        attrs = pw.rows_attrs(plan) if plan else {}
+        emit({"kernel": "K1f", "shape": name, "ms": ms, "device_ms": dms,
+              "queued_ms": qms,
+              "pairs": a_batch.shape[0], "lanes": nlane, "rows": rows,
+              "us_per_row": ms * 1e3 / rows,
+              "device_us_per_row": None if dms is None else dms * 1e3 / rows,
+              "band_cells": cells, "gcups": cells / (ms * 1e6),
+              "plan": plan, **attrs, "checked": True})
+
+
+def flagship_genome() -> str:
+    """The flagship's shape: the 2.3 kb CET10B9 window at 31,400 in
+    seeded uniform random flanks to 34.9 kb (as chip_smoke.py builds
+    it)."""
+    from prrn_aln_tpu_torch import io as pio
+    rng = np.random.default_rng(0)
+    win = pio.sniff_and_read(FIX / "cet10b9_win31401.fa")[0].seq.upper()
+
+    def flank(k):
+        return "".join(np.array(list("ACGT"))[rng.integers(0, 4, k)])
+
+    return flank(31400) + win + flank(34900 - 31400 - len(win))
+
+
+def record_walks(SH) -> dict:
+    """K4w's arguments from ``aln -yl2`` runs on the card: (a), (c) and
+    the flagship's shape."""
+    from prrn_aln_tpu_torch.cli import aln_main
+    walks = {}
+    real = SH._launch_walk
+
+    def rec(*a, **kw):
+        walks[name] = a
+        return real(*a, **kw)
+
+    SH._launch_walk = rec
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            fa = Path(tmp) / "flagship_shape.fa"
+            g = flagship_genome()
+            fa.write_text(">flagship_shape\n" + "\n".join(
+                g[i:i + 60] for i in range(0, len(g), 60)) + "\n")
+            for name, genome, query in (
+                    ("mini", FIX / "mini_gen.fa", FIX / "mini_pro.fa"),
+                    ("win_msa", FIX / "cet10b9_win31401.fa",
+                     FIX / "ce13a.msa"),
+                    ("flagship_shape", fa, FIX / "ce13a.msa")):
+                rc = aln_main(["-yl2", str(genome), str(query), "-o",
+                               str(Path(tmp) / "out.txt"), "--device",
+                               "cuda"])
+                if rc != 0:
+                    raise AssertionError(f"aln_main returned {rc} on {name}")
+    finally:
+        SH._launch_walk = real
+    return walks
+
+
+def k4w_report(emit, SH, name, wargs, depths, reps) -> None:
+    """K4w on one recorded walk at each ring depth asked for, held to the
+    plain walk: the same knots, stop cell and steps."""
+    ref = SH.walk_h_ref(*wargs)
+    ev = wargs[0]
+    for depth in depths:
+        plan = None
+        extra = ()
+        if hasattr(SH, "walk_plan"):
+            plan = SH.walk_plan(*ev.shape, depth=depth)
+            extra = (plan,)
+        elif depth is not None:
+            continue
+        fn = lambda: SH._launch_walk(*wargs, *extra)  # noqa: E731
+        if fn() != ref:
+            raise AssertionError(f"K4w != plain on {name} ({plan})")
+        reads = dict(getattr(SH, "WALK_READS", {}))
+        ms = time_ms(fn, reps)
+        dms = device_ms(fn, reps, "walk")
+        qms = (queued_ms(lambda: SH._enqueue_walk(*wargs, *extra), 20)
+               if hasattr(SH, "_enqueue_walk") else None)
+        steps = max(ref.steps, 1)
+        attrs = (SH.spliced_h_walk_attrs()
+                 if hasattr(SH, "spliced_h_walk_attrs") else {})
+        emit({"kernel": "K4w", "shape": name, "ms": ms, "device_ms": dms,
+              "queued_ms": qms,
+              "waves": ev.shape[0], "rows": ev.shape[1],
+              "walk_steps": ref.steps, "knots": len(ref.knots),
+              "us_per_step": ms * 1e3 / steps,
+              "device_us_per_step": None if dms is None else
+              dms * 1e3 / steps, "reads": reads, "plan": plan, **attrs,
+              "checked": True})
 
 
 if __name__ == "__main__":
