@@ -72,13 +72,28 @@ Phases (each raises on failure, so the script exits non-zero):
    both kernels launched;
 11. the flagship's shape, timing only: a 34.9 kb genome (the window at
    31,400 in seeded random flanks) x ce13a.msa, with K4's and K4w's
-   plans as in 9.
+   plans as in 9;
+12. long pairs (``long_pair``): a 20 kb random DNA sequence and a mutant
+   (3 % substitutions, two short indels) at the default window, 24,064
+   slots (K2's wide variant).  (a) K2 resumed from carries against its
+   plain version, bit for bit (planes, score, output carry), on the
+   chunk at step 0 and two later chunks of 256 steps (one at an odd
+   step), each from the kernel's own carry; the same on a 1,000 x 1,040
+   protein pair of 3 members a side, ls=1 and ls=3, in the shared and
+   the global variants; K3's range walk in both variants against its
+   plain version on every one of those chunks.  (b) ``group_align`` and
+   ``group_align_linear`` (chunks of 2,048 steps) on the pair: equal
+   score bits and SKL, each one's wall, K2's variant, microseconds a
+   step and registers, and peak device memory (the linear aligner's
+   under a fifth of the standard's).  (c) ``seeded_align`` on the pair
+   against (b)'s standard result (score within rel 1e-5 / abs 1e-2,
+   the same SKL), its anchors, sub-DP batch and wall.
 
 Prints one JSON line per phase, then the card line, the kernels line
-(launches from the cold runs of phases 4 and 10 and, for K1f, from the
-run under the switch in phase 6; times at the main paths' shapes,
-bounds from the same inputs) and, last, ``{"ok": true, "device":
-{...}}``.
+(launches from the cold runs of phases 4 and 10, for K1f from the run
+under the switch in phase 6, for K3's range walk from the linear
+aligner's run in phase 12; times at the main paths' shapes, bounds from
+the same inputs) and, last, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -100,11 +115,11 @@ import torch
 
 from prrn_aln_tpu_torch import alphabet as ab, io as pio, pipeline, scoring
 from prrn_aln_tpu_torch.cli import aln_main, prrn_main
-from prrn_aln_tpu_torch.config import AlnParams
+from prrn_aln_tpu_torch.config import AlnParams, default_params
 from prrn_aln_tpu_torch.msa import distance, kmer, progressive, slforest, tree
 from prrn_aln_tpu_torch.msa.msa import Msa, msa_from_strings
 from prrn_aln_tpu_torch.ops import _build, group as G, pairwise
-from prrn_aln_tpu_torch.ops import spliced_h as SH
+from prrn_aln_tpu_torch.ops import seeded, spliced_h as SH
 from prrn_aln_tpu_torch.ops.window import stripe
 
 ROOT = Path(__file__).resolve().parent
@@ -115,6 +130,12 @@ MEM_BPS = 3.35e12
 F32_OPS = 67e12
 # and the float64 rate outside the tensor cores
 F64_OPS = 34e12
+# phase 12's shapes: the DNA pair's length, the steps its carried chunks
+# start at, the linear aligner's chunk; the protein pair's lengths and
+# chunk starts
+LONG_PAIR = {"dna_nt": 20000, "dna_starts": (0, 10001, 20480),
+             "chunk": 2048, "prot": (1000, 1040),
+             "prot_starts": (0, 777, 1536)}
 # gene-prediction inputs: genome, query
 ALN_CASES = {"mini": ("mini_gen.fa", "mini_pro.fa"),
              "win_single": ("cet10b9_win31401.fa", "ce13a1_unaligned.fa"),
@@ -457,8 +478,8 @@ def phase_k2k3(dev) -> None:
                  for (A, B), w in zip(pairs, wd)]
         ins = G.stack_inputs(items, dev)
         kw = dict(nslot=nslot, nsteps=nsteps, ls3=ls3)
-        sk, dk, ok = G.group_wavefront(ins, **kw)
-        sr, dr, orf = G.group_wavefront_ref(ins, **kw)
+        sk, dk, ok, _ = G.group_wavefront(ins, **kw)
+        sr, dr, orf, _ = G.group_wavefront_ref(ins, **kw)
         torch.cuda.synchronize()
         if not (torch.equal(dk, dr) and torch.equal(ok, orf)):
             raise AssertionError(f"K2 planes != plain on {name}")
@@ -590,8 +611,8 @@ def phase_main_shapes() -> tuple[dict, dict, dict]:
             raise AssertionError("K1 != plain on the main path's call")
         k1_err = max(k1_err, float((out - ref).abs().max()))
     k2_err = 0.0
-    for (ins,), kw, (score, dirs, opens) in calls["group_wavefront"]:
-        sr, dr, orf = G.group_wavefront_ref(ins, **kw)
+    for (ins,), kw, (score, dirs, opens, _) in calls["group_wavefront"]:
+        sr, dr, orf, _ = G.group_wavefront_ref(ins, **kw)
         torch.cuda.synchronize()
         if not (torch.equal(dirs, dr) and torch.equal(opens, orf)):
             raise AssertionError("K2 planes != plain on a main-path call")
@@ -628,7 +649,7 @@ def phase_main_shapes() -> tuple[dict, dict, dict]:
 
     k = max(range(len(calls["group_wavefront"])),
             key=lambda i: work(calls["group_wavefront"][i]))
-    (ins,), kw, (_, dirs, _) = calls["group_wavefront"][k]
+    (ins,), kw, (_, dirs, _, _) = calls["group_wavefront"][k]
     ms = time_ms(lambda: G.group_wavefront(ins, **kw), 7)
     k2 = {"max_abs_err": k2_err, "ms": ms,
           "plain_ms": time_once_ms(lambda: G.group_wavefront_ref(ins, **kw)),
@@ -859,8 +880,8 @@ def phase_fam19_k2(widest) -> dict:
     """K2 on the call of fam19's forest run with the most real member
     pairs (its last refinement): bit for bit against the plain version,
     and timed."""
-    real, ins, kw, (score, dirs, opens) = widest
-    sr, dr, orf = G.group_wavefront_ref(ins, **kw)
+    real, ins, kw, (score, dirs, opens, _) = widest
+    sr, dr, orf, _ = G.group_wavefront_ref(ins, **kw)
     torch.cuda.synchronize()
     if not (torch.equal(dirs, dr) and torch.equal(opens, orf)
             and torch.equal(score, sr)):
@@ -1240,6 +1261,311 @@ def phase_flagship() -> None:
           "exons": exons})
 
 
+def mutate(rng, base, sub=0.03, indels=2):
+    """tests/test_seeded.py's mutant: substitutions and short indels."""
+    mut = list(base)
+    for _ in range(indels):
+        p = int(rng.integers(200, len(mut) - 200))
+        if rng.random() < 0.5:
+            del mut[p:p + int(rng.integers(1, 4))]
+        else:
+            mut[p:p] = list(rng.integers(0, 4, int(rng.integers(1, 4))))
+    mut = np.array(mut)
+    m = rng.random(len(mut)) < sub
+    mut[m] = rng.integers(0, 4, int(m.sum()))
+    return mut
+
+
+def chunk_cells(ins: dict, d0: int, n: int) -> int:
+    """Band cells K2 computes in steps d0 to d0 + n - 1 (pair 0)."""
+    la, lb, lw, up = (int(ins[k][0]) for k in ("la", "lb", "lw", "up"))
+    d = np.arange(max(d0, 1), d0 + n)[:, None]
+    r = np.arange(lw, up + 1)[None, :]
+    m = (d - r) // 2
+    ok = ((d - r) % 2 == 0) & (m >= 0) & (m <= la) & (d - m >= 0) & (
+        d - m <= lb)
+    return int(ok.sum())
+
+
+def k2_chunk_bound(ins: dict, d0: int, n: int, nslot: int) -> dict:
+    """K2's bound on a chunk: its inputs and carries read and written
+    once, its planes written once; per cell the profile product and six
+    crg sums over the real member pairs (f64) and the lane update."""
+    plan = G.wavefront_plan(ins, nslot=nslot)
+    C = ins["CA"].shape[2]
+    cells = chunk_cells(ins, d0, n)
+    rows = 5 * plan["an_max"] + 5 * plan["bn_max"]
+    carry = 2 * nslot * 21 + 2 * 4 * rows * (nslot + 2)
+    nbytes = tensor_bytes(*ins.values()) + carry + 2 * n * nslot + 4
+    return bound(nbytes, 9 * cells,
+                 cells * (2 * C + 12 * plan["real_pairs"][0]))
+
+
+def range_starts(ins: dict, d0: int, n: int):
+    """Starts of the range walk on a chunk's top row: the cell on the end
+    diagonal lb - la where the band holds it (pair 0), lane 0."""
+    la, lb = int(ins["la"][0]), int(ins["lb"][0])
+    top = d0 + n - 1
+    m0 = max(min((top - (lb - la)) // 2, la), 0)
+    return m0, top - m0
+
+
+def chunk_check(name: str, ins: dict, nslot: int, ls3: bool,
+                variant, starts) -> dict:
+    """K2 from its own carry at each start against the plain version
+    from the same carry (planes, score, output carry), and K3's range
+    walk in both variants on each chunk's planes; returns the timings of
+    the last chunk."""
+    dev = ins["CA"].device
+    carry, at, out = None, 0, {}
+    kw = dict(nslot=nslot, ls3=ls3, variant=variant)
+    for d0 in starts:
+        if d0 > at:
+            carry = G.group_wavefront(ins, nsteps=d0 - at, d0=at,
+                                      carry=carry, **kw)[3]
+            at = d0
+        got = G.group_wavefront(ins, nsteps=256, d0=d0, carry=carry, **kw)
+        ref = []
+        plain_ms = time_once_ms(lambda: ref.append(G.group_wavefront_ref(
+            ins, nslot=nslot, ls3=ls3, nsteps=256, d0=d0, carry=carry)))
+        ref = ref[0]
+        if not (torch.equal(got[0].view(torch.int32),
+                            ref[0].view(torch.int32))
+                and torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+                and G.carry_equal(got[3], ref[3])):
+            raise AssertionError(f"K2 != plain on {name} at step {d0}")
+        m0, n0 = range_starts(ins, d0, 256)
+        wargs = [torch.tensor([x], dtype=torch.int32, device=dev)
+                 for x in (m0, n0, 0, d0)] + [ins["lw"]]
+        want = G.traceback_range_ref(got[1], got[2], *wargs, max_iters=520)
+        for k3 in ("staged", "global"):
+            plan = G.traceback_plan(256, nslot, 520, variant=k3)
+            walk = G.traceback_range(got[1], got[2], *wargs, max_iters=520,
+                                     plan=plan)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(walk, want)):
+                raise AssertionError(f"K3 range walk ({k3}) != plain on "
+                                     f"{name} at step {d0}")
+        out = {"d0": d0, "steps": 256, "ms": time_ms(
+            lambda: G.group_wavefront(ins, nsteps=256, d0=d0, carry=carry,
+                                      **kw), 3),
+            "plain_ms": plain_ms, **k2_chunk_bound(ins, d0, 256, nslot)}
+    plan = G.wavefront_plan(ins, nslot=nslot, ls3=ls3, variant=variant)
+    emit({"phase": f"long_pair_chunks_{name}", "starts": list(starts),
+          "nslot": nslot, "variant": plan["variant"], "ls3": ls3,
+          "planes_equal": True, "scores_equal": True, "carries_equal": True,
+          "range_walks_equal": True, "last_chunk": out,
+          **G.group_wavefront_attrs(ls3, plan["variant"])})
+    return out
+
+
+@contextlib.contextmanager
+def long_probe(k2_d0=None):
+    """CUDA events around K2's and K3's range walk calls, with the
+    arguments of the first K2 call at step ``k2_d0`` and those of the
+    first range walk there but its planes (none is kept, so the probe
+    leaves the peak memory as it was); each K2 call's pairs, slots and
+    steps."""
+    rec = {"events": collections.defaultdict(list), "walk": None,
+           "k2": None, "k2_calls": []}
+
+    def evented(name, fn):
+        def call(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            rec["events"][name].append((start, end))
+            if name == "group_wavefront":
+                ins = args[0]
+                rec["k2_calls"].append((ins["CA"].shape[0], kwargs["nslot"],
+                                        kwargs["nsteps"]))
+                if rec["k2"] is None and kwargs.get("d0") == k2_d0:
+                    rec["k2"] = (ins, kwargs)
+            elif rec["walk"] is None and int(args[5][0]) == k2_d0:
+                rec["walk"] = (args[2:], kwargs, out)
+            return out
+        return call
+
+    saved = (G.group_wavefront, G.traceback_range)
+    G.group_wavefront = evented("group_wavefront", saved[0])
+    G.traceback_range = evented("traceback_range", saved[1])
+    try:
+        yield rec
+    finally:
+        G.group_wavefront, G.traceback_range = saved
+
+
+def measured(fn):
+    """One run on the card: its result, wall seconds, launches and peak
+    device memory (bytes allocated)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0, dict(_build.LAUNCHES),
+            torch.cuda.max_memory_allocated())
+
+
+def phase_long_pair(dev) -> dict:
+    """Phase 12; returns the kernels line's K2 sub-entry and the range
+    walk's entry."""
+    dna, _ = scoring.build_matrix(ab.DNA, default_params(ab.DNA, "prrn"))
+
+    def dna_msa(arr):
+        m = Msa(codes=ab.encode("".join("ACGT"[c] for c in arr),
+                                ab.DNA)[None, :], molc=ab.DNA, names=["g"])
+        m.prepare(dna.shape[0])
+        return m
+
+    rng = np.random.default_rng(0)
+    base = rng.integers(0, 4, LONG_PAIR["dna_nt"])
+    A, B = dna_msa(base), dna_msa(mutate(rng, base))
+    La, Lb = A.length, B.length
+    w = stripe(La, Lb, -60)
+    nslot = G._bucket(w.up - w.lw + 3, 128)
+    ins = G.stack_inputs([G._pack_inputs(
+        A, B, dna, 2.0, 9.0, w, 1, 1, G._bucket(La), G._bucket(Lb),
+        uniform=False)], dev)
+    if G.wavefront_plan(ins, nslot=nslot)["variant"] != "wide":
+        raise AssertionError("the 20 kb pair did not take K2's wide variant")
+    # (a) carried chunks, kernel against plain version
+    wide_chunk = chunk_check("dna20k", ins, nslot, False, None,
+                             LONG_PAIR["dna_starts"])
+    prot, _ = scoring.protein_matrix(AlnParams(pam=150))
+    prng = np.random.default_rng(1)
+
+    def prot_msa(many, L):
+        codes = (prng.integers(0, 20, size=(many, L)) + ab.ALA).astype(np.int8)
+        codes[prng.random((many, L)) < 0.08] = ab.GAP
+        codes[:, 0] = ab.ALA + prng.integers(0, 20)
+        m = Msa(codes=codes, molc=ab.PROTEIN,
+                names=[f"s{i}" for i in range(many)],
+                weight=prng.random(many) + 0.5)
+        m.prepare(prot.shape[0])
+        return m
+
+    PA, PB = (prot_msa(3, L) for L in LONG_PAIR["prot"])
+    pw = stripe(PA.length, PB.length, -60)
+    pslot = G._bucket(pw.up - pw.lw + 3, 128)
+    for ls in (1, 3):
+        pins = G.stack_inputs([G._pack_inputs(
+            PA, PB, prot, 2.0, 9.0, pw, 3, 3, G._bucket(PA.length),
+            G._bucket(PB.length), spb=20.0, ls=ls, uniform=False)], dev)
+        for variant in ("shared", "global"):
+            chunk_check(f"prot1000_ls{ls}_{variant}", pins, pslot, ls == 3,
+                        variant, LONG_PAIR["prot_starts"])
+        del pins
+
+    # (b) the standard and the linear-space aligner on the pair
+    chunk = LONG_PAIR["chunk"]
+    # the forward pass's middle chunk, timed at the end
+    mid = (G._bucket(La + Lb + 1, G.K2_DSTEP) // chunk) // 2 * chunk
+    with long_probe() as probe:
+        (std, std_wall, std_launch, std_peak) = measured(
+            lambda: G.group_align(A, B, dna, 2.0, 9.0, device=dev))
+        std_k2 = sum(a.elapsed_time(b)
+                     for a, b in probe["events"]["group_wavefront"])
+    with long_probe(mid) as probe:
+        (lin, lin_wall, lin_launch, lin_peak) = measured(
+            lambda: G.group_align_linear(A, B, dna, 2.0, 9.0, chunk=chunk,
+                                         device=dev))
+        lin_k2 = sum(a.elapsed_time(b)
+                     for a, b in probe["events"]["group_wavefront"])
+        lin_walk = sum(a.elapsed_time(b)
+                       for a, b in probe["events"]["traceback_range"])
+        k2_calls = len(probe["events"]["group_wavefront"])
+    for k in ("group_wavefront", "traceback_range"):
+        if lin_launch.get(k, 0) <= 0:
+            raise AssertionError(f"the linear aligner never launched {k}")
+    if np.float32(std[0]).view(np.int32) != np.float32(lin[0]).view(np.int32):
+        raise AssertionError(f"linear score {lin[0]} != standard {std[0]}")
+    if std[1] != lin[1]:
+        raise AssertionError("linear SKL != standard SKL on the 20 kb pair")
+    if not 5 * lin_peak < std_peak:
+        raise AssertionError(f"linear peak {lin_peak} bytes is not under a "
+                             f"fifth of the standard's {std_peak}")
+    std_steps = G._bucket(La + Lb + 1)
+    lin_steps = k2_calls * chunk
+    regs = G.group_wavefront_attrs(False, "wide")
+    emit({"phase": "long_pair_align", "la": La, "lb": Lb, "nslot": nslot,
+          "score": std[0], "scores_equal": True, "skls_equal": True,
+          "skl_vertices": len(std[1]), "k2_variant": "wide", **regs,
+          "standard": {"wall_s": std_wall, "peak_bytes": std_peak,
+                       "launches": std_launch, "k2_ms": std_k2,
+                       "steps": std_steps,
+                       "us_per_step": std_k2 * 1e3 / std_steps},
+          "linear": {"wall_s": lin_wall, "peak_bytes": lin_peak,
+                     "launches": lin_launch, "k2_ms": lin_k2,
+                     "k2_calls": k2_calls, "steps": lin_steps,
+                     "us_per_step": lin_k2 * 1e3 / lin_steps,
+                     "range_walk_ms": lin_walk},
+          "peak_ratio": lin_peak / std_peak})
+
+    # K2 and the range walk at the linear aligner's shapes: its forward
+    # pass's middle chunk, and the walk of that chunk's recomputed planes
+    k2ins, k2kw = probe["k2"]
+    planes = G.group_wavefront(k2ins, **k2kw)[1:3]
+    starts, kwargs, (m, n, lane, moves, cnt) = probe["walk"]
+    args = (*planes, *starts)
+    want = G.traceback_range_ref(*args, **kwargs)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(
+            (m, n, lane, moves, cnt), want)):
+        raise AssertionError("K3 range walk != plain on the linear run")
+    walk = {"max_abs_err": 0.0,
+            "ms": time_ms(lambda: G.traceback_range(*args, **kwargs), 7),
+            "device_ms": queued_ms(lambda: G.traceback_range(*args, **kwargs),
+                                   20),
+            "plain_ms": time_ms(lambda: G.traceback_range_ref(*args,
+                                                              **kwargs), 3),
+            # a move reads one dirs and one opens byte and writes one move
+            **bound(3 * int(cnt.sum()) + 4 * 9, 0),
+            "moves": int(cnt.sum()), "nslot": args[0].shape[2],
+            "chunk_steps": args[0].shape[1],
+            "variant": G.traceback_plan(args[0].shape[1], args[0].shape[2],
+                                        kwargs["max_iters"])["variant"]}
+    del probe, args, planes, moves
+    chunk_ms = time_ms(lambda: G.group_wavefront(k2ins, **k2kw), 3)
+
+    # (c) the seeded aligner against the standard result
+    a_codes, b_codes = (x.codes[0].astype(np.int64) for x in (A, B))
+    anchors = [h for h in seeded.chain_hsps(seeded.find_hsps(a_codes,
+                                                             b_codes, k=12))
+               if h.length >= 32 + 2 * 12]
+    with long_probe() as sprobe:
+        (sd, sd_wall, sd_launch, sd_peak) = measured(
+            lambda: seeded.seeded_align(A, B, dna, 2.0, 9.0, device=dev))
+        batches = list(sprobe["k2_calls"])
+    for k in ("group_wavefront", "traceback"):
+        if sd_launch.get(k, 0) <= 0:
+            raise AssertionError(f"the seeded aligner never launched {k}")
+    if abs(sd[0] - std[0]) > max(1e-2, 1e-5 * abs(std[0])):
+        raise AssertionError(f"seeded score {sd[0]} != standard {std[0]}")
+    if sd[1] != std[1]:
+        raise AssertionError("seeded SKL != standard SKL on the 20 kb pair")
+    emit({"phase": "long_pair_seeded", "score": sd[0],
+          "standard_score": std[0], "skls_equal": True,
+          "anchors": len(anchors),
+          "anchored_nt": sum(h.length - 24 for h in anchors),
+          "sub_dp_batches": [{"pairs": b, "nslot": s, "nsteps": t}
+                             for b, s, t in batches],
+          "wall_s": sd_wall, "peak_bytes": sd_peak, "launches": sd_launch})
+    k2_long = {"launches": lin_launch["group_wavefront"], "variant": "wide",
+               "chunk_ms": chunk_ms, "chunk_steps": chunk, "chunk_d0": mid,
+               "us_per_step": chunk_ms * 1e3 / chunk, **wide_chunk,
+               "max_abs_err": 0.0, "standard_k2_ms": std_k2,
+               "linear_k2_ms": lin_k2}
+    walk_entry = {"name": "traceback_range", "route": "cuda",
+                  "source": "prrn_aln_tpu_torch/csrc/traceback.cu",
+                  "replaces": "prrn_aln_tpu/ops/group.py:678",
+                  "launches": lin_launch["traceback_range"], **walk}
+    return k2_long, walk_entry
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1268,6 +1594,7 @@ def main() -> int:
     aln_runs = phase_aln()
     k4, k4w = phase_k4()["win_msa"]
     phase_flagship()
+    k2_long, walk_entry = phase_long_pair(dev)
 
     launches = runs["cold"]["launches"]
     aln_launches = aln_runs[("win_msa", "cold")]
@@ -1288,13 +1615,15 @@ def main() -> int:
          "replaces": "prrn_aln_tpu/ops/pallas_group.py:102",
          "launches": launches["group_wavefront"], **k2,
          "fam19": {"launches": forest_runs["cold"]["group_wavefront"],
-                   **k2_fam19}},
+                   **k2_fam19},
+         "long_pair": k2_long},
         {"name": "traceback", "route": "cuda",
          "source": "prrn_aln_tpu_torch/csrc/traceback.cu",
          "replaces": "prrn_aln_tpu/ops/group.py:595",
          "launches": launches["traceback"], **k3,
          "fam19": {"launches": forest_runs["cold"]["traceback"],
                    "sum_ms": forest_runs["cold_k3_ms"]}},
+        walk_entry,
         {"name": "spliced_h_wave", "route": "cuda",
          "source": "prrn_aln_tpu_torch/csrc/spliced_h_wave.cu",
          "replaces": "prrn_aln_tpu/ops/pallas_spliced_h.py:201",

@@ -20,12 +20,28 @@
 //   A dropped member's terms are exact zeros, so the sums are unchanged.
 // - The per-member gap-run lengths of the lanes GH, GG, GF (and GG2, GF2
 //   with ls3) live in dynamic shared memory as int16 beside the lane
-//   values (H, G, F, G2, F2, Hdir): one contiguous per-pair state block.
-//   Each run row has a zero slot at both ends, so the neighbours of the
-//   edge slots read 0 without a branch.  Where that does not fit in a
-//   block's 227 KB, or a run could pass int16, the wrapper picks the
-//   second instantiation, which keeps the runs in a global int32 scratch
-//   of the same layout.
+//   values (H, G, F, G2, F2, Hdir): one contiguous per-pair state block
+//   (the "shared" variant).  Each run row has a zero slot at both ends,
+//   so the neighbours of the edge slots read 0 without a branch.  Where
+//   that does not fit in a block's 227 KB, or a run could pass int16, the
+//   wrapper picks the "global" variant, which keeps the runs as int32 in
+//   device memory (in the output carry itself); where even the lane
+//   values and the profile-score span do not fit (a band past ~6,200
+//   slots), the "wide" variant keeps them in device memory too: the lane
+//   values and Hdir in the output carry, the span in a scratch a pair.
+//   One block a pair and one __syncthreads() a step still suffice: the
+//   barrier orders the block's device-memory writes before its reads as
+//   it does its shared ones.  The state of 24,000 slots (~1.1 MB with one
+//   member a side) stays in L2.
+// - A launch resumes from a carry (the state after an earlier launch's
+//   last step, or the DP corner) at step d0, and leaves its own final
+//   state in the output carry: the lane values and Hdir over the slots,
+//   and the runs as int32 rows laid out as in the state block.  Row i of
+//   the planes holds step d0 + i; the live-slot parity, the look-ahead of
+//   the profile scores and the boundary tests all take d0 + i.  A run row
+//   belongs to member i of A at lane * an_max + i, to member j of B at
+//   lanes * an_max + lane * bn_max + j; rows past a pair's real members
+//   are copied from the input carry to the output untouched.
 // - The member factors come pre-weighted from the wrapper, as doubles
 //   (x = wa[i] * XA[m, i] and y = wb[j] * YB[n, j], f32 products made
 //   exact in f64), and the channel stacks as doubles, all through the
@@ -48,17 +64,20 @@
 // takes ~5 us, of which cutting the profile scores saves 1.6 and cutting
 // all three loops leaves 1.2 (barrier, lane update, plane stores).  Shared
 // memory bounds the members the shared variant holds: with nslot 768 and
-// three lanes about 70 on the two sides together.  -Xptxas -v (sm_90a,
-// CUDA 12.8): 112, 126, 128 and 128 registers for <ls3, shared> = <0, 0>,
-// <0, 1>, <1, 0>, <1, 1>, no spills, one barrier.
+// three lanes about 70 on the two sides together.  The wide variant on a
+// 20 kb DNA pair (24,064 slots, one member a side) takes 76.6 us a step
+// on its one SM (chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W): ~23 live
+// slots a thread, and by a reckoning about half of the step is the SM's
+// f64/f32 conversions of the profile and crg sums (16 a clock).  Registers (sm_90a, CUDA 12.8, attrs): 128 for the
+// global, shared and wide variants; with ls3 125, 96 and 128 (8 bytes
+// spilled); one barrier.
 //
 // Sums of products (the crg sums and the profile score) run in one fixed
 // order, each term added like a fused multiply-add: the product in f64
 // (exact for f32 factors) is added to the f32 sum in f64 and the result
 // rounded to f32.  The gap costs added to lane values are fused the same
 // way where the JAX reference's are on the CPU; the plain version
-// computes every one of these identically.  The resumable carries of the
-// TPU kernel (st0, gl0, the d0 offset) are not ported.
+// computes every one of these identically.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,6 +95,8 @@ constexpr int GH = 0, GG = 1, GF = 2, GG2 = 3, GF2 = 4;
 constexpr int kMaxThreads = 512;
 // shared memory a block can take on the H100
 constexpr int kSmemMax = 232448;
+// where the state block lives (ops/group.py::wavefront_variant)
+constexpr int V_GLOBAL = 0, V_SHARED = 1, V_WIDE = 2;
 // components of the member factors: w * na, w * gd, w * pg, and na
 // itself (the gap flag); each a row of the column index, row fastest
 constexpr int FNA = 0, FGD = 1, FPG = 2, FMASK = 3, NCOMP = 4;
@@ -93,8 +114,16 @@ struct Args {
   const float* fprm;     // (B, 4): u, gop_scale, v2divv1, u2divu1
   float* score;
   int8_t *dirs, *opens;
-  int32_t* gl;           // global variant: (B, runs words of an_max, bn_max)
-  int C, an, bn, an_max, bn_max, la_max, lb_max, nslot, nsteps;
+  // the input carry (null: the DP corner) and the output carry: lane
+  // values (B, 5, nslot), Hdir (B, nslot), runs (B, run words)
+  const float* vals0;
+  const int8_t* hdir0;
+  const int32_t* runs0;
+  float* valsf;
+  int8_t* hdirf;
+  int32_t* runsf;
+  float* span;           // wide variant: (B, kSpan, (nslot + 1) / 2)
+  int C, an, bn, an_max, bn_max, la_max, lb_max, nslot, nsteps, d0;
 };
 
 // a * b + c rounded once to f32: the f64 product of f32 factors is exact
@@ -121,25 +150,30 @@ __host__ __device__ inline size_t run_words(bool ls3, int an, int bn,
 
 // bytes of dynamic shared memory: the profile scores of the next kSpan
 // steps (f32), then the state block: H, G, F, G2, F2 (f32), the int16
-// runs of the shared variant, Hdir (int8)
-__host__ __device__ inline size_t smem_bytes(bool ls3, bool shared_runs,
+// runs of the shared variant, Hdir (int8); none in the wide variant
+__host__ __device__ inline size_t smem_bytes(bool ls3, int variant,
                                              int an_max, int bn_max,
                                              int nslot) {
+  if (variant == V_WIDE) return 0;
   return (size_t)kSpan * ((nslot + 1) / 2) * sizeof(float) +
          (size_t)nslot * (5 * sizeof(float) + 1) +
-         (shared_runs ? 2 * run_words(ls3, an_max, bn_max, nslot) : 0);
+         (variant == V_SHARED ? 2 * run_words(ls3, an_max, bn_max, nslot)
+                              : 0);
 }
 
-// One pair's gap-run rows; slot k of a row is at index k + 1.
+// One pair's gap-run rows; slot k of a row is at index k + 1.  The pair
+// walks its an (bn) real members; rows are laid out for the batch's
+// an_max (bn_max).
 template <bool LS3, typename GR>
 struct Runs {
   GR* base;
-  int an, bn, stride;
+  int an, bn, arows, brows, stride;
   __device__ GR* a(int lane, int i) const {
-    return base + (size_t)(lane * an + i) * stride + 1;
+    return base + (size_t)(lane * arows + i) * stride + 1;
   }
   __device__ GR* b(int lane, int j) const {
-    return base + (size_t)(lanes_of(LS3) * an + lane * bn + j) * stride + 1;
+    return base + (size_t)(lanes_of(LS3) * arows + lane * brows + j) *
+                      stride + 1;
   }
 };
 
@@ -234,9 +268,10 @@ __device__ __forceinline__ void channel_span(const double* __restrict__ CA,
   for (int j = 0; j < kSpan; ++j) out[j * stride] = (float)s[j];
 }
 
-template <bool LS3, bool SHARED>
+template <bool LS3, int VAR>
 __global__ void __launch_bounds__(kMaxThreads)
 group_wavefront_kernel(Args args) {
+  constexpr bool SHARED = VAR == V_SHARED;
   using GR = typename std::conditional<SHARED, int16_t, int32_t>::type;
   extern __shared__ float smem[];
   const int b = blockIdx.x;
@@ -265,46 +300,68 @@ group_wavefront_kernel(Args args) {
 
   // the profile scores of the coming steps, (kSpan, npairs); then the
   // pair's state block: lane values, then (shared variant) the runs, then
-  // Hdir
+  // Hdir.  The wide variant keeps the span in its scratch and the state
+  // in the output carry; the global variant its runs there.
   const int npairs = (nslot + 1) / 2;
-  float* Sspan = smem;
-  float* Hval = Sspan + kSpan * npairs;
+  const size_t nrun = run_words(LS3, args.an_max, args.bn_max, nslot);
+  float* vf = args.valsf + (size_t)b * 5 * nslot;
+  int8_t* hf = args.hdirf + (size_t)b * nslot;
+  int32_t* rf = args.runsf + (size_t)b * nrun;
+  float* Sspan = VAR == V_WIDE ? args.span + (size_t)b * kSpan * npairs
+                               : smem;
+  float* Hval = VAR == V_WIDE ? vf : Sspan + kSpan * npairs;
   float* Gval = Hval + nslot;
   float* Fval = Gval + nslot;
   float* G2val = Fval + nslot;
   float* F2val = G2val + nslot;
-  const size_t nrun = run_words(LS3, an_b, bn_b, nslot);
   GR* runs;
   int8_t* Hdir;
   if (SHARED) {
     runs = reinterpret_cast<GR*>(F2val + nslot);
     Hdir = reinterpret_cast<int8_t*>(
-        reinterpret_cast<int16_t*>(F2val + nslot) +
-        run_words(LS3, args.an_max, args.bn_max, nslot));
+        reinterpret_cast<int16_t*>(F2val + nslot) + nrun);
   } else {
-    runs = reinterpret_cast<GR*>(
-        args.gl + (size_t)b * run_words(LS3, args.an_max, args.bn_max, nslot));
-    Hdir = reinterpret_cast<int8_t*>(F2val + nslot);
+    runs = reinterpret_cast<GR*>(rf);
+    Hdir = VAR == V_WIDE ? hf : reinterpret_cast<int8_t*>(F2val + nslot);
   }
-  const Runs<LS3, GR> R{runs, an_b, bn_b, nslot + 2};
+  const Runs<LS3, GR> R{runs, an_b, bn_b, args.an_max, args.bn_max,
+                        nslot + 2};
 
+  // the input carry, or the DP corner; int32 runs narrow to the shared
+  // variant's int16 (the wrapper picks it only where every run fits)
+  const float* v0 = args.vals0 ? args.vals0 + (size_t)b * 5 * nslot : nullptr;
   for (int k = threadIdx.x; k < nslot; k += blockDim.x) {
-    const bool corner = lw - 1 + k == 0;
-    Hval[k] = corner ? 0.0f : kNevsel;
-    Hdir[k] = corner ? D_DIAG : 0;
-    Gval[k] = Fval[k] = G2val[k] = F2val[k] = kNevsel;
+    if (v0) {
+      Hval[k] = v0[k];
+      Gval[k] = v0[nslot + k];
+      Fval[k] = v0[2 * nslot + k];
+      G2val[k] = v0[3 * nslot + k];
+      F2val[k] = v0[4 * nslot + k];
+      Hdir[k] = args.hdir0[(size_t)b * nslot + k];
+    } else {
+      const bool corner = lw - 1 + k == 0;
+      Hval[k] = corner ? 0.0f : kNevsel;
+      Hdir[k] = corner ? D_DIAG : 0;
+      Gval[k] = Fval[k] = G2val[k] = F2val[k] = kNevsel;
+    }
   }
-  for (size_t i = threadIdx.x; i < nrun; i += blockDim.x) runs[i] = 0;
+  const int32_t* r0 = args.runs0 ? args.runs0 + (size_t)b * nrun : nullptr;
+  for (size_t i = threadIdx.x; i < nrun; i += blockDim.x)
+    runs[i] = r0 ? (GR)r0[i] : (GR)0;
   __syncthreads();
 
-  for (int d = 0; d < args.nsteps; ++d) {
+  // (over the step d rather than the plane row: the loop over the row
+  // compiled to steps 5-19 % longer on tools/k2_bench.py's shapes on an
+  // NVIDIA H100 80GB HBM3 at 700 W)
+  for (int d = args.d0; d < args.d0 + args.nsteps; ++d) {
+    const int row = d - args.d0;
     // a thread computes the profile scores of its own slots for the next
     // kSpan steps and alone reads them, so this needs no barrier
-    if (d % kSpan == 0)
+    if (row % kSpan == 0)
       for (int q = threadIdx.x; q < npairs; q += blockDim.x)
         channel_span(CA, la_max, CB, lb_max, C, d, q, lw, Sspan + q, npairs);
-    int8_t* drow = dirs + (size_t)d * nslot;
-    int8_t* orow = opens + (size_t)d * nslot;
+    int8_t* drow = dirs + (size_t)row * nslot;
+    int8_t* orow = opens + (size_t)row * nslot;
     const int par = (d - lw + 1) & 1;   // slots k with (d - r) even
     for (int q = threadIdx.x; q < npairs; q += blockDim.x) {
       const int kidle = 2 * q + (1 - par);
@@ -328,7 +385,7 @@ group_wavefront_kernel(Args args) {
       const bool is_top = m == 0, is_left = n == 0;
       const int mi = min(max(m - 1, 0), la_max - 1);
       const int ni = min(max(n - 1, 0), lb_max - 1);
-      const float s_cell = Sspan[(d % kSpan) * npairs + q];
+      const float s_cell = Sspan[(row % kSpan) * npairs + q];
       const float b0_cell =
           (m >= 1 && n >= 1) ? __ldg(ea0 + mi) * __ldg(eb0 + ni) : 0.0f;
       const float pua = __ldg(cfa + mc) * __ldg(efb + nc) * neg_u;
@@ -499,65 +556,92 @@ group_wavefront_kernel(Args args) {
     __syncthreads();
   }
 
+  // the final state into the output carry (what the wide variant and the
+  // global variant's runs already hold there)
+  if (VAR != V_WIDE)
+    for (int k = threadIdx.x; k < nslot; k += blockDim.x) {
+      vf[k] = Hval[k];
+      vf[nslot + k] = Gval[k];
+      vf[2 * nslot + k] = Fval[k];
+      vf[3 * nslot + k] = G2val[k];
+      vf[4 * nslot + k] = F2val[k];
+      hf[k] = Hdir[k];
+    }
+  if (SHARED)
+    for (size_t i = threadIdx.x; i < nrun; i += blockDim.x) rf[i] = runs[i];
   if (threadIdx.x == 0) {
     const int k_end = (lb - la) - (lw - 1);
     args.score[b] = (k_end >= 0 && k_end < nslot) ? Hval[k_end] : kNevsel;
   }
 }
 
-template <bool LS3, bool SHARED>
+template <bool LS3, int VAR>
 int launch(const Args& args, int B, size_t smem, cudaStream_t stream) {
   int threads = ((args.nslot + 1) / 2 + 31) / 32 * 32;
   threads = threads < 32 ? 32 : (threads > kMaxThreads ? kMaxThreads : threads);
   cudaError_t err = cudaFuncSetAttribute(
-      group_wavefront_kernel<LS3, SHARED>,
+      group_wavefront_kernel<LS3, VAR>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  group_wavefront_kernel<LS3, SHARED><<<B, threads, smem, stream>>>(args);
+  group_wavefront_kernel<LS3, VAR><<<B, threads, smem, stream>>>(args);
   return (int)cudaGetLastError();
+}
+
+template <bool LS3>
+const void* kernel_of(int variant) {
+  return variant == V_SHARED ? (const void*)group_wavefront_kernel<LS3, V_SHARED>
+         : variant == V_WIDE ? (const void*)group_wavefront_kernel<LS3, V_WIDE>
+                             : (const void*)group_wavefront_kernel<LS3, V_GLOBAL>;
 }
 
 }  // namespace
 
-// ``shared`` picks the variant (1: int16 runs in shared memory, 0: int32
-// runs in the global scratch ``gl``); the wrapper chooses it by size
-// (ops/group.py::wavefront_plan) and a shared variant that does not fit
-// is refused.
+// ``variant`` (0 global, 1 shared, 2 wide: where the state block lives)
+// is chosen by the wrapper by size (ops/group.py::wavefront_plan); one
+// whose shared memory does not fit is refused.  vals0/hdir0/runs0 are
+// the input carry (all null: start at the DP corner), valsf/hdirf/runsf
+// the output carry; ``span`` the wide variant's scratch.
 extern "C" int group_wavefront_launch(
     const void* CA, const void* CB, const void* XA, const void* YB,
     const void* ea0, const void* eb0, const void* cfa, const void* efa, const void* cfb, const void* efb,
     const void* iprm, const void* fprm, void* score,
-    void* dirs, void* opens, void* gl, int B, int C, int an, int bn, int an_max, int bn_max,
-    int la_max, int lb_max, int nslot, int nsteps, int ls3, int shared,
-    void* stream) {
+    void* dirs, void* opens, const void* vals0, const void* hdir0,
+    const void* runs0, void* valsf, void* hdirf, void* runsf, void* span,
+    int B, int C, int an, int bn, int an_max, int bn_max,
+    int la_max, int lb_max, int nslot, int nsteps, int d0, int ls3,
+    int variant, void* stream) {
   Args args{(const double*)CA, (const double*)CB, (const double*)XA,
             (const double*)YB, (const float*)ea0, (const float*)eb0,
             (const float*)cfa,
             (const float*)efa, (const float*)cfb, (const float*)efb,
             (const int32_t*)iprm, (const float*)fprm,
             (float*)score,
-            (int8_t*)dirs, (int8_t*)opens, (int32_t*)gl,
-            C, an, bn, an_max, bn_max, la_max, lb_max, nslot, nsteps};
-  const size_t smem = smem_bytes(ls3, shared, an_max, bn_max, nslot);
+            (int8_t*)dirs, (int8_t*)opens,
+            (const float*)vals0, (const int8_t*)hdir0, (const int32_t*)runs0,
+            (float*)valsf, (int8_t*)hdirf, (int32_t*)runsf, (float*)span,
+            C, an, bn, an_max, bn_max, la_max, lb_max, nslot, nsteps, d0};
+  if (variant < V_GLOBAL || variant > V_WIDE || d0 < 0 ||
+      (variant == V_WIDE && span == nullptr) ||
+      ((vals0 == nullptr) != (runs0 == nullptr)) ||
+      ((vals0 == nullptr) != (hdir0 == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(ls3, variant, an_max, bn_max, nslot);
   if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (ls3)
-    return shared ? launch<true, true>(args, B, smem, s)
-                  : launch<true, false>(args, B, smem, s);
-  return shared ? launch<false, true>(args, B, smem, s)
-                : launch<false, false>(args, B, smem, s);
+    return variant == V_SHARED ? launch<true, V_SHARED>(args, B, smem, s)
+           : variant == V_WIDE ? launch<true, V_WIDE>(args, B, smem, s)
+                               : launch<true, V_GLOBAL>(args, B, smem, s);
+  return variant == V_SHARED ? launch<false, V_SHARED>(args, B, smem, s)
+         : variant == V_WIDE ? launch<false, V_WIDE>(args, B, smem, s)
+                             : launch<false, V_GLOBAL>(args, B, smem, s);
 }
 
 // Registers a thread and local (spilled) bytes of one instantiation.
-extern "C" int group_wavefront_attrs(int ls3, int shared, void* out) {
+extern "C" int group_wavefront_attrs(int ls3, int variant, void* out) {
   cudaFuncAttributes a;
-  cudaError_t err;
-  if (ls3)
-    err = shared ? cudaFuncGetAttributes(&a, group_wavefront_kernel<true, true>)
-                 : cudaFuncGetAttributes(&a, group_wavefront_kernel<true, false>);
-  else
-    err = shared ? cudaFuncGetAttributes(&a, group_wavefront_kernel<false, true>)
-                 : cudaFuncGetAttributes(&a, group_wavefront_kernel<false, false>);
+  const cudaError_t err = cudaFuncGetAttributes(
+      &a, ls3 ? kernel_of<true>(variant) : kernel_of<false>(variant));
   if (err != cudaSuccess) return (int)err;
   int* o = (int*)out;
   o[0] = a.numRegs;

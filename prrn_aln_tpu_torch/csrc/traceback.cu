@@ -35,7 +35,18 @@
 // The "global" variant, one thread a pair walking the planes in device
 // memory (the earlier design), serves the bands whose tiles of 8 rows do
 // not fit in shared memory (ops/group.py::traceback_plan chooses by size).
+//
+// The range walk (replaces prrn_aln_tpu/ops/group.py::
+// _traceback_device_range, the backward pass of the linear-space aligner;
+// plain version ops/group.py::traceback_range_ref) is the same machine
+// in both variants: it starts at a given (m, n, lane) on planes whose row
+// i holds step d_lo + i, stops once m + n falls below max(d_lo, 1), and
+// returns where it stopped.  The walk from the end is the range walk with
+// d_lo = 0, lane 0 and no floor.  The staged variant's first tile starts
+// at the walk's first row, m0 + n0 - d_lo, and its last ends at the
+// lowest row a step can read (row 0 where d_lo >= 1).
 
+#include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -77,39 +88,53 @@ __device__ __forceinline__ int wrap_slot(int slot, int nslot) {
   return min(max(slot, 0), nslot - 1);
 }
 
+// Where a pair's walk starts and stops.  m0, n0 per pair; lane0 and
+// d_lo per pair or null (0); the range walk (range != 0) stops below
+// m + n = max(d_lo, 1) and leaves m, n and lane in mf, nf, lanef.
+struct Walk {
+  const int32_t *m0, *n0, *lane0, *d_lo, *lw;
+  int8_t* moves;
+  int32_t *cnts, *mf, *nf, *lanef;
+  int range;
+};
+
 __global__ void traceback_global_kernel(const int8_t* __restrict__ dirs,
                                         const int8_t* __restrict__ opens,
-                                        const int32_t* __restrict__ La_,
-                                        const int32_t* __restrict__ Lb_,
-                                        const int32_t* __restrict__ lw_,
-                                        int8_t* __restrict__ moves,
-                                        int32_t* __restrict__ cnts, int B,
-                                        int nsteps, int nslot,
+                                        Walk w, int B, int nsteps, int nslot,
                                         int max_iters) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const int8_t* dp = dirs + (size_t)b * nsteps * nslot;
   const int8_t* op_ = opens + (size_t)b * nsteps * nslot;
-  int8_t* mv = moves + (size_t)b * max_iters;
+  int8_t* mv = w.moves + (size_t)b * max_iters;
   for (int i = 0; i < max_iters; ++i) mv[i] = -1;
 
-  int m = La_[b], n = Lb_[b];
-  const int off = -(lw_[b] - 1);
-  int lane = 0;               // 0=H 1=G 2=G2 3=F 4=F2
+  int m = w.m0[b], n = w.n0[b];
+  const int off = -(w.lw[b] - 1);
+  int lane = w.lane0 ? w.lane0[b] : 0;   // 0=H 1=G 2=G2 3=F 4=F2
+  const int d_lo = w.d_lo ? w.d_lo[b] : 0;
+  const int floor_d = w.range ? max(d_lo, 1) : INT_MIN;
   int cnt = 0;
-  for (int it = 0; (m > 0 || n > 0) && it < 3 * max_iters; ++it) {
+  for (int it = 0; (m > 0 || n > 0) && m + n >= floor_d && it < 3 * max_iters;
+       ++it) {
     const int d = m + n;
+    const int row = d - d_lo;
     int src = -1, op = 0;
-    if (d > 0 && d < nsteps) {
+    if (d > 0 && row >= 0 && row < nsteps) {
       const int slot = wrap_slot(off + (n - m), nslot);
-      src = dp[(size_t)d * nslot + slot];
-      op = op_[(size_t)d * nslot + slot];
+      src = dp[(size_t)row * nslot + slot];
+      op = op_[(size_t)row * nslot + slot];
     }
     const int emit = lane_step(src, op, lane, m, n);
     mv[min(cnt, max_iters - 1)] = (int8_t)emit;
     if (emit >= 0) ++cnt;
   }
-  cnts[b] = min(cnt, max_iters);
+  w.cnts[b] = min(cnt, max_iters);
+  if (w.range) {
+    w.mf[b] = m;
+    w.nf[b] = n;
+    w.lanef[b] = lane;
+  }
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -191,13 +216,9 @@ __device__ __forceinline__ Window tile_window(const int8_t* base,
 
 __global__ void __launch_bounds__(kThreads)
     traceback_staged_kernel(const int8_t* __restrict__ dirs,
-                            const int8_t* __restrict__ opens,
-                            const int32_t* __restrict__ La_,
-                            const int32_t* __restrict__ Lb_,
-                            const int32_t* __restrict__ lw_,
-                            int8_t* __restrict__ moves,
-                            int32_t* __restrict__ cnts, int nsteps,
-                            int nslot, int max_iters, int T, int cap) {
+                            const int8_t* __restrict__ opens, Walk w,
+                            int nsteps, int nslot, int max_iters, int T,
+                            int cap) {
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
   // buffers: [stage 0 dirs][stage 0 opens][stage 1 dirs][stage 1 opens]
@@ -216,14 +237,18 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) {
     const long long total = (long long)gridDim.x * nsteps * nslot;
     const long long poff = (long long)b * nsteps * nslot;
-    int m = La_[b], n = Lb_[b];
-    const int off = -(lw_[b] - 1);
-    // rows 1 .. top in tiles of T, from the top down
-    const int top = min(m + n, nsteps - 1);
-    const int ntiles = top >= 1 ? (top + T - 1) / T : 0;
+    int m = w.m0[b], n = w.n0[b];
+    const int off = -(w.lw[b] - 1);
+    const int d_lo = w.d_lo ? w.d_lo[b] : 0;
+    const int floor_d = w.range ? max(d_lo, 1) : INT_MIN;
+    // rows rmin .. top in tiles of T, from the top down: a step reads row
+    // d - d_lo of a step d >= 1
+    const int top = min(m + n - d_lo, nsteps - 1);
+    const int rmin = max(1 - d_lo, 0);
+    const int ntiles = top >= rmin ? (top - rmin + T) / T : 0;
 
     auto issue = [&](int j) {
-      const int r1 = top - j * T, r0 = max(r1 - T + 1, 1);
+      const int r1 = top - j * T, r0 = max(r1 - T + 1, rmin);
       const Window wd = tile_window(dirs, total, poff, r0, r1, nslot);
       const Window wo = tile_window(opens, total, poff, r0, r1, nslot);
       const int s = j & 1;
@@ -249,19 +274,21 @@ __global__ void __launch_bounds__(kThreads)
     int td = 0, to = 0;           // shared index 0 as a plane offset
     const int8_t* sd = bufs;
     const int8_t* so = bufs;
-    int state = 0;                // 0=H 1=G 2=G2 3=F 4=F2
+    int state = w.lane0 ? w.lane0[b] : 0;   // 0=H 1=G 2=G2 3=F 4=F2
     int cnt = 0;
     const int cap_iters = 3 * max_iters;
-    for (int it = 0; (m > 0 || n > 0) && it < cap_iters; ++it) {
+    for (int it = 0; (m > 0 || n > 0) && m + n >= floor_d && it < cap_iters;
+         ++it) {
       const int d = m + n;
-      const bool inside = d > 0 && d < nsteps;
-      if (__builtin_expect(inside && d < row_lo, 0)) {
-        while (d < row_lo) {      // cross into the next tile
+      const int row = d - d_lo;
+      const bool inside = d > 0 && row >= 0 && row < nsteps;
+      if (__builtin_expect(inside && row < row_lo, 0)) {
+        while (row < row_lo) {    // cross into the next tile
           ++cur;
           const int s = cur & 1;
           mbar_wait(&bars[s], (cur >> 1) & 1);
           const int r1 = top - cur * T;
-          row_lo = max(r1 - T + 1, 1);
+          row_lo = max(r1 - T + 1, rmin);
           wd = tile_window(dirs, total, poff, row_lo, r1, nslot);
           wo = tile_window(opens, total, poff, row_lo, r1, nslot);
           // the tile's rows whole in both windows: index shared memory
@@ -277,7 +304,7 @@ __global__ void __launch_bounds__(kThreads)
           if (issued == cur + 1 && issued < ntiles) issue(issued++);
         }
       }
-      const int i = d * nslot + wrap_slot(off + (n - m), nslot);
+      const int i = row * nslot + wrap_slot(off + (n - m), nslot);
       int src, op;
       if (__builtin_expect(whole || !inside, 1)) {
         // outside the planes the step reads byte 0 of a buffer, unused
@@ -302,10 +329,15 @@ __global__ void __launch_bounds__(kThreads)
     }
     // no copy may still be writing when the block exits
     for (int j = cur + 1; j < issued; ++j) mbar_wait(&bars[j & 1], (j >> 1) & 1);
-    cnts[b] = min(cnt, max_iters);
+    w.cnts[b] = min(cnt, max_iters);
+    if (w.range) {
+      w.mf[b] = m;
+      w.nf[b] = n;
+      w.lanef[b] = state;
+    }
   }
   __syncthreads();
-  int8_t* mv = moves + (size_t)b * max_iters;
+  int8_t* mv = w.moves + (size_t)b * max_iters;
   for (int i = threadIdx.x; i < max_iters; i += blockDim.x) mv[i] = smv[i];
 }
 
@@ -313,23 +345,29 @@ __global__ void __launch_bounds__(kThreads)
 
 // variant 0: global (one thread a pair, planes in device memory);
 // variant 1: staged (one block a pair, tiles of tile_rows full rows in two
-// buffers of width bytes a plane); smem_bytes in all
+// buffers of width bytes a plane); smem_bytes in all.  m0, n0, lw per
+// pair; lane0 and d_lo per pair or null (0); range 1: the range walk,
+// which leaves where it stopped in mf, nf, lanef.
 extern "C" int traceback_launch(const void* dirs, const void* opens,
-                                const void* La, const void* Lb,
+                                const void* m0, const void* n0,
+                                const void* lane0, const void* d_lo,
                                 const void* lw, void* moves, void* cnts,
-                                int B, int nsteps, int nslot, int max_iters,
-                                int variant, int tile_rows, int width,
-                                int smem_bytes, void* stream) {
+                                void* mf, void* nf, void* lanef, int B,
+                                int nsteps, int nslot, int max_iters,
+                                int range, int variant, int tile_rows,
+                                int width, int smem_bytes, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const int8_t *d8 = (const int8_t*)dirs, *o8 = (const int8_t*)opens;
-  const int32_t *la = (const int32_t*)La, *lb = (const int32_t*)Lb;
-  const int32_t* lw_ = (const int32_t*)lw;
-  int8_t* mv = (int8_t*)moves;
-  int32_t* cn = (int32_t*)cnts;
+  const Walk w{(const int32_t*)m0, (const int32_t*)n0,
+               (const int32_t*)lane0, (const int32_t*)d_lo,
+               (const int32_t*)lw, (int8_t*)moves, (int32_t*)cnts,
+               (int32_t*)mf, (int32_t*)nf, (int32_t*)lanef, range};
+  if (range && (mf == nullptr || nf == nullptr || lanef == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (variant == 0) {
     const int threads = 32;
     traceback_global_kernel<<<(B + threads - 1) / threads, threads, 0, st>>>(
-        d8, o8, la, lb, lw_, mv, cn, B, nsteps, nslot, max_iters);
+        d8, o8, w, B, nsteps, nslot, max_iters);
     return (int)cudaGetLastError();
   }
   if (variant != 1 || tile_rows < 1 || width < tile_rows * nslot + 32 ||
@@ -341,8 +379,7 @@ extern "C" int traceback_launch(const void* dirs, const void* opens,
       smem_bytes);
   if (err != cudaSuccess) return (int)err;
   traceback_staged_kernel<<<B, kThreads, smem_bytes, st>>>(
-      d8, o8, la, lb, lw_, mv, cn, nsteps, nslot, max_iters, tile_rows,
-      width);
+      d8, o8, w, nsteps, nslot, max_iters, tile_rows, width);
   return (int)cudaGetLastError();
 }
 

@@ -6,12 +6,15 @@ Counterpart of ``prrn_aln_tpu/ops/group.py``.  The packers
 ``_moves_to_skl``, ``_bucket``) are copied unchanged.  The plain
 versions ``wavefront_core_ref`` (of ``_wavefront_core`` with the
 ``_wavefront_from_profiles`` score image) and ``traceback_ref`` (of
-``_traceback_device``) sit beside the dispatching wrappers
+``_traceback_device``) and ``traceback_range_ref`` (of
+``_traceback_device_range``) sit beside the dispatching wrappers
 ``group_wavefront`` (CUDA kernel ``csrc/group_wavefront.cu``, which
-replaces ``ops/pallas_group.py::_kernel``) and ``traceback`` (CUDA
-kernel ``csrc/traceback.cu``).  ``group_align`` and
-``group_align_batch`` are ported without the mesh, and keep the
-corner-miss retry at sh=-100.
+replaces ``ops/pallas_group.py::_kernel``, resumable carries included)
+and ``traceback``/``traceback_range`` (CUDA kernel
+``csrc/traceback.cu``).  ``group_align`` and ``group_align_batch`` are
+ported without the mesh, and keep the corner-miss retry at sh=-100;
+``group_align_linear`` is the linear-space aligner, chunks of the
+wavefront resumed from checkpointed carries.
 
 One anti-diagonal step updates every band slot whose parity matches
 the diagonal; per-slot state carries the H/G/F lane values (plus G2/F2
@@ -29,6 +32,7 @@ rounded to f32, identically by the plain versions and the kernel.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -244,24 +248,65 @@ def _trim_members(w: torch.Tensor) -> int:
     return int(nz.max()) + 1 if nz.numel() else 1
 
 
+class Carry(NamedTuple):
+    """The wavefront's state between two steps, per pair: the lane values
+    H, G, F, G2, F2 (B, 5, nslot) f32, Hdir (B, nslot) int8 and the gap
+    runs (B, lanes * (an + bn), nslot + 2) int32 (3 lanes, 5 with ls3;
+    an, bn the batch's largest real member counts, ``member_counts``).
+    Run row ``lane * an + i`` is member i of A, ``lanes * an + lane * bn
+    + j`` member j of B, lanes in the order GH, GG, GF, GG2, GF2; slot k
+    is column k + 1, and columns 0 and nslot + 1 are 0.  Rows past a
+    pair's real members are carried through untouched."""
+    vals: torch.Tensor
+    hdir: torch.Tensor
+    runs: torch.Tensor
+
+
+def init_carry(lw, nslot: int, an: int, bn: int, ls3: bool = False,
+               device="cpu") -> Carry:
+    """The DP corner as a carry (``pallas_group.init_state``): H = 0 and
+    Hdir = D_DIAG on diagonal r = 0, every other lane value NEVSEL, every
+    run 0.  ``lw`` (B,) the pairs' lower diagonals."""
+    lw = torch.as_tensor(lw, dtype=torch.long, device=device).reshape(-1)
+    r = lw[:, None] - 1 + torch.arange(nslot, device=device)[None, :]
+    vals = torch.full((lw.numel(), 5, nslot), NEVSEL, dtype=torch.float32,
+                      device=device)
+    vals[:, 0] = torch.where(r == 0, 0.0, NEVSEL)
+    hdir = torch.where(r == 0, D_DIAG, 0).to(torch.int8)
+    runs = torch.zeros((lw.numel(), (5 if ls3 else 3) * (an + bn),
+                        nslot + 2), dtype=torch.int32, device=device)
+    return Carry(vals, hdir, runs)
+
+
+def carry_equal(a: Carry, b: Carry) -> bool:
+    """Bit for bit (lane values compared as their bits)."""
+    return (torch.equal(a.vals.view(torch.int32), b.vals.view(torch.int32))
+            and torch.equal(a.hdir, b.hdir) and torch.equal(a.runs, b.runs))
+
+
 def wavefront_core_ref(S, B0, na_a, gda, pga, na_b, gdb, pgb,
                        cfa, efa, cfb, efb, wa, wb, la, lb, lw, up,
                        u, gop_scale, v2divv1, u2divu1, k1,
-                       *, nslot: int, nsteps: int, ls3: bool = False):
+                       *, nslot: int, nsteps: int, ls3: bool = False,
+                       d0: int = 0, carry: Carry | None = None):
     """Plain PyTorch group wavefront over a batch of B pairs.
 
     S, B0 (B, la_max, lb_max) f32 score image and phase-0 intron bonus;
     na_a/gda/pga (B, la_max+1, an) and na_b/gdb/pgb (B, lb_max+1, bn)
     column arrays (row 0 = boundary); cfa/efa (B, la_max+1), cfb/efb
     (B, lb_max+1); wa (B, an), wb (B, bn); la, lb, lw, up, k1 (B,) int;
-    u, gop_scale, v2divv1, u2divu1 (B,) f32.  Returns score (B,) f32,
-    dirs and opens (B, nsteps, nslot) int8.
+    u, gop_scale, v2divv1, u2divu1 (B,) f32.  Runs steps d0 to
+    d0 + nsteps - 1 from ``carry`` (None: the DP corner).  Returns score
+    (B,) f32 (read from the final state), dirs and opens (B, nsteps,
+    nslot) int8 (row i: step d0 + i) and the final state as a ``Carry``.
     """
     dev = S.device
     f32, i32, i8 = torch.float32, torch.int32, torch.int8
     Bn, la_max, lb_max = S.shape
+    ca, cb = member_counts(wa), member_counts(wb)
     an = _trim_members(wa)
     bn = _trim_members(wb)
+    nl = 5 if ls3 else 3
     na_a, gda, pga = (x[:, :, :an] for x in (na_a, gda, pga))
     na_b, gdb, pgb = (x[:, :, :bn] for x in (na_b, gdb, pgb))
     wa, wb = wa[:, None, :an], wb[:, None, :bn]
@@ -274,14 +319,24 @@ def wavefront_core_ref(S, B0, na_a, gda, pga, na_b, gdb, pgb,
     def full(val, *shape, dtype=f32):
         return torch.full((Bn, nslot) + shape, val, dtype=dtype, device=dev)
 
-    corner = r_all == 0
-    Hval = torch.where(corner, 0.0, full(NEVSEL))
-    Hdir = torch.where(corner, D_DIAG, 0).to(i8)
-    Gval, Fval, G2val, F2val = (full(NEVSEL) for _ in range(4))
-    Hgla, Ggla, Fgla, G2gla, F2gla = (full(0, an, dtype=i32)
-                                      for _ in range(5))
-    Hglb, Gglb, Fglb, G2glb, F2glb = (full(0, bn, dtype=i32)
-                                      for _ in range(5))
+    if carry is None:
+        carry = init_carry(lw.reshape(-1), nslot, an, bn, ls3, dev)
+    want = {"vals": ((Bn, 5, nslot), f32), "hdir": ((Bn, nslot), i8),
+            "runs": ((Bn, nl * (an + bn), nslot + 2), i32)}
+    for name, (shape, dtype) in want.items():
+        t = getattr(carry, name)
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"carry.{name}: {tuple(t.shape)} {t.dtype}, "
+                             f"expected {shape} {dtype}")
+    Hval, Gval, Fval, G2val, F2val = carry.vals.to(dev).unbind(1)
+    Hdir = carry.hdir.to(dev)
+    rows = carry.runs.to(dev)[:, :, 1:nslot + 1].transpose(1, 2)
+    zeros_a, zeros_b = full(0, an, dtype=i32), full(0, bn, dtype=i32)
+    gla = [rows[:, :, ln * an:(ln + 1) * an] for ln in range(nl)]
+    glb = [rows[:, :, nl * an + ln * bn:nl * an + (ln + 1) * bn]
+           for ln in range(nl)]
+    Hgla, Ggla, Fgla, G2gla, F2gla = gla + [zeros_a] * (5 - nl)
+    Hglb, Gglb, Fglb, G2glb, F2glb = glb + [zeros_b] * (5 - nl)
     agap = na_a <= 0.0
     bgap = na_b <= 0.0
     Sflat = S.reshape(Bn, -1)
@@ -304,7 +359,8 @@ def wavefront_core_ref(S, B0, na_a, gda, pga, na_b, gdb, pgb,
     dirs_out = torch.empty((Bn, nsteps, nslot), dtype=i8, device=dev)
     opens_out = torch.empty((Bn, nsteps, nslot), dtype=i8, device=dev)
 
-    for d in range(nsteps):
+    for i in range(nsteps):
+        d = d0 + i
         m_vec = (d - r_all) >> 1
         n_vec = d - m_vec
         valid = (((d - r_all) % 2 == 0) & (m_vec >= 0) & (m_vec <= la)
@@ -513,11 +569,22 @@ def wavefront_core_ref(S, B0, na_a, gda, pga, na_b, gdb, pgb,
             F2glb = torch.where(vm3, f2_glb, F2glb)
             opens = (opens + 4 * (vm & open_v2).to(i8)
                      + 8 * (vm & open_h2).to(i8))
-        dirs_out[:, d] = torch.where(vm, h_src, -1)
-        opens_out[:, d] = opens
+        dirs_out[:, i] = torch.where(vm, h_src, -1)
+        opens_out[:, i] = opens
 
     score = torch.where(r_all == lb - la, Hval, NEVSEL).amax(1)
-    return score, dirs_out, opens_out
+    # the runs back into the carry's rows, a pair's rows past its real
+    # members as they came in
+    real = torch.cat(
+        [torch.arange(an, device=dev)[None, :] < ca[:, None]] * nl
+        + [torch.arange(bn, device=dev)[None, :] < cb[:, None]] * nl, 1)
+    runs = torch.nn.functional.pad(torch.cat(
+        [x.transpose(1, 2) for x in (Hgla, Ggla, Fgla, G2gla, F2gla)[:nl]
+         + (Hglb, Gglb, Fglb, G2glb, F2glb)[:nl]], 1), (1, 1))
+    runs = torch.where(real[:, :, None], runs, carry.runs.to(dev))
+    out = Carry(torch.stack([Hval, Gval, Fval, G2val, F2val], 1), Hdir,
+                runs.contiguous())
+    return score, dirs_out, opens_out, out
 
 
 # inputs of the group wavefront, in the order _pack_inputs builds them
@@ -544,7 +611,8 @@ def stack_inputs(items: list[dict], device) -> dict:
 
 
 def group_wavefront_ref(ins: dict, *, nslot: int, nsteps: int,
-                        ls3: bool = False):
+                        ls3: bool = False, d0: int = 0,
+                        carry: Carry | None = None):
     """Plain version of kernel K2: build S and B0, then run
     ``wavefront_core_ref``."""
     S = profile_scores_ref(ins["CA"], ins["CB"])
@@ -553,7 +621,7 @@ def group_wavefront_ref(ins: dict, *, nslot: int, nsteps: int,
         S, B0, *(ins[k] for k in _FIELDS[4:]),
         *(ins[k] for k in ("la", "lb", "lw", "up")),
         *(ins[k] for k in _FFIELDS), ins["k1"],
-        nslot=nslot, nsteps=nsteps, ls3=ls3)
+        nslot=nslot, nsteps=nsteps, ls3=ls3, d0=d0, carry=carry)
 
 
 # shared memory a block can take on the H100 (bytes)
@@ -572,34 +640,50 @@ def member_counts(w: torch.Tensor) -> torch.Tensor:
 
 
 def wavefront_variant(an_max: int, bn_max: int, nslot: int, la_max: int,
-                      lb_max: int, ls3: bool) -> tuple[str, int]:
+                      lb_max: int, ls3: bool,
+                      variant: str | None = None) -> tuple[str, int]:
     """K2's variant for a launch and its bytes of shared memory.
 
     "shared" keeps the gap runs (3 lanes, 5 with ls3, of nslot + 2 slots
     a member) as int16 in shared memory beside the lane values (21 bytes
     a slot) and the profile scores of the next ``K2_SPAN`` steps (f32, a
-    pair of slots each); "global" keeps the runs as int32 in a global
-    scratch.  Shared needs the runs to fit in int16 (a run is at most
-    la + lb long) and the block's bytes to fit in ``SMEM_MAX``.
-    ``an_max``/``bn_max`` are the largest real member counts of the batch
-    (``member_counts``).
+    pair of slots each); "global" keeps the runs as int32 in device
+    memory; "wide" keeps the lane values and the span there too, and no
+    shared memory.  Shared needs the runs to fit in int16 (a run is at
+    most la + lb long) and the block's bytes to fit in ``SMEM_MAX``,
+    global its lane values and span.  By default the first that fits of
+    shared, global, wide; a ``variant`` asked for that does not fit
+    raises.  ``an_max``/``bn_max`` are the largest real member counts of
+    the batch (``member_counts``).
     """
     vals = 21 * nslot + 4 * K2_SPAN * ((nslot + 1) // 2)
     runs = 2 * (5 if ls3 else 3) * (an_max + bn_max) * (nslot + 2)
-    if la_max + lb_max < 32767 and vals + runs <= SMEM_MAX:
-        return "shared", vals + runs
-    return "global", vals
+    fits = {"shared": la_max + lb_max < 32767 and vals + runs <= SMEM_MAX,
+            "global": vals <= SMEM_MAX, "wide": True}
+    smem = {"shared": vals + runs, "global": vals, "wide": 0}
+    if variant is None:
+        variant = next(v for v in ("shared", "global", "wide") if fits[v])
+    if variant not in fits:
+        raise ValueError(f"wavefront_variant: unknown variant {variant!r}")
+    if not fits[variant]:
+        raise ValueError(f"wavefront_variant: the {variant} variant does "
+                         f"not take {an_max} + {bn_max} members at {nslot} "
+                         f"slots ({smem[variant]} bytes of shared memory "
+                         f"of {SMEM_MAX}, lengths {la_max} + {lb_max})")
+    return variant, smem[variant]
 
 
-def wavefront_plan(ins: dict, *, nslot: int, ls3: bool = False) -> dict:
+def wavefront_plan(ins: dict, *, nslot: int, ls3: bool = False,
+                   variant: str | None = None) -> dict:
     """What K2 walks for a batch: per-pair real member counts, their
-    largest, real and padded member pairs, and the variant."""
+    largest, real and padded member pairs, and the variant (by size,
+    or the one asked for)."""
     ca, cb = member_counts(ins["wa"]), member_counts(ins["wb"])
     host = torch.stack([ca, cb]).cpu().long()
     an_max, bn_max = int(host[0].max()), int(host[1].max())
     variant, smem = wavefront_variant(an_max, bn_max, nslot,
                                       ins["CA"].shape[1], ins["CB"].shape[1],
-                                      ls3)
+                                      ls3, variant)
     return {"an_b": ca, "bn_b": cb, "an_max": an_max, "bn_max": bn_max,
             "variant": variant, "smem_bytes": smem,
             "real_pairs": (host[0] * host[1]).tolist(),
@@ -624,21 +708,30 @@ def kernel_operands(ins: dict) -> tuple:
     return XA, YB, CA, CB
 
 
+_K2_VARIANTS = {"global": 0, "shared": 1, "wide": 2}
+
+
 def group_wavefront(ins: dict, *, nslot: int, nsteps: int,
-                    ls3: bool = False):
+                    ls3: bool = False, d0: int = 0,
+                    carry: Carry | None = None, variant: str | None = None):
     """Banded group wavefront over a batch (kernel K2).
 
-    ``ins`` holds the stacked inputs of ``stack_inputs``.  Returns score
-    (B,) f32, dirs and opens (B, nsteps, nslot) int8.  CPU tensors take
-    the plain version; CUDA tensors launch the kernel on the operands of
+    ``ins`` holds the stacked inputs of ``stack_inputs``.  Runs steps d0
+    to d0 + nsteps - 1 from ``carry`` (None: the DP corner).  Returns
+    score (B,) f32, dirs and opens (B, nsteps, nslot) int8 (row i: step
+    d0 + i) and the final state (``Carry``).  CPU tensors take the plain
+    version; CUDA tensors launch the kernel on the operands of
     ``kernel_operands``, walking each pair's real members only, in the
-    variant ``wavefront_plan`` picks by size.
+    variant ``wavefront_plan`` picks by size (or ``variant``).
     """
     dev = ins["CA"].device
     if dev.type == "cpu":
-        return group_wavefront_ref(ins, nslot=nslot, nsteps=nsteps, ls3=ls3)
+        return group_wavefront_ref(ins, nslot=nslot, nsteps=nsteps, ls3=ls3,
+                                   d0=d0, carry=carry)
     if dev.type != "cuda":
         raise ValueError(f"group_wavefront: unsupported device {dev}")
+    if d0 < 0:
+        raise ValueError(f"group_wavefront: step offset {d0}")
     Bn, la_max, C = ins["CA"].shape
     lb_max = ins["CB"].shape[1]
     an = ins["wa"].shape[1]
@@ -653,7 +746,7 @@ def group_wavefront(ins: dict, *, nslot: int, nsteps: int,
               "wa": (Bn, an), "wb": (Bn, bn)}
     for k in _FIELDS:
         _build.require(ins[k], k, torch.float32, shapes[k], dev)
-    plan = wavefront_plan(ins, nslot=nslot, ls3=ls3)
+    plan = wavefront_plan(ins, nslot=nslot, ls3=ls3, variant=variant)
     iprm = torch.stack([ins[k] for k in _IFIELDS]
                        + [plan["an_b"], plan["bn_b"]], 1).contiguous()
     fprm = torch.stack([ins[k] for k in _FFIELDS], 1).contiguous()
@@ -663,10 +756,18 @@ def group_wavefront(ins: dict, *, nslot: int, nsteps: int,
     score = torch.empty(Bn, dtype=torch.float32, device=dev)
     dirs = torch.empty((Bn, nsteps, nslot), dtype=torch.int8, device=dev)
     opens = torch.empty((Bn, nsteps, nslot), dtype=torch.int8, device=dev)
-    shared = plan["variant"] == "shared"
-    words = (0 if shared else Bn * (5 if ls3 else 3)
-             * (plan["an_max"] + plan["bn_max"]) * (nslot + 2))
-    gl = torch.empty(max(words, 1), dtype=torch.int32, device=dev)
+    rows = (5 if ls3 else 3) * (plan["an_max"] + plan["bn_max"])
+    out = Carry(torch.empty((Bn, 5, nslot), dtype=torch.float32, device=dev),
+                torch.empty((Bn, nslot), dtype=torch.int8, device=dev),
+                torch.empty((Bn, rows, nslot + 2), dtype=torch.int32,
+                            device=dev))
+    if carry is not None:
+        for name, t in zip(Carry._fields, carry):
+            _build.require(t, f"carry.{name}", getattr(out, name).dtype,
+                           getattr(out, name).shape, dev)
+    wide = plan["variant"] == "wide"
+    span = torch.empty((Bn, K2_SPAN * ((nslot + 1) // 2)) if wide else 1,
+                       dtype=torch.float32, device=dev)
     lib = _build.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.group_wavefront_launch(
@@ -674,13 +775,14 @@ def group_wavefront(ins: dict, *, nslot: int, nsteps: int,
         *(ins[k].data_ptr() for k in ("ea0", "eb0", "cfa", "efa", "cfb",
                                       "efb")),
         iprm.data_ptr(), fprm.data_ptr(),
-        score.data_ptr(), dirs.data_ptr(),
-        opens.data_ptr(), gl.data_ptr(), Bn, C, an, bn, plan["an_max"],
-        plan["bn_max"], la_max, lb_max, nslot, nsteps, int(ls3), int(shared),
-        stream)
+        score.data_ptr(), dirs.data_ptr(), opens.data_ptr(),
+        *((None,) * 3 if carry is None else (t.data_ptr() for t in carry)),
+        *(t.data_ptr() for t in out), span.data_ptr(),
+        Bn, C, an, bn, plan["an_max"], plan["bn_max"], la_max, lb_max,
+        nslot, nsteps, d0, int(ls3), _K2_VARIANTS[plan["variant"]], stream)
     _build.check(err, "group_wavefront_launch")
     _build.LAUNCHES["group_wavefront"] += 1
-    return score, dirs, opens
+    return score, dirs, opens, out
 
 
 def group_wavefront_attrs(ls3: bool, variant: str) -> dict:
@@ -688,9 +790,56 @@ def group_wavefront_attrs(ls3: bool, variant: str) -> dict:
     instantiations, as the card's loader reports them."""
     out = (ctypes.c_int * 2)()
     _build.check(_build.load().group_wavefront_attrs(
-        int(ls3), int(variant == "shared"), ctypes.addressof(out)),
+        int(ls3), _K2_VARIANTS[variant], ctypes.addressof(out)),
         "group_wavefront_attrs")
     return {"registers": out[0], "local_bytes": out[1]}
+
+
+def _walk_ref(dn: np.ndarray, on: np.ndarray, m: int, n: int, lane: int,
+              d_lo: int, lw: int, floor: int | None, max_iters: int):
+    """The lane machine of ``_traceback_device`` on one pair's planes,
+    row i holding step d_lo + i, from (m, n, lane) while m + n stays at
+    or above ``floor`` (None: no floor).  Returns (m, n, lane, moves end
+    to start, count)."""
+    nsteps, nslot = dn.shape
+    moves = np.full(max_iters, -1, np.int8)
+    cnt = it = 0
+    off = -(lw - 1)
+    # lane codes: 0=H 1=G 2=G2 3=F 4=F2
+    while ((m > 0 or n > 0) and (floor is None or m + n >= floor)
+           and it < 3 * max_iters):
+        d = m + n
+        if d > 0 and 0 <= d - d_lo < nsteps:
+            # the device walk's dynamic index: negative slots wrap, then
+            # clamp
+            slot = off + n - m
+            slot = min(max(slot + nslot if slot < 0 else slot, 0), nslot - 1)
+            src, op = int(dn[d - d_lo, slot]), int(on[d - d_lo, slot])
+        else:
+            src, op = -1, 0
+        if lane == 0:
+            if src == DIAG:
+                emit, m, n = DIAG, m - 1, n - 1
+            else:
+                emit = -1
+                lane = {VERT: 1, VERT2: 2, HORI2: 4}.get(src, 3)
+        elif lane in (1, 2):
+            emit, m = VERT, m - 1
+            if op & (1 if lane == 1 else 4) or n == 0:
+                lane = 0
+        else:
+            emit, n = HORI, n - 1
+            if op & (2 if lane == 3 else 8) or m == 0:
+                lane = 0
+        moves[min(cnt, max_iters - 1)] = emit
+        cnt += emit >= 0
+        it += 1
+    return m, n, lane, moves, min(cnt, max_iters)
+
+
+def _host_ints(x, Bn: int) -> np.ndarray:
+    return np.broadcast_to(np.asarray(torch.as_tensor(x).cpu(), np.int64),
+                           (Bn,))
 
 
 def traceback_ref(dirs: torch.Tensor, opens: torch.Tensor, La, Lb, lw,
@@ -700,45 +849,36 @@ def traceback_ref(dirs: torch.Tensor, opens: torch.Tensor, La, Lb, lw,
     moves (B, max_iters) int8, recorded end to start, and counts (B,)."""
     dn = dirs.cpu().numpy()
     on = opens.cpu().numpy()
-    La, Lb, lw = (np.asarray(torch.as_tensor(x).cpu()) for x in (La, Lb, lw))
-    Bn, nsteps = dn.shape[0], dn.shape[1]
-    moves = np.full((Bn, max_iters), -1, np.int8)
-    cnts = np.zeros(Bn, np.int32)
-    for b in range(Bn):
-        m, n, lane, cnt, it = int(La[b]), int(Lb[b]), 0, 0, 0
-        off = -(int(lw[b]) - 1)
-        # lane codes: 0=H 1=G 2=G2 3=F 4=F2
-        while (m > 0 or n > 0) and it < 3 * max_iters:
-            d = m + n
-            if 0 < d < nsteps:
-                # the device walk's dynamic index: negative slots wrap,
-                # then clamp
-                slot = off + n - m
-                slot = min(max(slot + dn.shape[2] if slot < 0 else slot, 0),
-                           dn.shape[2] - 1)
-                src, op = int(dn[b, d, slot]), int(on[b, d, slot])
-            else:
-                src, op = -1, 0
-            if lane == 0:
-                if src == DIAG:
-                    emit, m, n = DIAG, m - 1, n - 1
-                else:
-                    emit = -1
-                    lane = {VERT: 1, VERT2: 2, HORI2: 4}.get(src, 3)
-            elif lane in (1, 2):
-                emit, m = VERT, m - 1
-                if op & (1 if lane == 1 else 4) or n == 0:
-                    lane = 0
-            else:
-                emit, n = HORI, n - 1
-                if op & (2 if lane == 3 else 8) or m == 0:
-                    lane = 0
-            moves[b, min(cnt, max_iters - 1)] = emit
-            cnt += emit >= 0
-            it += 1
-        cnts[b] = min(cnt, max_iters)
-    return (torch.as_tensor(moves, device=dirs.device),
-            torch.as_tensor(cnts, device=dirs.device))
+    Bn = dn.shape[0]
+    La, Lb, lw = (_host_ints(x, Bn) for x in (La, Lb, lw))
+    walks = [_walk_ref(dn[b], on[b], int(La[b]), int(Lb[b]), 0, 0,
+                       int(lw[b]), None, max_iters) for b in range(Bn)]
+    return (torch.as_tensor(np.stack([w[3] for w in walks]),
+                            device=dirs.device),
+            torch.as_tensor(np.array([w[4] for w in walks], np.int32),
+                            device=dirs.device))
+
+
+def traceback_range_ref(dirs: torch.Tensor, opens: torch.Tensor, m0, n0,
+                        lane0, d_lo, lw, *, max_iters: int):
+    """Plain version of K3's range walk (``_traceback_device_range``):
+    from (m0, n0, lane0) over planes whose row i holds step d_lo + i,
+    until the walk reaches the corner or leaves the steps from
+    max(d_lo, 1) up.  All arguments but the planes (B,) ints.  Returns
+    m, n, lane (B,) int32 where the walk stopped, moves (B, max_iters)
+    int8 end to start and counts (B,) int32."""
+    dn = dirs.cpu().numpy()
+    on = opens.cpu().numpy()
+    Bn = dn.shape[0]
+    m0, n0, lane0, d_lo, lw = (_host_ints(x, Bn)
+                               for x in (m0, n0, lane0, d_lo, lw))
+    walks = [_walk_ref(dn[b], on[b], int(m0[b]), int(n0[b]), int(lane0[b]),
+                       int(d_lo[b]), int(lw[b]), max(int(d_lo[b]), 1),
+                       max_iters) for b in range(Bn)]
+    ints = [torch.as_tensor(np.array([w[k] for w in walks], np.int32),
+                            device=dirs.device) for k in (0, 1, 2, 4)]
+    return (*ints[:3], torch.as_tensor(np.stack([w[3] for w in walks]),
+                                       device=dirs.device), ints[3])
 
 
 # K3's staged variant: a tile holds at most this many bytes of a plane
@@ -802,6 +942,40 @@ def traceback_plan(nsteps: int, nslot: int, max_iters: int, *,
 _K3_VARIANTS = {"global": 0, "staged": 1}
 
 
+def _launch_walk(dirs, opens, starts: dict, ends, *, max_iters: int,
+                 plan: dict | None, name: str):
+    """K3 on CUDA planes: ``starts`` the (B,) int32 tensors m0, n0 and,
+    for the range walk, lane0 and d_lo; ``ends`` the (B,) int32 tensors
+    the range walk leaves m, n, lane in (None for the walk from the
+    end).  Returns moves and counts."""
+    dev = dirs.device
+    Bn, nsteps, nslot = dirs.shape
+    _build.require(dirs, "dirs", torch.int8, (Bn, nsteps, nslot), dev)
+    _build.require(opens, "opens", torch.int8, (Bn, nsteps, nslot), dev)
+    for key, t in starts.items():
+        _build.require(t, key, torch.int32, (Bn,), dev)
+    if plan is None:
+        plan = traceback_plan(nsteps, nslot, max_iters)
+    moves = torch.empty((Bn, max_iters), dtype=torch.int8, device=dev)
+    cnts = torch.empty(Bn, dtype=torch.int32, device=dev)
+    if Bn == 0:
+        return moves, cnts
+    lib = _build.load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptr = lambda t: None if t is None else t.data_ptr()    # noqa: E731
+    err = lib.traceback_launch(
+        dirs.data_ptr(), opens.data_ptr(),
+        *(ptr(starts.get(k)) for k in ("m0", "n0", "lane0", "d_lo", "lw")),
+        moves.data_ptr(), cnts.data_ptr(),
+        *((None,) * 3 if ends is None else (t.data_ptr() for t in ends)),
+        Bn, nsteps, nslot, max_iters, int(ends is not None),
+        _K3_VARIANTS[plan["variant"]], plan["tile_rows"], plan["width"],
+        plan["smem_bytes"], stream)
+    _build.check(err, "traceback_launch")
+    _build.LAUNCHES[name] += 1
+    return moves, cnts
+
+
 def traceback(dirs: torch.Tensor, opens: torch.Tensor, La: torch.Tensor,
               Lb: torch.Tensor, lw: torch.Tensor, *, max_iters: int,
               plan: dict | None = None):
@@ -817,27 +991,32 @@ def traceback(dirs: torch.Tensor, opens: torch.Tensor, La: torch.Tensor,
         return traceback_ref(dirs, opens, La, Lb, lw, max_iters=max_iters)
     if dev.type != "cuda":
         raise ValueError(f"traceback: unsupported device {dev}")
-    Bn, nsteps, nslot = dirs.shape
-    _build.require(dirs, "dirs", torch.int8, (Bn, nsteps, nslot), dev)
-    _build.require(opens, "opens", torch.int8, (Bn, nsteps, nslot), dev)
-    for t, name in ((La, "La"), (Lb, "Lb"), (lw, "lw")):
-        _build.require(t, name, torch.int32, (Bn,), dev)
-    if plan is None:
-        plan = traceback_plan(nsteps, nslot, max_iters)
-    moves = torch.empty((Bn, max_iters), dtype=torch.int8, device=dev)
-    cnts = torch.empty(Bn, dtype=torch.int32, device=dev)
-    if Bn == 0:
-        return moves, cnts
-    lib = _build.load()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.traceback_launch(
-        dirs.data_ptr(), opens.data_ptr(), La.data_ptr(), Lb.data_ptr(),
-        lw.data_ptr(), moves.data_ptr(), cnts.data_ptr(), Bn, nsteps,
-        nslot, max_iters, _K3_VARIANTS[plan["variant"]], plan["tile_rows"],
-        plan["width"], plan["smem_bytes"], stream)
-    _build.check(err, "traceback_launch")
-    _build.LAUNCHES["traceback"] += 1
-    return moves, cnts
+    return _launch_walk(dirs, opens, {"m0": La, "n0": Lb, "lw": lw}, None,
+                        max_iters=max_iters, plan=plan, name="traceback")
+
+
+def traceback_range(dirs: torch.Tensor, opens: torch.Tensor, m0, n0, lane0,
+                    d_lo, lw, *, max_iters: int, plan: dict | None = None):
+    """K3's range walk over one chunk's planes (the backward pass of
+    ``group_align_linear``): from (m0, n0, lane0), row i of the planes
+    holding step d_lo + i, until the walk reaches the corner or leaves
+    the steps from max(d_lo, 1) up.  m0, n0, lane0, d_lo, lw (B,) int32.
+    Returns m, n, lane (B,) int32 where it stopped, moves (B, max_iters)
+    int8 end to start and counts (B,) int32.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel as ``traceback`` does."""
+    dev = dirs.device
+    if dev.type == "cpu":
+        return traceback_range_ref(dirs, opens, m0, n0, lane0, d_lo, lw,
+                                   max_iters=max_iters)
+    if dev.type != "cuda":
+        raise ValueError(f"traceback_range: unsupported device {dev}")
+    ends = tuple(torch.empty(dirs.shape[0], dtype=torch.int32, device=dev)
+                 for _ in range(3))
+    moves, cnts = _launch_walk(
+        dirs, opens, {"m0": m0, "n0": n0, "lane0": lane0, "d_lo": d_lo,
+                      "lw": lw}, ends, max_iters=max_iters, plan=plan,
+        name="traceback_range")
+    return (*ends, moves, cnts)
 
 
 def traceback_attrs(variant: str) -> dict:
@@ -858,13 +1037,16 @@ def _skls(moves: torch.Tensor, cnts: torch.Tensor, las, lbs) -> list:
 
 def _pack_inputs(A: Msa, B: Msa, mtx, u, v, wdw, pa, pb, la_max, lb_max,
                  spb: float = 0.0, scale: float = 1.0, ls: int = 1,
-                 u1: float = 0.6, k1: int = 7) -> dict:
+                 u1: float = 0.6, k1: int = 7, uniform: bool = True) -> dict:
     """One pair's wavefront inputs (channel stacks, not the score image:
-    the image is built next to the DP)."""
+    the image is built next to the DP).  ``uniform``: collapse a gap-free
+    side to one member (``uniform_side``), as ``group_align`` does and
+    ``group_align_linear`` does not."""
     CA, CB, ea0, eb0 = _pack_profiles(A, B, mtx, la_max, lb_max,
                                       spb=spb, scale=scale)
     cols = _pack_cols(A, B, pa, pb, la_max, lb_max,
-                      ua=uniform_side(A), ub=uniform_side(B))
+                      ua=uniform and uniform_side(A),
+                      ub=uniform and uniform_side(B))
     ls3 = ls >= 3
     item = dict(zip(_FIELDS, (CA, CB, ea0, eb0, *cols)))
     item.update(la=A.length, lb=B.length, lw=wdw.lw, up=wdw.up,
@@ -878,8 +1060,8 @@ def _align_items(items, nslot, nsteps, la_max, lb_max, ls3, device):
     """Wavefront (K2) plus traceback (K3) for packed pairs; returns the
     scores (numpy) and the SKLs."""
     ins = stack_inputs(items, device)
-    score, dirs, opens = group_wavefront(ins, nslot=nslot, nsteps=nsteps,
-                                         ls3=ls3)
+    score, dirs, opens, _ = group_wavefront(ins, nslot=nslot, nsteps=nsteps,
+                                            ls3=ls3)
     max_iters = 2 * (la_max + lb_max) + 4
     moves, cnts = traceback(dirs, opens, ins["la"], ins["lb"], ins["lw"],
                             max_iters=max_iters)
@@ -967,3 +1149,81 @@ def group_align_batch(pairs, mtx, u: float, v: float, sh: int,
         else:
             out.append((float(scores[k]), skls[k]))
     return out
+
+
+# steps of one K2 launch of the TPU kernel (pallas_group.DSTEP): the
+# linear-space aligner's chunks are multiples of it
+K2_DSTEP = 64
+
+
+def group_align_linear(A: Msa, B: Msa, mtx, u: float, v: float,
+                       wdw: Window | None = None, scale: float = 1.0,
+                       spb: float = 0.0, ls: int = 1, u1: float = 0.6,
+                       k1: int = 7, chunk: int = 2048, *, device):
+    """Linear-space group alignment on ``device``: blockwise checkpoint
+    and recompute traceback (the JAX package's replacement for the
+    reference's Hirschberg recursion, src/fwd2b1.cc:492,1053-1078).
+
+    The forward pass runs K2 in chunks of ``chunk`` steps and keeps each
+    chunk's input carry on the device; the backward pass recomputes one
+    chunk's planes at a time from its checkpoint and walks them with the
+    range walk, from the last chunk down.  Device memory holds one
+    chunk's planes and the checkpoints, O(chunk x nslot + nsteps / chunk x
+    nslot), instead of O(nsteps x nslot).  Returns (score, skl), equal to
+    ``group_align``'s.  As in the JAX package, member counts are
+    ``A.many`` and ``B.many`` (no gap-free collapse) and there is no
+    corner-miss retry; the JAX package's carry holds ``A.many`` rows for
+    each side, so it fails where the sides' member counts differ, and so
+    does this (a ValueError).
+    """
+    La, Lb = A.length, B.length
+    an, bn = A.many, B.many
+    if an != bn:
+        raise ValueError(
+            f"group_align_linear: {an} | {bn} members; the linear-space "
+            "aligner (as the JAX package's, whose carry holds A.many rows "
+            "a side) takes groups of equal member counts only")
+    if wdw is None:
+        wdw = stripe(La, Lb, -60)
+    la_max, lb_max = _bucket(La), _bucket(Lb)
+    nslot = _bucket(wdw.up - wdw.lw + 3, 128)
+    nsteps_total = _bucket(La + Lb + 1, K2_DSTEP)
+    chunk = max(K2_DSTEP, min(_bucket(chunk, K2_DSTEP), nsteps_total))
+    nchunks = -(-nsteps_total // chunk)
+    ls3 = ls >= 3
+    item = _pack_inputs(A, B, mtx, u, v, wdw, an, bn, la_max, lb_max,
+                        spb=spb, scale=scale, ls=ls, u1=u1, k1=k1,
+                        uniform=False)
+    ins = stack_inputs([item], device)
+    kw = dict(nslot=nslot, nsteps=chunk, ls3=ls3)
+
+    carry = None
+    ckpts = []
+    score = None
+    for c in range(nchunks):
+        ckpts.append(carry)
+        score, _, _, carry = group_wavefront(ins, d0=c * chunk, carry=carry,
+                                             **kw)
+    final_score = float(score[0])
+
+    def ints(x):
+        return torch.tensor([x], dtype=torch.int32, device=ins["la"].device)
+
+    m, n, lane, lw = ints(La), ints(Lb), ints(0), ints(wdw.lw)
+    max_iters = 2 * chunk + 8
+    pieces = []
+    for c in reversed(range(nchunks)):
+        d_lo = c * chunk
+        mi, ni = int(m[0]), int(n[0])
+        if mi == 0 and ni == 0:
+            break
+        if d_lo > mi + ni:
+            continue
+        _, dirs, opens, _ = group_wavefront(ins, d0=d_lo, carry=ckpts[c],
+                                            **kw)
+        m, n, lane, moves, cnt = traceback_range(
+            dirs, opens, m, n, lane, ints(d_lo), lw, max_iters=max_iters)
+        del dirs, opens
+        pieces.append(moves[0, :int(cnt[0])].cpu().numpy())
+    moves = np.concatenate(pieces)[::-1] if pieces else np.empty(0)
+    return final_score, _moves_to_skl(moves, La, Lb)

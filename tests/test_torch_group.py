@@ -92,8 +92,8 @@ def _compare_planes(pairs, ls3=False, sh=-60, spb=20.0, scale=1.0):
             np.int32(item["k1"]), nslot=nslot, nsteps=nsteps, an=an_pad,
             bn=an_pad, la_max=la_max, lb_max=lb_max, ls3=ls3)
         ins = tg.stack_inputs([item], "cpu")
-        ts, td, to = tg.group_wavefront(ins, nslot=nslot, nsteps=nsteps,
-                                        ls3=ls3)
+        ts, td, to, _ = tg.group_wavefront(ins, nslot=nslot, nsteps=nsteps,
+                                           ls3=ls3)
         np.testing.assert_array_equal(td[0].numpy(), np.asarray(jd))
         np.testing.assert_array_equal(to[0].numpy(), np.asarray(jo))
         assert float(ts[0]) == pytest.approx(float(js), rel=1e-5, abs=1e-3)
@@ -223,7 +223,7 @@ def test_per_pair_trim_is_exact(counts, pad, ls3):
     ins = tg.stack_inputs(items, "cpu")
     assert tg.member_counts(ins["wa"]).tolist() == [a for a, _ in counts]
     assert tg.member_counts(ins["wb"]).tolist() == [b for _, b in counts]
-    score, dirs, opens = tg.group_wavefront_ref(ins, **kw)
+    score, dirs, opens, _ = tg.group_wavefront_ref(ins, **kw)
     for p, (a, b) in enumerate(counts):
         one = {k: v[p:p + 1] for k, v in ins.items()}
         for k in ("na_a", "gda", "pga"):
@@ -231,7 +231,7 @@ def test_per_pair_trim_is_exact(counts, pad, ls3):
         for k in ("na_b", "gdb", "pgb"):
             one[k] = one[k][:, :, :b].contiguous()
         one["wa"], one["wb"] = one["wa"][:, :a], one["wb"][:, :b]
-        s1, d1, o1 = tg.group_wavefront_ref(one, **kw)
+        s1, d1, o1, _ = tg.group_wavefront_ref(one, **kw)
         assert torch.equal(d1[0], dirs[p]) and torch.equal(o1[0], opens[p])
         assert torch.equal(s1.view(torch.int32), score[p:p + 1].view(
             torch.int32))
@@ -245,14 +245,38 @@ def test_per_pair_trim_is_exact(counts, pad, ls3):
     (40, 24, 640, 384, False, "global"),    # runs of 245,760 bytes
     (20, 20, 768, 1088, True, "global"),    # five lanes
     (2, 2, 640, 16384, False, "global"),    # a run could pass int16
-    (2, 2, 640, 16383, False, "shared")])
+    (2, 2, 640, 16383, False, "shared"),
+    (1, 1, 6272, 5248, False, "global"),    # 232,064 bytes of values
+    (1, 1, 6400, 5312, False, "wide"),      # 5.3 kb a side at sh=-60
+    (1, 1, 24064, 20032, False, "wide"),    # 20 kb a side
+    (3, 3, 6400, 5312, True, "wide")])
 def test_wavefront_variant_rule(an, bn, nslot, lmax, ls3, want):
+    """Shared, global, wide: the first whose shared memory fits."""
     variant, smem = tg.wavefront_variant(an, bn, nslot, lmax, lmax, ls3)
     assert variant == want
     runs = 2 * (5 if ls3 else 3) * (an + bn) * (nslot + 2)
     vals = 21 * nslot + 4 * tg.K2_SPAN * (nslot // 2)
-    assert smem == vals + (runs if want == "shared" else 0)
+    assert smem == {"shared": vals + runs, "global": vals, "wide": 0}[want]
     assert smem <= tg.SMEM_MAX
+    if want == "wide":
+        assert vals > tg.SMEM_MAX
+
+
+@pytest.mark.parametrize("an,bn,nslot,lmax,variant", [
+    (40, 24, 640, 384, "shared"),           # runs past shared memory
+    (2, 2, 640, 16384, "shared"),           # a run could pass int16
+    (1, 1, 6400, 5312, "global"),           # values past shared memory
+    (1, 1, 640, 512, "rows")])
+def test_wavefront_variant_refuses(an, bn, nslot, lmax, variant):
+    with pytest.raises(ValueError):
+        tg.wavefront_variant(an, bn, nslot, lmax, lmax, False, variant)
+
+
+def test_wavefront_variant_asked():
+    """A variant that fits is taken when asked for, and wide always
+    fits."""
+    for v in ("shared", "global", "wide"):
+        assert tg.wavefront_variant(2, 2, 640, 512, 512, True, v)[0] == v
 
 
 def test_wavefront_plan_counts_real_pairs():

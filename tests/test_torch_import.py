@@ -17,7 +17,7 @@ def test_port_imports_no_jax():
             "for name in mods:\n"
             "    importlib.import_module(name)\n"
             "for need in ('cli', 'ops.spliced_h', 'splice.hapi', 'native',"
-            " 'msa.kmer', 'msa.slforest'):\n"
+            " 'msa.kmer', 'msa.slforest', 'ops.seeded'):\n"
             "    assert 'prrn_aln_tpu_torch.' + need in mods, mods\n"
             "bad = [m for m in sys.modules if m == 'jax'"
             " or m.startswith('jax.') or m == 'prrn_aln_tpu'"

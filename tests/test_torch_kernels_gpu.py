@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from prrn_aln_tpu_torch import alphabet as ab, io as tio, scoring
-from prrn_aln_tpu_torch.config import AlnParams
+from prrn_aln_tpu_torch.config import AlnParams, default_params
 from prrn_aln_tpu_torch.msa.msa import Msa
 from prrn_aln_tpu_torch.ops import group as tg, pairwise as tpw
 from prrn_aln_tpu_torch.ops import spliced_h as tsh
@@ -114,8 +114,8 @@ def test_group_kernels_match_plain(cuda_device, ls3):
              for (A, B), w in zip(pairs, wd)]
     ins = tg.stack_inputs(items, cuda_device)
     kw = dict(nslot=256, nsteps=512, ls3=ls3)
-    sk, dk, ok = tg.group_wavefront(ins, **kw)
-    sr, dr, orf = tg.group_wavefront_ref(ins, **kw)
+    sk, dk, ok, _ = tg.group_wavefront(ins, **kw)
+    sr, dr, orf, _ = tg.group_wavefront_ref(ins, **kw)
     assert torch.equal(dk, dr) and torch.equal(ok, orf)
     assert torch.equal(sk, sr)
     tb = (dk, ok, ins["la"], ins["lb"], ins["lw"])
@@ -169,10 +169,128 @@ def test_group_wavefront_bit_equal_per_shape(cuda_device, case):
     assert plan["variant"] == ("global" if case == "global" else "shared")
     if case == "collapse":
         assert plan["an_b"].tolist() == [1, 1]
-    sk, dk, ok = tg.group_wavefront(ins, **kw)
-    sr, dr, orf = tg.group_wavefront_ref(ins, **kw)
+    sk, dk, ok, _ = tg.group_wavefront(ins, **kw)
+    sr, dr, orf, _ = tg.group_wavefront_ref(ins, **kw)
     assert torch.equal(dk, dr) and torch.equal(ok, orf)
     assert torch.equal(sk.view(torch.int32), sr.view(torch.int32))
+
+
+def _same(a, b):
+    """Two outputs of K2 (score, dirs, opens, carry) bit for bit."""
+    return (torch.equal(a[0].view(torch.int32), b[0].view(torch.int32))
+            and torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+            and tg.carry_equal(a[3], b[3]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["shared", "global", "wide"])
+@pytest.mark.parametrize("ls3", [False, True])
+def test_group_wavefront_carries_match_plain(cuda_device, variant, ls3):
+    """Each variant of K2 resumed from a carry: three chunks (the second
+    at an odd step), each from the kernel's own carry, against the plain
+    version from the same carry: planes, score and the stored carry."""
+    items, kw = _k2_case("ls3" if ls3 else "mixed7")
+    ins = tg.stack_inputs(items, cuda_device)
+    kw = dict(nslot=kw["nslot"], ls3=ls3)
+    carry = None
+    for d0, n in ((0, 64), (64, 37), (101, 160)):
+        got = tg.group_wavefront(ins, nsteps=n, d0=d0, carry=carry,
+                                 variant=variant, **kw)
+        ref = tg.group_wavefront_ref(ins, nsteps=n, d0=d0, carry=carry, **kw)
+        assert _same(got, ref), (variant, d0)
+        carry = got[3]
+    whole = tg.group_wavefront(ins, nsteps=261, variant=variant, **kw)
+    assert tg.carry_equal(whole[3], carry)
+
+
+def _dna_pair(L, seed=0):
+    """A random DNA sequence of L nt and a mutant (3 % substitutions, two
+    short indels), as packed K2 inputs at the default window."""
+    mtx, _ = scoring.build_matrix(ab.DNA, default_params(ab.DNA, "prrn"))
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 4, L)
+    mut = list(base)
+    for _ in range(2):
+        p = int(rng.integers(200, len(mut) - 200))
+        if rng.random() < 0.5:
+            del mut[p:p + int(rng.integers(1, 4))]
+        else:
+            mut[p:p] = list(rng.integers(0, 4, int(rng.integers(1, 4))))
+    mut = np.array(mut)
+    hit = rng.random(len(mut)) < 0.03
+    mut[hit] = rng.integers(0, 4, int(hit.sum()))
+
+    def msa(arr):
+        m = Msa(codes=ab.encode("".join("ACGT"[c] for c in arr),
+                                ab.DNA)[None, :], molc=ab.DNA, names=["g"])
+        m.prepare(mtx.shape[0])
+        return m
+    return msa(base), msa(mut), mtx
+
+
+@pytest.mark.gpu
+def test_group_wavefront_wide_band(cuda_device):
+    """The wide variant on a band past shared memory (5.3 kb a side at
+    the default window: 6,400 slots), the first chunk and a later one at
+    an odd step, against the plain version from the same carry."""
+    A, B, mtx = _dna_pair(5300)
+    w = stripe(A.length, B.length, -60)
+    nslot = tg._bucket(w.up - w.lw + 3, 128)
+    assert nslot >= 6400
+    ins = tg.stack_inputs([tg._pack_inputs(
+        A, B, mtx, 2.0, 9.0, w, 1, 1, tg._bucket(A.length),
+        tg._bucket(B.length), uniform=False)], cuda_device)
+    assert tg.wavefront_plan(ins, nslot=nslot)["variant"] == "wide"
+    first = tg.group_wavefront(ins, nslot=nslot, nsteps=128)
+    assert _same(first, tg.group_wavefront_ref(ins, nslot=nslot, nsteps=128))
+    _, _, _, carry = tg.group_wavefront(ins, nslot=nslot, nsteps=5001)
+    later = tg.group_wavefront(ins, nslot=nslot, nsteps=128, d0=5001,
+                               carry=carry)
+    assert _same(later, tg.group_wavefront_ref(ins, nslot=nslot, nsteps=128,
+                                               d0=5001, carry=carry))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["staged", "global"])
+def test_traceback_range_matches_plain(cuda_device, variant):
+    """K3's range walk on K2's planes of a chunk, from starts on the
+    chunk's top rows, in each lane, and from above the chunk, against
+    ``traceback_range_ref``."""
+    items, kw = _k2_case("mixed7")
+    ins = tg.stack_inputs(items, cuda_device)
+    nslot = kw["nslot"]
+    _, _, _, carry = tg.group_wavefront(ins, nslot=nslot, nsteps=101)
+    _, dirs, opens, _ = tg.group_wavefront(ins, nslot=nslot, nsteps=64,
+                                           d0=101, carry=carry)
+    rng = np.random.default_rng(53)
+    Bn = dirs.shape[0]
+    plan = tg.traceback_plan(64, nslot, 136, variant=variant)
+    for top in (164, 150, 175):
+        m0 = rng.integers(top // 3, 2 * top // 3, Bn)
+        args = [torch.as_tensor(x.astype(np.int32), device=cuda_device)
+                for x in (m0, top - m0, rng.integers(0, 5, Bn),
+                          np.full(Bn, 101))]
+        got = tg.traceback_range(dirs, opens, *args, ins["lw"],
+                                 max_iters=136, plan=plan)
+        ref = tg.traceback_range_ref(dirs, opens, *args, ins["lw"],
+                                     max_iters=136)
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r), (variant, top)
+
+
+@pytest.mark.gpu
+def test_linear_equals_standard_on_card(cuda_device):
+    """group_align_linear (chunks of 64 steps, five of them) equals
+    group_align on the card: score bits and SKL."""
+    rng = np.random.default_rng(59)
+    A, B = _rand_msa(rng, 3, 140), _rand_msa(rng, 3, 150)
+    s0, k0 = tg.group_align(A, B, MTX, 2.0, 9.0, device=cuda_device)
+    n0 = tg._build.LAUNCHES["traceback_range"]
+    s1, k1 = tg.group_align_linear(A, B, MTX, 2.0, 9.0, chunk=64,
+                                   device=cuda_device)
+    assert tg._build.LAUNCHES["traceback_range"] - n0 >= 3
+    assert k1 == k0
+    assert np.float32(s1).view(np.int32) == np.float32(s0).view(np.int32)
 
 
 @pytest.mark.gpu
@@ -409,7 +527,7 @@ def test_traceback_kernel_on_k2_planes(cuda_device):
              for (A, B), w in zip(pairs, wd)]
     for sel in (slice(0, 1), slice(0, 32)):
         ins = tg.stack_inputs(items[sel], cuda_device)
-        _, dirs, opens = tg.group_wavefront(ins, nslot=384, nsteps=512)
+        _, dirs, opens, _ = tg.group_wavefront(ins, nslot=384, nsteps=512)
         tb = (dirs, opens, ins["la"], ins["lb"], ins["lw"])
         mr, cr = tg.traceback_ref(*tb, max_iters=1028)
         for variant in ("staged", "global"):

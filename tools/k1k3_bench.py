@@ -234,7 +234,7 @@ def bench32_k3(dev) -> list:
     items = [G._pack_inputs(A, B, mtx, 2.0, 9.0, w, 8, 8, 384, 384,
                             spb=20.0) for (A, B), w in zip(pairs, wd)]
     ins = G.stack_inputs(items, dev)
-    _, dirs, opens = G.group_wavefront(ins, nslot=nslot, nsteps=nsteps)
+    dirs, opens = G.group_wavefront(ins, nslot=nslot, nsteps=nsteps)[1:3]
     args = (dirs, opens, ins["la"], ins["lb"], ins["lw"])
     return [(to(args, "cpu"), 2 * (384 + 384) + 4)]
 
