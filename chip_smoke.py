@@ -88,11 +88,24 @@ Phases (each raises on failure, so the script exits non-zero):
    under a fifth of the standard's).  (c) ``seeded_align`` on the pair
    against (b)'s standard result (score within rel 1e-5 / abs 1e-2,
    the same SKL), its anchors, sub-DP batch and wall.
+13. the ``prrn`` and ``aln`` modes (``cli_modes``), each run once with
+   the launch counts set to 0 just before it, byte-identical to the JAX
+   package's output fixture (``tools/write_jax_fixtures.py``): ``prrn -U
+   -R 0`` on Multi_A/B and ``prrn -b guide5.nwk -R 0`` (every row of the
+   reference's golden too), ``prrn -G`` on ce13a17 aligned, ``prrn
+   --resume`` of the JAX package's checkpoint, ``prrn -e`` on fam19
+   ``-I 0`` (all 7 sub-MSA files; K1, then K1f under ``PRRN_PW_FUSED=1``),
+   ``aln`` on Multi_A x Multi_B (``golden_aln_multiAB.txt``; host
+   aligner, no kernel), ``align_pair(ls=3)`` on the same pair (K2's
+   long-gap lanes, against the JAX accelerator branch's output) and
+   ``aln -R 10`` (11 scores in one K1 launch); each mode's wall and
+   launches, then the card line.
 
 Prints one JSON line per phase, then the card line, the kernels line
 (launches from the cold runs of phases 4 and 10, for K1f from the run
 under the switch in phase 6, for K3's range walk from the linear
-aligner's run in phase 12; times at the main paths' shapes, bounds from
+aligner's run in phase 12, and each phase 13 mode's under
+``cli_modes``; times at the main paths' shapes, bounds from
 the same inputs) and, last, ``{"ok": true, "device": {...}}``.
 """
 
@@ -100,6 +113,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import io
 import json
 import os
 import re
@@ -117,6 +131,7 @@ from prrn_aln_tpu_torch import alphabet as ab, io as pio, pipeline, scoring
 from prrn_aln_tpu_torch.cli import aln_main, prrn_main
 from prrn_aln_tpu_torch.config import AlnParams, default_params
 from prrn_aln_tpu_torch.msa import distance, kmer, progressive, slforest, tree
+from prrn_aln_tpu_torch.msa.merge import merge_msas
 from prrn_aln_tpu_torch.msa.msa import Msa, msa_from_strings
 from prrn_aln_tpu_torch.ops import _build, group as G, pairwise
 from prrn_aln_tpu_torch.ops import seeded, spliced_h as SH
@@ -1566,6 +1581,166 @@ def phase_long_pair(dev) -> dict:
     return k2_long, walk_entry
 
 
+GROUPS = "1 2/3-5/6"
+
+
+def write_cli_inputs(tmp: Path) -> dict:
+    """Phase 13's pre-aligned inputs: Multi_A and Multi_B rebuilt from
+    the galign fixture (as tests/test_update.py builds them) and ce13a17
+    aligned, from the rows of ``jax_prrn_ce13a17_clean_R0.txt``."""
+    gfix = json.loads((FIX / "galign_fixtures.json").read_text())
+    multi = []
+    for key in ("pas/Multi_A", "pas/Multi_B"):
+        info = gfix["files"][key]
+        p = tmp / key.split("/")[-1]
+        with open(p, "w") as f:
+            f.write(f"{len(info['rows']):5d}{len(info['rows'][0]):6d}\tx\n")
+            for n, r in zip(info["names"], info["rows"]):
+                f.write(f">{n}\n{r}\n/\n")
+        multi.append(str(p))
+    ce = tmp / "ce13a17_aligned.fa"
+    ce.write_text("".join(
+        f">{r.name}\n{r.seq}\n"
+        for r in pio.sniff_and_read(FIX / "jax_prrn_ce13a17_clean_R0.txt")))
+    return {"multi": multi, "ce13a17": str(ce)}
+
+
+def run_cli(main, argv, env=None) -> tuple[str, float, dict]:
+    """One CLI run on the card with the launch counts set to 0 just
+    before it: its standard output, seconds and launches."""
+    buf = io.StringIO()
+    for k, x in (env or {}).items():
+        os.environ[k] = x
+    try:
+        _build.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = main([*argv, "--device", "cuda"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(_build.LAUNCHES)
+    finally:
+        for k in env or {}:
+            os.environ.pop(k, None)
+    if rc != 0:
+        raise AssertionError(f"{argv}: exit {rc}")
+    return buf.getvalue(), secs, counts
+
+
+def ls3_pair(multi) -> tuple[str, float, dict]:
+    """``align_pair(ls=3)`` on Multi_A x Multi_B on the card (K2's
+    long-gap lanes, then K3): the score, swap, SKL and merged rows, in
+    the layout of ``jax_align_pair_ls3_multiAB.txt``."""
+    A, B = (pio.records_to_msa(pio.sniff_and_read(p), ab.PROTEIN)
+            for p in multi)
+    params = default_params(ab.PROTEIN, "aln")
+    mtx, _ = scoring.build_matrix(ab.PROTEIN, params)
+    _build.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    score, skl, swapped = progressive.align_pair(
+        A, B, mtx, u=params.u, v=params.v, sh=params.sh, ls=3,
+        device=torch.device("cuda"))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)
+    if swapped:
+        A, B = B, A
+    text = (f"score {score!r}\nswapped {swapped}\n"
+            f"skl {json.dumps([list(map(int, k)) for k in skl])}\n"
+            + pio.write_native_block(merge_msas(A, B, skl)))
+    return text, secs, counts
+
+
+def phase_cli_modes() -> dict:
+    """Phase 13: the ``prrn`` and ``aln`` modes of this slice on the card,
+    each against the JAX package's output fixture (and the reference's
+    golden rows where there is one), each with the kernels it must
+    launch.  Returns each mode's launches."""
+    need = {"prrn_U_R0": ("group_wavefront", "traceback"),
+            "prrn_guided5_R0": ("group_wavefront", "traceback"),
+            "prrn_G_ce13a17": ("group_wavefront", "traceback"),
+            "prrn_resume_ce13a17": ("group_wavefront", "traceback"),
+            "prrn_e_fam19_I0": ("pairwise", "group_wavefront", "traceback"),
+            "prrn_e_fam19_I0_fused": ("pairwise_rows", "group_wavefront",
+                                      "traceback"),
+            "aln_multiAB": (),
+            "align_pair_ls3": ("group_wavefront", "traceback"),
+            "aln_R10": ("pairwise",)}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        ins = write_cli_inputs(tmp)
+        multi = ins["multi"]
+
+        def check(mode, text, secs, counts, fixture, golden=None):
+            if text != (FIX / fixture).read_text():
+                raise AssertionError(f"{mode}: output differs from {fixture}")
+            exact = None
+            if golden:
+                want = golden_rows((FIX / golden).read_text())
+                got = golden_rows(text)
+                exact = sum(got.get(k) == v for k, v in want.items())
+                if exact != len(want) or set(got) != set(want):
+                    raise AssertionError(f"{mode}: {exact}/{len(want)} "
+                                         f"rows of {golden}")
+            for k in need[mode]:
+                if counts.get(k, 0) <= 0:
+                    raise AssertionError(f"{mode} never launched {k}")
+            out[mode] = counts
+            emit({"phase": f"cli_{mode}", "seconds": secs,
+                  "bytes": len(text), "fixture": fixture,
+                  "golden_rows_exact": exact, "launches": counts})
+
+        check("prrn_U_R0", *run_cli(prrn_main, ["-U", "-R", "0", *multi]),
+              "jax_prrn_U_R0_multiAB.txt", "golden_prrn_U_R0.txt")
+        here = os.getcwd()
+        os.chdir(FIX)                # the tree's leaves are relative paths
+        try:
+            res = run_cli(prrn_main, ["-b", "guide5.nwk", "-R", "0"])
+        finally:
+            os.chdir(here)
+        check("prrn_guided5_R0", *res, "jax_prrn_guided5_R0.txt",
+              "golden_prrn_guided5.txt")
+        check("prrn_G_ce13a17",
+              *run_cli(prrn_main, ["-R", "0", "-G", GROUPS, ins["ce13a17"]]),
+              "jax_prrn_G_ce13a17.txt")
+        check("prrn_resume_ce13a17",
+              *run_cli(prrn_main, ["--resume",
+                                   str(FIX / "jax_ckpt_ce13a17_I0.npz")]),
+              "jax_prrn_resume_ce13a17.txt")
+        for mode, env in (("prrn_e_fam19_I0", None),
+                          ("prrn_e_fam19_I0_fused", {"PRRN_PW_FUSED": "1"})):
+            prefix = tmp / mode
+            res = run_cli(prrn_main, ["-R", "0", "-I", "0", "-e", str(prefix),
+                                      str(FIX / "fam19.fa")], env=env)
+            k = 0
+            while (tmp / f"{mode}.{k}").exists():
+                fix = f"jax_prrn_fam19_e_I0.{k}.txt"
+                if (tmp / f"{mode}.{k}").read_text() != (FIX / fix) \
+                        .read_text():
+                    raise AssertionError(f"{mode}: {prefix.name}.{k} differs "
+                                         f"from {fix}")
+                k += 1
+            if k != 7 or (FIX / f"jax_prrn_fam19_e_I0.{k}.txt").exists():
+                raise AssertionError(f"{mode}: {k} sub-MSAs written")
+            if env and res[2].get("pairwise", 0) != 0:
+                raise AssertionError("K1 was launched under PRRN_PW_FUSED=1")
+            check(mode, *res, "jax_prrn_fam19_e_I0.0.txt")
+        check("aln_multiAB", *run_cli(aln_main, multi),
+              "golden_aln_multiAB.txt")
+        check("align_pair_ls3", *ls3_pair(multi),
+              "jax_align_pair_ls3_multiAB.txt")
+        check("aln_R10", *run_cli(aln_main, ["-R", "10", str(FIX / "idn_p.fa"),
+                                             str(FIX / "idn_q.fa")]),
+              "jax_aln_R10_idn.txt")
+    if out["aln_R10"].get("pairwise") != 1:
+        raise AssertionError("aln -R 10 made more than one K1 launch")
+    print(card_line(), flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1595,6 +1770,10 @@ def main() -> int:
     k4, k4w = phase_k4()["win_msa"]
     phase_flagship()
     k2_long, walk_entry = phase_long_pair(dev)
+    cli = phase_cli_modes()
+
+    def cli_launches(name):
+        return {mode: c[name] for mode, c in cli.items() if c.get(name)}
 
     launches = runs["cold"]["launches"]
     aln_launches = aln_runs[("win_msa", "cold")]
@@ -1604,25 +1783,28 @@ def main() -> int:
          "replaces": "prrn_aln_tpu/ops/pallas_pairwise.py:123",
          "launches": launches["pairwise"], **k1,
          "fam19_edges": {"launches": forest_runs["cold"]["pairwise"],
-                         "ms": k1f["k1_ms"]}},
+                         "ms": k1f["k1_ms"]},
+         "cli_modes": cli_launches("pairwise")},
         {"name": "pairwise_rows", "route": "cuda",
          "source": "prrn_aln_tpu_torch/csrc/pairwise_rows.cu",
          "replaces": "prrn_aln_tpu/ops/pallas_pairwise.py:341",
          "launches": forest_runs["fused"]["pairwise_rows"],
-         **{k: x for k, x in k1f.items() if k != "k1_ms"}},
+         **{k: x for k, x in k1f.items() if k != "k1_ms"},
+         "cli_modes": cli_launches("pairwise_rows")},
         {"name": "group_wavefront", "route": "cuda",
          "source": "prrn_aln_tpu_torch/csrc/group_wavefront.cu",
          "replaces": "prrn_aln_tpu/ops/pallas_group.py:102",
          "launches": launches["group_wavefront"], **k2,
          "fam19": {"launches": forest_runs["cold"]["group_wavefront"],
                    **k2_fam19},
-         "long_pair": k2_long},
+         "long_pair": k2_long, "cli_modes": cli_launches("group_wavefront")},
         {"name": "traceback", "route": "cuda",
          "source": "prrn_aln_tpu_torch/csrc/traceback.cu",
          "replaces": "prrn_aln_tpu/ops/group.py:595",
          "launches": launches["traceback"], **k3,
          "fam19": {"launches": forest_runs["cold"]["traceback"],
-                   "sum_ms": forest_runs["cold_k3_ms"]}},
+                   "sum_ms": forest_runs["cold_k3_ms"]},
+         "cli_modes": cli_launches("traceback")},
         walk_entry,
         {"name": "spliced_h_wave", "route": "cuda",
          "source": "prrn_aln_tpu_torch/csrc/spliced_h_wave.cu",

@@ -1,36 +1,52 @@
-"""Command-line entry points ``prrn`` (MSA) and ``aln`` (gene
-prediction) of the port.
+"""Command-line entry points ``prrn`` (MSA) and ``aln`` (pairwise, group
+and spliced alignment) of the port.
 
-Counterparts of ``prrn_aln_tpu/cli.py::prrn_main`` for the flags the
-default paths (all-pairs below 16 sequences, the single-linkage forest
-from 16 on) and their output use, and of ``aln_main``'s spliced branch
-for a protein or aligned protein MSA query against genomic DNA
-(``aln -yl2``).  The port adds ``--device`` (default ``cuda``); a CUDA
-device that is absent is an error, never a switch to the CPU.  Every
-other flag or mode of the JAX ``prrn`` and ``aln`` is accepted and exits
-with a "not yet ported" error.
+Counterparts of ``prrn_aln_tpu/cli.py::prrn_main`` and ``aln_main``:
+the same flags and the same output bytes.  The port adds ``--device``
+(default ``cuda``); a CUDA device that is absent is an error, never a
+switch to the CPU.  What is still to port exits with a "not yet ported"
+error: ``aln -G``/``-yl`` with a DNA query (fwd2s).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from . import alphabet as ab
-from . import io
+from . import io, scoring
 from .config import default_params
+from .msa.merge import merge_msas
+from .msa.progressive import align_pair
 from .pipeline import build_msa
-from .utils.runstat import runstat
+from .utils.runstat import load_checkpoint, runstat, save_checkpoint
 
-# flags of the JAX prrn that are accepted but not yet ported, with the
-# value that means "not given"
-_NOT_PORTED = {"U": False, "b": None, "G": None, "e": None, "ckpt": None,
-               "resume": None, "srcdir": None, "ps": False,
-               "verbose": False, "prntgap": None, "readgap": None}
+_DIVMODE = {0: "part", 1: "one", 2: "tree", 3: "all"}
+
+
+def _resolve_inputs(inputs, srcdir):
+    """Reference -s: input names resolve inside the source directory
+    (iolib makefnam path search)."""
+    if not srcdir:
+        return inputs
+    out = []
+    for f in inputs:
+        cand = Path(srcdir) / f
+        out.append(str(cand) if cand.exists() else f)
+    return out
+
+
+def _write(text: str, path) -> None:
+    if path:
+        Path(path).write_text(text)
+    else:
+        sys.stdout.write(text)
 
 
 def _out(msa, fmt: str, path=None, markeij: int = 0):
@@ -40,10 +56,43 @@ def _out(msa, fmt: str, path=None, markeij: int = 0):
         text = io.write_clustal(msa)
     else:
         text = io.write_native_block(msa, markeij=markeij)
-    if path:
-        Path(path).write_text(text)
-    else:
-        sys.stdout.write(text)
+    _write(text, path)
+
+
+def _emit(msa, args):
+    """prrn output modes (Msa::output, prrn5.cc:1738-1806)."""
+    if getattr(args, "ps", False):
+        msa = io.tree_sorted(msa)
+    if args.O & 1:
+        _out(msa, args.F, args.o,
+             markeij=(2 if getattr(args, "ph", False)
+                      else (1 if getattr(args, "pi", False) else 0)))
+    need_tree = args.O & (2 | 4)
+    if need_tree and msa.many > 2:
+        from .msa import distance as dmod, tree as tmod, wsp
+        d = dmod.msa_distance_matrix(msa.codes)
+        t = tmod.upgma(d, msa.many)
+        pairwt, vol = tmod.calc_pair_weights(t)
+        mtx, _ = scoring.build_matrix(msa.molc, default_params(msa.molc,
+                                                               "prrn"))
+        if args.O & 2:
+            from .msa.outliers import find_outliers, outlier_report
+            outs = find_outliers(msa, t, mtx)
+            sys.stdout.write(outlier_report(msa, outs))
+        if args.O & 4:
+            span = msa.length
+            ncomb = msa.many * (msa.many - 1) // 2
+            sp = wsp.wsp_score(msa, mtx, v=9.0)
+            if msa.many >= 10:
+                # tree-structured WSP (Sptree, fspscore.cc:783-860)
+                from .msa.sptree import sptree_wsp
+                wspv, _ = sptree_wsp(msa, mtx, v=9.0, tree=t)
+            else:
+                wspv = wsp.wsp_score(msa, mtx, v=9.0, pairwt=pairwt)
+            npw = float(pairwt.sum())
+            print(f"{msa.names[0]} [ {msa.many} ] {span}\t"
+                  f"{sp:7.1f} {100.0 * sp / ncomb / span:7.3f} "
+                  f"{wspv:7.1f} {100.0 * wspv / npw / span:7.3f}")
 
 
 def _add_sshp_args(p) -> None:
@@ -104,8 +153,12 @@ def prrn_main(argv=None) -> int:
                    default="native", help="output format")
     p.add_argument("-o", default=None, help="output file")
     p.add_argument("-yp", type=int, default=None, help="PAM level")
+    p.add_argument("-U", action="store_true",
+                   help="update mode: refine combined pre-aligned inputs")
+    p.add_argument("-b", default=None, metavar="TREE",
+                   help="guide tree file (Newick; leaves name seq files)")
     p.add_argument("-O", type=int, default=1,
-                   help="output bits: 1=alignment (2 and 4 not yet ported)")
+                   help="output bits: 1=alignment, 2=outliers, 4=SP scores")
     p.add_argument("-YH", type=float, default=35.0,
                    help="consreg threshold (0 disables)")
     p.add_argument("-ph", action="store_true", dest="ph",
@@ -118,50 +171,82 @@ def prrn_main(argv=None) -> int:
     p.add_argument("-r", type=int, default=1, metavar="N",
                    help="best-of-N speculative refinement fan-out, one "
                         "batched launch per N candidates")
+    p.add_argument("-G", default=None, metavar="GROUPS",
+                   help="member grouping, e.g. '1 2/3-5/6' (groups "
+                        "separated by /, 1-based indices and a-b ranges; "
+                        "reference Subset, sets.h:27-45); refinement "
+                        "bipartitions never split a group")
     p.add_argument("-J", type=int, default=2, choices=[0, 1, 2, 3],
                    help="division mode: 1=leave-one-out, 2=tree edges "
                         "(default), 3=all bipartitions, 0=random subsets")
     p.add_argument("-E", nargs="?", const="-", default=None,
                    metavar="FILE", help="write phase-interval run "
                         "statistics (RunStat, prrn5.h:263-283)")
+    p.add_argument("-e", default=None, metavar="PREFIX",
+                   help="write each sub-MSA to PREFIX.N instead of "
+                        "merging (prrn5.cc:1099-1107)")
+    p.add_argument("--ckpt", default=None, metavar="FILE",
+                   help="save a refinement checkpoint (MSA+seed+iter)")
+    p.add_argument("--resume", default=None, metavar="FILE",
+                   help="resume from a checkpoint written by --ckpt")
+    p.add_argument("-s", dest="srcdir", default=None, metavar="DIR",
+                   help="directory containing the input files "
+                        "(reference -s, iolib setdfn)")
+    p.add_argument("-ps", action="store_true", dest="ps",
+                   help="sort output rows by guide-tree leaf order "
+                        "(reference BY_TREE phylsort, prrn5.cc:1607)")
+    p.add_argument("-V", action="store_true", dest="verbose",
+                   help="per-pass WSP progress lines on stderr "
+                        "(reference MONIT prompt, prrn5.cc:772-780)")
+    p.add_argument("--prntgap", default=None, metavar="FILE",
+                   help="dump the per-member gap-structure snapshot "
+                        "(IterMsa::prntgap, prrn5.cc:287)")
+    p.add_argument("--readgap", default=None, metavar="FILE",
+                   help="rebuild the input alignment from a gap "
+                        "snapshot before refining (IterMsa::readgap, "
+                        "prrn5.cc:294)")
     p.add_argument("--device", default="cuda",
                    help="torch device of the DP kernels (default cuda)")
-    nyp = "not yet ported: see ROADMAP.md"
-    p.add_argument("-U", action="store_true", help=nyp)
-    p.add_argument("-b", default=None, metavar="TREE", help=nyp)
-    p.add_argument("-G", default=None, metavar="GROUPS", help=nyp)
-    p.add_argument("-e", default=None, metavar="PREFIX", help=nyp)
-    p.add_argument("--ckpt", default=None, metavar="FILE", help=nyp)
-    p.add_argument("--resume", default=None, metavar="FILE", help=nyp)
-    p.add_argument("-s", dest="srcdir", default=None, metavar="DIR",
-                   help=nyp)
-    p.add_argument("-ps", action="store_true", dest="ps", help=nyp)
-    p.add_argument("-V", action="store_true", dest="verbose", help=nyp)
-    p.add_argument("--prntgap", default=None, metavar="FILE", help=nyp)
-    p.add_argument("--readgap", default=None, metavar="FILE", help=nyp)
     args = p.parse_args(argv)
-    given = [k for k, unset in _NOT_PORTED.items()
-             if getattr(args, k) != unset]
-    if args.O & ~1:
-        given.append(f"O {args.O}")
-    if given:
-        p.error(f"not yet ported: see ROADMAP.md: "
-                f"{', '.join('-' + g for g in given)}")
     device = _device(args.device)
+    args.inputs = _resolve_inputs(args.inputs, args.srcdir)
+    if args.verbose:
+        os.environ["PRRN_PROGRESS"] = "1"
     _apply_sshp(args)
     runstat.reset()                  # the pipeline stamps its phases too
     runstat.setfmessg(args.E)
     runstat.stamp(0)
+
+    if args.b:
+        from .pipeline import build_msa_guided
+        msa = build_msa_guided(args.b, randseed=args.R, maxitr=args.S,
+                               refine=args.I > 0, device=device)
+        _emit(msa, args)
+        return 0
+
+    if args.resume:
+        # as in the JAX package: the inputs and -u/-v are not read here
+        from .msa.refine import refine_msa
+        msa, meta = load_checkpoint(args.resume)
+        params = default_params(msa.molc, "prrn")
+        mtx, _ = scoring.build_matrix(msa.molc, params)
+        res = refine_msa(msa, mtx, u=params.u, v=params.v, sh=params.sh,
+                         maxitr=args.S, randseed=meta["randseed"],
+                         nbatch=args.r, spb=params.spb,
+                         divmode=_DIVMODE[args.J], device=device)
+        msa = res.msa
+        if args.ckpt:
+            save_checkpoint(args.ckpt, msa, meta["randseed"], args.S)
+        runstat.stamp(1)
+        _emit(msa, args)
+        runstat.conclude()
+        return 0
 
     per_file = [io.sniff_and_read(f) for f in args.inputs]
     records = [r for recs in per_file for r in recs]
     if not records:
         print("no sequences read", file=sys.stderr)
         return 1
-    if any(len(recs) > 1 and len({len(r.seq) for r in recs}) == 1
-           and any("-" in r.seq for r in recs) for recs in per_file):
-        p.error("pre-aligned inputs (update mode) are not yet ported: "
-                "see ROADMAP.md")
     molc = ab.infer_molc(records[0].seq)
     params = default_params(molc, "prrn")
     over = {}
@@ -178,23 +263,106 @@ def prrn_main(argv=None) -> int:
     if over:
         params = dataclasses.replace(params, **over)
 
-    divmode = {0: "part", 1: "one", 2: "tree", 3: "all"}[args.J]
-    msa = build_msa(records, params=params, molc=molc, maxitr=args.S,
-                    randseed=args.R, refine=args.I > 0, local_thr=args.YH,
-                    nbatch=args.r, divmode=divmode, device=device)
+    # pre-aligned multi-member files become host groups (update flow)
+    def is_aligned(recs):
+        return (len(recs) > 1 and len({len(r.seq) for r in recs}) == 1
+                and any("-" in r.seq for r in recs))
+
+    divmode = _DIVMODE[args.J]
+    hosts_present = any(is_aligned(recs) for recs in per_file)
+    if args.G:
+        # grouped refinement of one pre-aligned input (prrn5 -G)
+        from .msa.sets import Subset
+        from .msa.refine import refine_msa
+        msa = io.records_to_msa(records, molc)
+        ss = Subset.from_string(msa.many, args.G)
+        mtx, _ = scoring.build_matrix(molc, params)
+        res = refine_msa(msa, mtx, u=params.u, v=params.v, sh=params.sh,
+                         maxitr=args.S, randseed=args.R, nbatch=args.r,
+                         spb=params.spb, subset=ss, device=device)
+        msa = res.msa
+    elif hosts_present:
+        from .pipeline import update_msa
+        groups = [io.records_to_msa(recs, molc) for recs in per_file]
+        if args.readgap:
+            gl = io.read_gaps_list(args.readgap)
+            k = 0
+            regrouped = []
+            for g in groups:
+                regrouped.append(io.apply_gaps_list(g, gl[k:k + g.many]))
+                k += g.many
+            groups = regrouped
+        msa = update_msa(groups, params=params, molc=molc, maxitr=args.S,
+                         randseed=args.R, refine=args.U, nbatch=args.r,
+                         divmode=divmode, device=device)
+    elif args.e and len(records) >= 16:
+        from .pipeline import build_msa_denovo_large
+        msa = build_msa_denovo_large(records, params, molc, maxitr=args.S,
+                                     randseed=args.R, refine=args.I > 0,
+                                     nbatch=args.r, divmode=divmode,
+                                     dump_prefix=args.e, device=device)
+    else:
+        msa = build_msa(records, params=params, molc=molc, maxitr=args.S,
+                        randseed=args.R, refine=args.I > 0,
+                        local_thr=args.YH, nbatch=args.r, divmode=divmode,
+                        device=device)
+    if args.ckpt:
+        save_checkpoint(args.ckpt, msa, args.R, args.S)
     runstat.stamp(1)
-    if args.O & 1:
-        _out(msa, args.F, args.o,
-             markeij=2 if args.ph else (1 if args.pi else 0))
+    if args.prntgap:
+        io.write_gaps_list(msa, args.prntgap)
+    _emit(msa, args)
     runstat.conclude()
     return 0
 
 
-# aln flags of the JAX package that are accepted but not yet ported,
-# with the value that means "not given"
-_ALN_NOT_PORTED = {"a": False, "b": None, "imode": None, "R": 0,
-                   "M": False, "m": None, "F": None, "ncolony": None,
-                   "ckpt": None, "ys": None, "yh": None, "yr": None}
+def _aln_catalog(args, device) -> int:
+    """Catalog input modes (CalcServer IM_*, calcserv.h:619-641):
+    pair generation over the flat sequence list."""
+    mode = args.imode
+    files = list(args.inputs)
+    if ":" in mode:
+        mode, cat = mode.split(":", 1)
+        files += [ln.strip() for ln in Path(cat).read_text().splitlines()
+                  if ln.strip() and not ln.startswith("#")]
+    mode = (mode or "s").lower()
+    recs = [r for f in files for r in io.sniff_and_read(f)]
+    nn = len(recs)
+    if mode == "a" or mode == "j":
+        pairs = [(i, i + 1) for i in range(0, nn - 1, 2)]
+    elif mode == "e":
+        pairs = [(i, j) for j in range(1, nn) for i in range(j)]
+    elif mode == "f":
+        pairs = [(0, k) for k in range(1, nn)]
+    elif mode == "l":
+        pairs = [(k, nn - 1) for k in range(nn - 1)]
+    elif mode == "p":
+        half = nn // 2
+        pairs = [(k, half + k) for k in range(half)]
+    elif mode == "i":
+        pairs = [(k, k) for k in range(nn)]
+    else:
+        pairs = [(i, i + 1) for i in range(0, nn - 1, 2)]
+    molc = ab.infer_molc(recs[0].seq)
+    params = default_params(molc, "aln")
+    mtx, _ = scoring.build_matrix(molc, params)
+    out = []
+    for i, j in pairs:
+        A = io.records_to_msa([recs[i]], molc)
+        B = io.records_to_msa([recs[j]], molc)
+        A.prepare(mtx.shape[0])
+        B.prepare(mtx.shape[0])
+        score, skl, swapped = align_pair(A, B, mtx, u=params.u,
+                                         v=params.v, sh=params.sh,
+                                         device=device)
+        if swapped:
+            A, B = B, A
+        m = merge_msas(A, B, skl)
+        out.append(f"! {recs[i].name} x {recs[j].name}  "
+                   f"score = {score:.1f}")
+        out.append(io.write_native_block(m).rstrip("\n"))
+    _write("\n".join(out) + "\n", args.o)
+    return 0
 
 
 def _aln_argv(argv) -> list[str]:
@@ -219,76 +387,230 @@ def _aln_argv(argv) -> list[str]:
 
 
 def aln_main(argv=None) -> int:
-    """``aln -yl2|-yl3 <genome> <protein | aligned protein MSA>``: gene
-    prediction by the spliced DP (fwd2h) on ``--device``."""
-    from .splice.hapi import spliced_align_h
     if argv is None:
         argv = sys.argv[1:]
     p = argparse.ArgumentParser(
         prog="aln",
-        description="gene prediction: protein or protein MSA against "
-                    "genomic DNA (PyTorch and CUDA port)")
-    p.add_argument("inputs", nargs="*", help="genome and query files")
+        description="pairwise, group-to-group and spliced alignment "
+                    "(PyTorch and CUDA port)")
+    p.add_argument("inputs", nargs="*", help="sequence/MSA files "
+                   "(two, unless -a/-b/-i)")
+    p.add_argument("-a", action="store_true",
+                   help="progressive pileup MSA in input order "
+                        "(aln.cc:489-568 MakeMsa)")
+    p.add_argument("-b", default=None, metavar="TREE",
+                   help="progressive MSA along a Newick guide tree "
+                        "whose leaves name sequence files")
+    p.add_argument("-i", dest="imode", default=None, metavar="MODE",
+                   help="catalog input mode over the sequence list "
+                        "(calcserv.h:619-641): a=adjacent pairs, "
+                        "e=every pair, f=first vs others, l=others vs "
+                        "last, p=parallel two halves, i=self; append "
+                        "':file' to read the file list from a catalog")
     p.add_argument("-u", type=float, default=None, help="gap extension")
     p.add_argument("-v", type=float, default=None, help="gap open")
     p.add_argument("-w", type=int, default=None, help="band shoulder")
+    p.add_argument("-F", choices=["native", "fasta", "clustal"],
+                   default="native", help="output format")
     p.add_argument("-o", default=None, help="output file")
     p.add_argument("-yp", type=int, default=None, help="PAM level")
+    p.add_argument("-R", type=int, default=0, metavar="N",
+                   help="shuffle significance test with N jumbles")
     p.add_argument("-G", action="store_true",
                    help="spliced alignment: first input is genomic DNA")
     p.add_argument("-s", dest="srcdir", default=None, metavar="DIR",
-                   help="directory containing the input files")
+                   help="directory containing the input files "
+                        "(reference -s, iolib setdfn)")
     p.add_argument("-pi", action="store_true", dest="pi",
                    help="color intron positions (ANSI; reference -pi)")
     p.add_argument("-ph", action="store_true", dest="ph",
                    help="color intron positions as HTML (reference -ph)")
     p.add_argument("-yl", type=int, default=None,
-                   help="2/3: spliced (gene-prediction) alignment")
+                   help="2/3: spliced (gene-prediction) alignment "
+                        "(reference -yl2/-yl3; implies -G)")
     p.add_argument("-O", type=int, default=1,
-                   help="output mode: 0 gff3, 1 alignment, 2 gff3 match, "
-                        "3 bed, 4 exons, 5 introns")
+                   help="output mode (with -G: 0 gff3, 1 alignment, "
+                        "2 gff3 match, 3 bed, 4 exons, 5 introns)")
+    p.add_argument("-M", action="store_true",
+                   help="search both strands (DNA; reference aln -M)")
     p.add_argument("-L", nargs="?", const="s", default=None,
-                   help="local mode (bare -L: the default; -L s not yet "
-                        "ported)")
+                   help="local alignment mode ('s' = SWG colonies)")
+    p.add_argument("-C", dest="ncolony", type=int, default=1,
+                   help="with -Ls: max local alignments (reference -M#)")
     p.add_argument("-yJ", type=float, default=None,
                    help="intron-position match bonus (default 20)")
     p.add_argument("-T", default=None, metavar="SPECIES",
                    help="species parameter tables under $ALN_TAB")
+    p.add_argument("-m", default=None, metavar="MATRIX",
+                   help="named amino-acid exchange matrix file "
+                        "(e.g. vtml200, blosum62; searched in $ALN_TAB; "
+                        "reference -mS)")
+    _add_sshp_args(p)
     p.add_argument("--device", default="cuda",
-                   help="torch device of the spliced DP (default cuda)")
-    nyp = "not yet ported: see ROADMAP.md"
-    p.add_argument("-a", action="store_true", help=nyp)
-    p.add_argument("-b", default=None, metavar="TREE", help=nyp)
-    p.add_argument("-i", dest="imode", default=None, metavar="MODE",
-                   help=nyp)
-    p.add_argument("-F", default=None, help=nyp)
-    p.add_argument("-R", type=int, default=0, metavar="N", help=nyp)
-    p.add_argument("-M", action="store_true", help=nyp)
-    p.add_argument("-C", dest="ncolony", type=int, default=None, help=nyp)
-    p.add_argument("-m", default=None, metavar="MATRIX", help=nyp)
-    p.add_argument("--ckpt", default=None, metavar="FILE", help=nyp)
-    for flag in ("-ys", "-yh", "-yr"):
-        p.add_argument(flag, default=None, help=nyp)
+                   help="torch device of the DP kernels (default cuda)")
     args = p.parse_args(_aln_argv(argv))
-    given = [k for k, unset in _ALN_NOT_PORTED.items()
-             if getattr(args, k) != unset]
-    if args.L == "s":
-        given.append("L s")
-    if not (args.G or args.yl in (2, 3)):
-        given.append("without -yl2/-yl3 (pair and group alignment)")
-    if given:
-        p.error(f"not yet ported: see ROADMAP.md: "
-                f"{', '.join('-' + g for g in given)}")
-    if len(args.inputs) != 2:
-        p.error("aln needs exactly two inputs: genome and query")
     device = _device(args.device)
-    inputs = args.inputs
-    if args.srcdir:
-        inputs = [str(Path(args.srcdir) / f)
-                  if (Path(args.srcdir) / f).exists() else f
-                  for f in inputs]
-    grecs = io.sniff_and_read(inputs[0])
-    qrecs = io.sniff_and_read(inputs[1])
+    args.inputs = _resolve_inputs(args.inputs, args.srcdir)
+    _apply_sshp(args)
+
+    if args.b:
+        # progressive MSA along a user tree (aln -b, no refinement)
+        from .pipeline import build_msa_guided
+        msa = build_msa_guided(args.b, refine=False, device=device)
+        _out(msa, args.F, args.o)
+        return 0
+
+    if args.a:
+        # pileup: progressive merge in input order (aln -a); internal
+        # nodes of the caterpillar tree are built with align_pair
+        recs = [r for f in args.inputs for r in io.sniff_and_read(f)]
+        if len(recs) < 2:
+            print("need at least two sequences", file=sys.stderr)
+            return 1
+        molc = ab.infer_molc(recs[0].seq)
+        params = default_params(molc, "aln")
+        mtx, _ = scoring.build_matrix(molc, params)
+        msa = io.records_to_msa([recs[0]], molc)
+        for r in recs[1:]:
+            nxt = io.records_to_msa([r], molc)
+            msa.prepare(mtx.shape[0])
+            nxt.prepare(mtx.shape[0])
+            _, skl, swapped = align_pair(msa, nxt, mtx, u=params.u,
+                                         v=params.v, sh=params.sh,
+                                         device=device)
+            A, B = (nxt, msa) if swapped else (msa, nxt)
+            msa = merge_msas(A, B, skl)
+        _out(msa, args.F, args.o)
+        return 0
+
+    if args.imode:
+        return _aln_catalog(args, device)
+
+    if len(args.inputs) != 2:
+        print("aln needs exactly two inputs (or -a/-b/-i)",
+              file=sys.stderr)
+        return 1
+
+    if args.L == "s":
+        from .msa.local import swg_align, local_alignment_text
+        ra = io.sniff_and_read(args.inputs[0])[0]
+        rb = io.sniff_and_read(args.inputs[1])[0]
+        molc = ab.infer_molc(ra.seq)
+        prm = default_params(molc, "aln")
+        mtx, _ = scoring.build_matrix(molc, prm)
+        sa, sb = ra.seq.upper(), rb.seq.upper()
+        res = swg_align(ab.encode(sa, molc), ab.encode(sb, molc), mtx,
+                        u=args.u or prm.u, v=args.v or prm.v,
+                        sh=args.w if args.w is not None else -50,
+                        mlt=1 if args.ncolony <= 1 else 2)
+        text = "".join(
+            local_alignment_text(sa, sb, (ra.name, rb.name), scr, skl,
+                                 molc=molc, u=args.u or prm.u,
+                                 v=args.v or prm.v)
+            for _, scr, skl in res[: max(1, args.ncolony)])
+        sys.stdout.write(text)
+        return 0
+
+    if args.G or args.yl in (2, 3):
+        return _aln_spliced(p, args, device)
+
+    groups = []
+    for f in args.inputs:
+        recs = io.sniff_and_read(f)
+        molc = ab.infer_molc(recs[0].seq)
+        groups.append(io.records_to_msa(recs, molc))
+    A, B = groups
+    params = default_params(A.molc, "aln")
+    over = {}
+    if args.u is not None:
+        over["u"] = args.u
+    if args.v is not None:
+        over["v"] = args.v
+    if args.w is not None:
+        over["sh"] = args.w
+    if args.yp is not None:
+        over["pam"] = args.yp
+    if args.yJ is not None:
+        over["spb"] = args.yJ
+    if over:
+        params = dataclasses.replace(params, **over)
+    if args.m and A.molc == ab.PROTEIN:
+        mtx = scoring.read_matrix_file(args.m)
+    else:
+        mtx, _ = scoring.build_matrix(A.molc, params)
+    if args.R > 0 and A.many == 1 and B.many == 1:
+        from .msa.shuffle import shuffle_test
+        r = shuffle_test(A.codes[0].astype(np.int32),
+                         B.codes[0].astype(np.int32), mtx,
+                         u=params.u, v=params.v, sh=params.sh,
+                         njumble=args.R, device=device)
+        print(f"Dev = {r['dev']:6.2f}  AV = {r['mean']:7.2f}  "
+              f"SD = {r['sd']:7.2f}   ({r['njumble']} jumbles)")
+    score, skl, swapped = align_pair(A, B, mtx, u=params.u, v=params.v,
+                                     sh=params.sh, device=device)
+    strand = "+"
+    if args.M and A.molc == ab.DNA:
+        # both-strand search (reference aln.cc:336-356): also try the
+        # reverse complement of the second input, keep the better
+        from .utils.seqtools import reverse_complement
+        from .msa.msa import Msa
+        # fresh container: derived profile caches must not be reused
+        Brv = Msa(codes=np.stack(
+            [reverse_complement(B.codes[i]) for i in range(B.many)]),
+            molc=B.molc, names=list(B.names), weight=B.weight)
+        scr2, skl2, swp2 = align_pair(A, Brv, mtx, u=params.u,
+                                      v=params.v, sh=params.sh,
+                                      device=device)
+        if scr2 > score:
+            score, skl, swapped, B, strand = scr2, skl2, swp2, Brv, "-"
+    if swapped:
+        A, B = B, A
+    merged = merge_msas(A, B, skl)
+    print(f"; Score = {score:.1f}"
+          + (f" (strand {strand})" if args.M else ""), file=sys.stderr)
+    if args.F not in ("fasta", "clustal"):
+        _write(_group_pair_text(A, B, merged, score, params), args.o)
+    else:
+        _out(merged, args.F, args.o)
+    return 0
+
+
+def _group_pair_text(A, B, merged, score: float, params) -> str:
+    """``aln``'s output of a pair or group merge: the reference's
+    group-pair framing (sqpr.cc:1133-1196 print2), a 3-slot header,
+    matrix params, FSTAT Score line, ALIGNMENT."""
+    from .msa.merge import group_pair_fstat
+    fst = group_pair_fstat(merged.codes, A.many, ab.GAP)
+    tscr = score / fst["vab"]
+    denom = fst["mch"] + fst["mmc"] + fst["unp"]
+    pct = 100.0 * fst["mch"] / denom if denom else 0.0
+    hdr = [
+        "",
+        f">{A.names[0]} [{A.many}:{A.length}]  ( 1 - {A.length} )"
+        f" - >{B.names[0]} [{B.many}:{B.length}]"
+        f"  ( 1 - {B.length} ) - > [0:0]  ( 1 - 0 )",
+        "PAM = %d, BIAS = 0.0, u = %.1f, v = %.1f"
+        % (params.pam, params.u, params.v),
+        "Score = %5.1f (%5.1f), %.1f (=), %.1f (#), %.1f (g), "
+        "%.1f (u), (%5.2f %%)"
+        % (score, tscr, fst["mch"], fst["mmc"], fst["gap"],
+           fst["unp"], pct),
+    ]
+    if merged.eij is not None:
+        # merged intron-position block sits between the Score and
+        # ALIGNMENT lines (put_SigII via print2)
+        hdr += io._sigii_lines(merged)
+    hdr.append("ALIGNMENT   1 / 1")
+    return io.write_native_block(merged, header_lines=hdr, trailer="\n\n",
+                                 csym_min=2)
+
+
+def _aln_spliced(p, args, device) -> int:
+    """``aln -yl2|-yl3 <genome> <protein | aligned protein MSA>``: gene
+    prediction by the spliced DP (fwd2h) on ``device``."""
+    from .splice.hapi import spliced_align_h
+    grecs = io.sniff_and_read(args.inputs[0])
+    qrecs = io.sniff_and_read(args.inputs[1])
     if ab.infer_molc(qrecs[0].seq) != ab.PROTEIN:
         p.error("not yet ported: see ROADMAP.md: a DNA query (cDNA "
                 "against genome, fwd2s)")
@@ -310,11 +632,7 @@ def aln_main(argv=None) -> int:
             res = spliced_align_h(grecs[0].seq, q.seq, qname=q.name,
                                   **common)
             out.append(res.render(mode))
-    text = "".join(out)
-    if args.o:
-        Path(args.o).write_text(text)
-    else:
-        sys.stdout.write(text)
+    _write("".join(out), args.o)
     return 0
 
 

@@ -236,7 +236,8 @@ def pairwise_scores(a_batch: torch.Tensor, b_batch: torch.Tensor,
                     la, lb, mtx: torch.Tensor, u, v, tgapf=1.0,
                     exg=None, lw=None, up=None,
                     local: bool = False, lossy: bool = False,
-                    lw0: int | None = None) -> torch.Tensor:
+                    lw0: int | None = None,
+                    fused: bool | None = None) -> torch.Tensor:
     """Batched banded affine-gap scores (kernel K1, or K1f).
 
     a_batch (B, Ma) / b_batch (B, Mb) int32 codes (0-padded) and mtx
@@ -251,7 +252,9 @@ def pairwise_scores(a_batch: torch.Tensor, b_batch: torch.Tensor,
     (default: the batch's smallest ``lw``, as in the JAX wrapper).
     ``lossy`` is the opt-in bf16 edge screen: the matrix is rounded to
     bf16 before K1's lookup; the row sweep ignores it, as the JAX
-    wrapper's fused route does.
+    wrapper's fused route does.  ``fused=False`` keeps K1 whatever the
+    switch says, for callers whose JAX counterpart calls the scan scorer
+    directly (``msa/shuffle``).
     """
     dev = a_batch.device
     B = a_batch.shape[0]
@@ -266,8 +269,9 @@ def pairwise_scores(a_batch: torch.Tensor, b_batch: torch.Tensor,
     if exg is None:
         exg = torch.zeros((B, 4), dtype=torch.bool, device=dev)
     exg = torch.as_tensor(exg, device=dev).bool()
-    fused = (os.environ.get("PRRN_PW_FUSED", "0") == "1"
-             and mtx.shape[0] <= 32 and not local)
+    if fused is None:
+        fused = os.environ.get("PRRN_PW_FUSED", "0") == "1"
+    fused = fused and mtx.shape[0] <= 32 and not local
     if fused:
         lo, hi = _band_range(lw_in, up_in, la_in, lb_in, lw, up)
         if lw0 is None:

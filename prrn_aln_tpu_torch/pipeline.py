@@ -10,18 +10,21 @@ refinement (kernels K2 and K3) (reference flow: prrn5.cc makemsa
 (K1, or K1f under ``PRRN_PW_FUSED=1``), a single-linkage forest, the
 subtrees aligned in batched launches (K2, K3) and refined, then combined
 by ``update_msa`` and ``cut_in`` (host group alignments, as in the JAX
-package) and refined once more.  The JAX package's tree-file mode
-(``prrn -b``) is not ported yet.
+package) and refined once more.  ``build_msa_guided`` (``prrn -b``,
+``aln -b``) aligns along a user's Newick tree (K2, K3); ``update_msa``
+combines pre-aligned inputs (``prrn -U``).
 """
 
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 
 from . import alphabet as ab
 from . import scoring
 from .config import AlnParams, default_params
-from .io import SeqRecord
+from .io import SeqRecord, sniff_and_read, write_native_block
 from .msa.msa import Msa, single
 from .msa import distance, slforest, tree
 from .msa.merge import merge_msas
@@ -162,16 +165,54 @@ def update_msa(groups: list[Msa], params: AlnParams | None = None,
     return msd
 
 
+def build_msa_guided(treefile: str, params: AlnParams | None = None,
+                     maxitr: int = 10, randseed: int = 1,
+                     refine: bool = True, *, device) -> Msa:
+    """Progressive MSA along a user guide tree whose leaf labels are
+    sequence file names (prrn5.cc:1834-1849 guidetree mode), followed by
+    the update-path refinement.  A leaf file resolves as given, else
+    beside the tree file."""
+    text = Path(treefile).read_text()
+    t, leaf_files = tree.parse_newick(text)
+    base = Path(treefile).parent
+    leaves = []
+    molc = None
+    for f in leaf_files:
+        p = Path(f)
+        if not p.exists():
+            p = base / f
+        recs = sniff_and_read(p)
+        if molc is None:
+            molc = ab.infer_molc(recs[0].seq)
+        leaves.append(single(ab.encode(recs[0].seq.replace("-", ""), molc),
+                             molc, recs[0].name))
+    if params is None:
+        params = default_params(molc, "prrn")
+    mtx, _ = scoring.build_matrix(molc, params)
+    msa = progressive_msa(leaves, t, mtx, u=params.u, v=params.v,
+                          sh=params.sh, device=device)
+    if refine and msa.many > 2:
+        res = refine_msa(msa, mtx, u=params.u, v=params.v, sh=params.sh,
+                         maxitr=maxitr, randseed=randseed,
+                         crand=GlibcRand(1), device=device)
+        msa = res.msa
+    return msa
+
+
 def build_msa_denovo_large(records, params: AlnParams, molc: int,
                            maxitr: int = 10, randseed: int = 1,
                            refine: bool = True, m_nearest: int = 8,
                            max_memb: int = 2 ** 31 - 1, nbatch: int = 1,
-                           divmode: str = "tree", *, device) -> Msa:
+                           divmode: str = "tree",
+                           dump_prefix: str | None = None, *,
+                           device) -> Msa:
     """De-novo MSA for many sequences via the single-linkage forest
     (reference de_novo_prrn, prrn5.cc:1300-1332 + SlfPrrn::make_msa
     :1174-1260): sparse k-mer-filtered DP distance graph, Kruskal forest,
     per-subtree progressive + refinement, profile combination, leftover
-    singletons cut in, final refinement."""
+    singletons cut in, final refinement.  With ``dump_prefix`` (``-e``)
+    each sub-MSA is written to ``PREFIX.k`` instead of being merged, and
+    the first is returned."""
     mtx, _ = scoring.build_matrix(molc, params)
     seqs = [ab.encode(r.seq.replace("-", ""), molc) for r in records]
     names = [r.name for r in records]
@@ -207,6 +248,13 @@ def build_msa_denovo_large(records, params: AlnParams, molc: int,
                 m = res.msa
             sub_msas.append(m)
     runstat.stamp(len(sub_msas))      # subtrees aligned (prrn5.cc:1149)
+
+    if dump_prefix is not None and sub_msas:
+        # -e: write each sub-MSA to PREFIX.N instead of merging
+        # (prrn5.cc:1099-1107,1162-1172 piecewise workflow)
+        for k, m in enumerate(sub_msas):
+            write_native_block(m, f"{dump_prefix}.{k}")
+        return sub_msas[0]
 
     if not sub_msas:
         # no edges below threshold: all-by-all, as the JAX package has it

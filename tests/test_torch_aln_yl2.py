@@ -4,8 +4,8 @@ package's stdout fixtures, made by
     JAX_PLATFORMS=cpu python -c "from prrn_aln_tpu.cli import aln_main; \\
         aln_main(['-yl2', G, Q])" > tests/fixtures/jax_aln_yl2_<case>.txt
 
-and against the reference's ``-O 5`` golden; the modes not yet ported
-exit with an error."""
+and against the reference's ``-O 5`` golden; the other modes against
+the JAX CLI; a DNA query (fwd2s) exits as not yet ported."""
 
 import contextlib
 import io as _io
@@ -54,14 +54,39 @@ def test_aln_yl2_O5_matches_reference():
     (["-M"], "-M"),
     ([], "without -yl2"),
 ])
-def test_unported_modes_exit(argv, what, capsys):
-    g, q = CASES["mini"]
-    extra = [] if what == "without -yl2" else ["-yl2"]
-    with pytest.raises(SystemExit):
-        aln_main([*extra, *argv, str(FIX / g), str(FIX / q), "--device",
-                  "cpu"])
-    err = capsys.readouterr().err
-    assert "not yet ported" in err and what in err
+def test_unported_modes_exit(argv, what, tmp_path):
+    """The modes that once exited "not yet ported", each against the JAX
+    CLI on inputs of its kind: the pileup (``-a``) of three proteins, the
+    shuffle test (``-R``) and the plain pair (no ``-yl2``) of mini_pro x
+    ce13a1, the local colonies (``-L s``) of loc_a x loc_b, and the
+    both-strand search (``-M``) of a DNA pair, the second reversed and
+    complemented."""
+    from prrn_aln_tpu.cli import aln_main as jax_aln_main
+    pro = [str(FIX / "mini_pro.fa"), str(FIX / "ce13a1_unaligned.fa")]
+    if what == "-a":
+        recs = (FIX / "idn_p.fa").read_text().splitlines()
+        third = tmp_path / "third.fa"
+        third.write_text(">prC\n" + "".join(recs[1:])[:90] + "\n")
+        inputs = [*pro, str(third)]
+    elif what == "-L s":
+        inputs = [str(FIX / "loc_a.fa"), str(FIX / "loc_b.fa")]
+    elif what == "-M":
+        seq = "".join((FIX / "loc_a.fa").read_text().splitlines()[1:])
+        comp = {"A": "T", "T": "A", "C": "G", "G": "C"}
+        (tmp_path / "x.fa").write_text(">x\n" + seq + "\n")
+        (tmp_path / "y.fa").write_text(
+            ">y\n" + "".join(comp[c] for c in reversed(seq[20:200])) + "\n")
+        inputs = [str(tmp_path / "x.fa"), str(tmp_path / "y.fa")]
+    else:
+        inputs = pro
+    outs = []
+    for main, extra in ((aln_main, ["--device", "cpu"]), (jax_aln_main, [])):
+        out, err = _io.StringIO(), _io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            assert main([*argv, *inputs, *extra]) == 0
+        outs.append((out.getvalue(), err.getvalue()))
+    assert outs[0] == outs[1]
+    assert outs[0][0]
 
 
 def test_dna_query_not_yet_ported(capsys):

@@ -17,7 +17,9 @@ def test_port_imports_no_jax():
             "for name in mods:\n"
             "    importlib.import_module(name)\n"
             "for need in ('cli', 'ops.spliced_h', 'splice.hapi', 'native',"
-            " 'msa.kmer', 'msa.slforest', 'ops.seeded'):\n"
+            " 'msa.kmer', 'msa.slforest', 'ops.seeded', 'msa.sets',"
+            " 'msa.outliers', 'msa.sptree', 'msa.shuffle', 'msa.local',"
+            " 'ops.local_np', 'utils.seqtools'):\n"
             "    assert 'prrn_aln_tpu_torch.' + need in mods, mods\n"
             "bad = [m for m in sys.modules if m == 'jax'"
             " or m.startswith('jax.') or m == 'prrn_aln_tpu'"
@@ -81,3 +83,32 @@ def test_forest_path_runs_without_jax(tmp_path):
                          cwd=ROOT, capture_output=True, text=True,
                          timeout=600, check=True)
     assert res.stdout.count("| f0s") >= 8 and res.stdout.count("| f1s") >= 8
+
+
+def test_pair_and_update_modes_run_without_jax(tmp_path):
+    """With ``jax`` and ``prrn_aln_tpu`` made unimportable, the port's
+    ``aln`` merges two small groups (with the shuffle test) and its
+    ``prrn -U`` combines and refines them, on the CPU."""
+    for name, rows in (("ga.fa", ["MKVLWAAGLF-DERT", "MKVLWA-GLFDDERS"]),
+                       ("gb.fa", ["MRVLWAAGIFDQRT", "MKILWAAG-FDQRT"])):
+        (tmp_path / name).write_text("".join(
+            f">{name[1]}{i}\n{r}\n" for i, r in enumerate(rows)))
+    (tmp_path / "s.fa").write_text(">s\nMKVLWAAGLFDERT\n")
+    (tmp_path / "t.fa").write_text(">t\nMRVLWAGIFDQRS\n")
+    code = ("import sys\n"
+            "class Block:\n"
+            "    def find_spec(self, name, path=None, target=None):\n"
+            "        if name.split('.')[0] in ('jax', 'prrn_aln_tpu'):\n"
+            "            raise ModuleNotFoundError(name)\n"
+            "sys.meta_path.insert(0, Block())\n"
+            "from prrn_aln_tpu_torch.cli import aln_main, prrn_main\n"
+            "d = sys.argv[1]\n"
+            "assert aln_main(['-R', '4', d + '/s.fa', d + '/t.fa',"
+            " '--device', 'cpu']) == 0\n"
+            "assert prrn_main(['-U', '-R', '0', d + '/ga.fa', d + '/gb.fa',"
+            " '--device', 'cpu']) == 0\n")
+    res = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=300, check=True)
+    assert res.stdout.startswith("Dev = ")
+    assert res.stdout.count("| a") >= 2 and res.stdout.count("| b") >= 2

@@ -5,6 +5,8 @@ reference's golden alignment exact; and on fam19 (19 proteins), which
 takes the single-linkage forest path, against fixtures made the same way
 (``jax_prrn_fam19_R0.txt``; ``jax_prrn_fam19_R0_I0.txt`` with ``-I 0``)."""
 
+import contextlib
+import io as _io
 import re
 from pathlib import Path
 
@@ -32,6 +34,13 @@ def _rows(text):
     return {k: "".join(v) for k, v in rows.items()}
 
 
+def _stdout(main, argv):
+    buf = _io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert main(argv) == 0
+    return buf.getvalue()
+
+
 def test_ce13a17_matches_jax_fixture(tmp_path):
     out = tmp_path / "msa.txt"
     assert prrn_main(["-R", "0", str(FIX / "ce13a17_clean.fa"), "-o",
@@ -42,15 +51,34 @@ def test_ce13a17_matches_jax_fixture(tmp_path):
     assert _rows(text) == golden
 
 
-def test_forest_path_not_ported(capsys):
-    """What the forest path still lacks: dumping the sub-MSAs (``-e``)
-    and the update mode's flags exit as not yet ported."""
+def test_forest_path_not_ported(tmp_path):
+    """The forest path's flags that once exited "not yet ported": ``-e``
+    writes each sub-MSA of fam19's forest to ``PREFIX.k`` (all equal to
+    the JAX package's files, the first also printed); ``-U`` combines
+    two of them and refines, and ``-G`` refines the result in groups,
+    both equal to the JAX CLI's output."""
+    from prrn_aln_tpu.cli import prrn_main as jax_prrn_main
     recs = io.read_fasta(FIX / "fam19.fa")
     assert len(recs) >= FOREST_MIN_SEQS
-    for flags in (["-e", "sub"], ["-G", "groups.txt"], ["-U"]):
-        with pytest.raises(SystemExit):
-            prrn_main([*flags, str(FIX / "fam19.fa"), "--device", "cpu"])
-        assert "not yet ported" in capsys.readouterr().err
+    prefix = tmp_path / "sub"
+    got = _stdout(prrn_main, ["-R", "0", "-I", "0", "-e", str(prefix),
+                              str(FIX / "fam19.fa"), "--device", "cpu"])
+    dumps = sorted(tmp_path.glob("sub.*"), key=lambda p: int(p.suffix[1:]))
+    assert [p.suffix for p in dumps] == [f".{k}" for k in range(7)]
+    for k, p in enumerate(dumps):
+        assert p.read_text() == (
+            FIX / f"jax_prrn_fam19_e_I0.{k}.txt").read_text(), p.name
+    assert got == dumps[0].read_text()
+    combined = tmp_path / "combined.txt"
+    for flags, inputs, out in (
+            (["-U"], [str(dumps[1]), str(dumps[2])], combined),
+            (["-G", "1 2/3/4"], [str(combined)], None)):
+        argv = ["-R", "0", *flags, *inputs]
+        text = _stdout(prrn_main, [*argv, "--device", "cpu"])
+        assert text == _stdout(jax_prrn_main, argv)
+        assert len(_rows(text)) == 4
+        if out:
+            out.write_text(text)
 
 
 def test_fam19_forest_without_refinement_matches_jax_fixture(tmp_path):

@@ -81,11 +81,21 @@ def test_refinement_from_jax_state_matches(slice5):
     assert got.names == want.names
 
 
-def test_cli_rejects_unported_flags(slice5, capsys):
-    with pytest.raises(SystemExit) as exc:
-        prrn_main(["-U", str(slice5), "--device", "cpu"])
-    assert exc.value.code != 0
-    assert "not yet ported" in capsys.readouterr().err
+def test_cli_rejects_unported_flags(slice5, tmp_path):
+    """``-U``, which once exited "not yet ported": a pre-aligned host (4
+    members aligned by the JAX package) and an unaligned guest, cut in
+    and refined, byte-identical to the JAX CLI."""
+    aligned = _stdout(jax_prrn_main, ["-R", "0", "-I", "0", str(slice5)])
+    native = tmp_path / "aligned.txt"
+    native.write_text(aligned)
+    recs = jio.sniff_and_read(native)
+    host, guest = tmp_path / "host.fa", tmp_path / "guest.fa"
+    host.write_text("".join(f">{r.name}\n{r.seq}\n" for r in recs[:4]))
+    guest.write_text(f">{recs[4].name}\n{recs[4].seq.replace('-', '')}\n")
+    argv = ["-U", "-R", "0", str(host), str(guest)]
+    got = _stdout(prrn_main, [*argv, "--device", "cpu"])
+    assert got == _stdout(jax_prrn_main, argv)
+    assert got.count(recs[4].name) >= 2
 
 
 def test_cli_cuda_absent_raises(slice5):
