@@ -8,7 +8,7 @@ Run from the repository root with no arguments:
 Phases (each raises on failure, so the script exits non-zero):
 
 0. device: CUDA must be available; prints the card and its power limit;
-1. build: compiles the six CUDA kernels from ``prrn_aln_tpu_torch/csrc``
+1. build: compiles the seven CUDA kernels from ``prrn_aln_tpu_torch/csrc``
    (one ``nvcc`` per source, all at once);
 2. K1 (pairwise DP) against its plain PyTorch version on the card, on the
    pairwise fixtures and on 512 random pairs of 512 x 512 at sh=-60,
@@ -99,14 +99,35 @@ Phases (each raises on failure, so the script exits non-zero):
    aligner, no kernel), ``align_pair(ls=3)`` on the same pair (K2's
    long-gap lanes, against the JAX accelerator branch's output) and
    ``aln -R 10`` (11 scores in one K1 launch); each mode's wall and
-   launches, then the card line.
+   launches, then the card line;
+14. spliced alignment of a cDNA against genomic DNA (``aln_G``, kernel
+   K5): (a) ``aln -G`` on gen1 x cdna1 and gen2 x cdna2 in every mode
+   (``-O 0, 2, 3, 4, 5`` and the default), each run with the launch
+   counts set to 0 just before it, byte-identical to the JAX f32
+   engine's fixtures ``jax_aln_G_gen{1,2}_*.txt``, one K5 launch each;
+   (b) K5 against its plain version, bit for bit (planes, final H band,
+   and the score and knots lastS and the traceback make of them), on
+   the inputs gen1, gen2 and a medium gene (~600 nt x 3.3 kb, two
+   introns past 825 nt) give it (the plain sweep on the card for gen2,
+   timed, on a CPU copy of the inputs for the others); K5's time, its
+   launch plan (threads, rows a thread, what sits in shared memory),
+   microseconds a wave, registers and spilled bytes;
+   (c) the realistic gene (``GENES``: 8 exons, 7 introns of 300-4,000
+   nt, ~2.2 kb against ~18 kb), timing only: the ``aln -G`` wall cold
+   and warm, the host traceback's seconds, peak device memory, K5's time
+   and microseconds a wave; (d) ``refgs`` on the in-repo family (as
+   annotated, and with ce13a1's second exon perturbed and the MSA
+   rebuilt) and ``refgs_main``, against the fixtures
+   ``jax_refgs_*.txt``, with the launches of K4, K4w, K1, K2 and K3; then
+   the card line.
 
 Prints one JSON line per phase, then the card line, the kernels line
 (launches from the cold runs of phases 4 and 10, for K1f from the run
 under the switch in phase 6, for K3's range walk from the linear
-aligner's run in phase 12, and each phase 13 mode's under
-``cli_modes``; times at the main paths' shapes, bounds from
-the same inputs) and, last, ``{"ok": true, "device": {...}}``.
+aligner's run in phase 12, each phase 13 mode's under ``cli_modes``,
+and K5's from ``aln -G`` on gen2 in phase 14; times at the main paths'
+shapes, bounds from the same inputs) and, last, ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -134,7 +155,7 @@ from prrn_aln_tpu_torch.msa import distance, kmer, progressive, slforest, tree
 from prrn_aln_tpu_torch.msa.merge import merge_msas
 from prrn_aln_tpu_torch.msa.msa import Msa, msa_from_strings
 from prrn_aln_tpu_torch.ops import _build, group as G, pairwise
-from prrn_aln_tpu_torch.ops import seeded, spliced_h as SH
+from prrn_aln_tpu_torch.ops import seeded, spliced_h as SH, spliced_s as SS
 from prrn_aln_tpu_torch.ops.window import stripe
 
 ROOT = Path(__file__).resolve().parent
@@ -1241,6 +1262,12 @@ def phase_k4() -> dict:
     return out
 
 
+def write_fasta(path: Path, name: str, seq: str) -> str:
+    path.write_text(f">{name}\n" + "\n".join(
+        seq[i:i + 60] for i in range(0, len(seq), 60)) + "\n")
+    return str(path)
+
+
 def phase_flagship() -> None:
     """The flagship's shape, timing only: a 34.9 kb genome holding the
     2.3 kb CET10B9 window at 31,400 in uniform random flanks, against
@@ -1253,10 +1280,9 @@ def phase_flagship() -> None:
 
     genome = flank(31400) + win + flank(34900 - 31400 - len(win))
     with tempfile.TemporaryDirectory() as tmp:
-        path = Path(tmp) / "flagship_shape.fa"
-        path.write_text(">flagship_shape\n" + "\n".join(
-            genome[i:i + 60] for i in range(0, len(genome), 60)) + "\n")
-        calls, text, secs = capture_aln(["-yl2", str(path),
+        path = write_fasta(Path(tmp) / "flagship_shape.fa", "flagship_shape",
+                           genome)
+        calls, text, secs = capture_aln(["-yl2", path,
                                          str(FIX / "ce13a.msa")])
     (ins,), sw = calls["sweep"][0]
     wargs, wk = calls["walk"][0]
@@ -1605,6 +1631,64 @@ def write_cli_inputs(tmp: Path) -> dict:
     return {"multi": multi, "ce13a17": str(ce)}
 
 
+# the refgs family's exon structure of ce13a1 in its genome, and the
+# perturbed one (a wrong second-exon start)
+REFGS_EXONS = [(66, 251), (307, 651)]
+REFGS_BAD = [(66, 251), (331, 651)]
+
+
+def refgs_family_inputs() -> tuple[str, list]:
+    """The refgs family from files in the repository (as
+    tests/test_refgs.py builds it from the reference's samples): the
+    genome is CET10B9[31549:32450] (``cet10b9_win31401.fa[149:1050]``),
+    ce13a1 its translated two-exon structure, the other members the
+    first 172 residues of ``ce13a17_clean.fa``'s.  Returns the genome and
+    (name, protein, exons or None) for each member."""
+    from prrn_aln_tpu_torch.utils.seqtools import translate
+    g = pio.sniff_and_read(FIX / "cet10b9_win31401.fa")[0].seq.upper()
+    g = g[149:1050]
+    cds = "".join(g[a - 1:b] for a, b in REFGS_EXONS)
+    members = [("ce13a1", translate(ab.encode(cds, ab.DNA)),
+                list(REFGS_EXONS))]
+    members += [(r.name, r.seq[:172], None)
+                for r in pio.read_fasta(FIX / "ce13a17_clean.fa")
+                if r.name != "ce13a1"]
+    return g, members
+
+
+def refgs_text(res) -> str:
+    """A refgs result as its fixture holds it: iterations, each member's
+    status, ;C exons and sequence, the outliers and the rebuilt MSA's
+    rows."""
+    lines = [f"iters {res.iters}"]
+    for r in res.records:
+        lines.append(f">{r.name}\t{res.status[r.name]}")
+        if r.exons:
+            lines.append(";C join(" + ",".join(
+                f"{a}..{b}" for a, b in r.exons) + ")")
+        lines.append(r.seq)
+    lines.append("outliers " + " ".join(res.outliers))
+    lines.append(f"msa_rows {res.msa.many if res.msa is not None else 0}")
+    return "\n".join(lines) + "\n"
+
+
+def write_refgs_inputs(tmp: Path, g: str, members) -> tuple[str, str]:
+    """The family ((name, protein, exons) each) and its genome as files
+    for ``refgs_main``."""
+    fam = tmp / "refgs_family.fa"
+    lines = []
+    for name, seq, exons in members:
+        lines.append(f">{name}")
+        if exons:
+            lines.append(";C join(" + ",".join(
+                f"{a}..{b}" for a, b in exons) + ")")
+        lines.append(seq)
+    fam.write_text("\n".join(lines) + "\n")
+    gen = tmp / "refgs_genome.fa"
+    gen.write_text(">win\n" + g + "\n")
+    return str(fam), str(gen)
+
+
 def run_cli(main, argv, env=None) -> tuple[str, float, dict]:
     """One CLI run on the card with the launch counts set to 0 just
     before it: its standard output, seconds and launches."""
@@ -1741,6 +1825,277 @@ def phase_cli_modes() -> dict:
     return out
 
 
+# aln -G's modes (the fixtures' suffix and the flags), and the genes of
+# phase 14 made from a seed: (nexon, exon nt, intron nt, flank nt, share
+# of the cDNA substituted)
+ALN_G_MODES = {"O0": ["-O", "0"], "O2": ["-O", "2"], "O3": ["-O", "3"],
+               "O4": ["-O", "4"], "O5": ["-O", "5"], "default": []}
+GENES = {"medium": (1, 3, (180, 220), (900, 1100), 300, 0.01),
+         "realistic": (0, 8, (150, 401), (300, 4001), 1000, 0.01)}
+
+
+def spliced_gene(name: str) -> tuple[str, str, list]:
+    """A gene of ``GENES`` from its seed: random exons joined by GT...AG
+    introns in random flanks, its cDNA (the joined exons with a share of
+    point substitutions) and its introns' lengths."""
+    seed, nexon, exon, intron, flank, sub = GENES[name]
+    rng = np.random.default_rng(seed)
+    bases = np.array(list("ACGT"))
+
+    def rand(k):
+        return "".join(bases[rng.integers(0, 4, k)])
+
+    exons = [rand(int(rng.integers(*exon))) for _ in range(nexon)]
+    parts = [rand(flank)]
+    introns = []
+    for k, ex in enumerate(exons):
+        parts.append(ex)
+        if k < nexon - 1:
+            introns.append(int(rng.integers(*intron)))
+            parts.append("GT" + rand(introns[-1] - 4) + "AG")
+    parts.append(rand(flank))
+    cdna = np.array(list("".join(exons)))
+    pos = rng.choice(len(cdna), int(round(sub * len(cdna))), replace=False)
+    for p_ in pos:
+        cdna[p_] = bases[(int(np.nonzero(bases == cdna[p_])[0][0])
+                          + int(rng.integers(1, 4))) % 4]
+    return "".join(parts), "".join(cdna), introns
+
+
+def capture_aln_G(argv) -> tuple[dict, str, float, dict]:
+    """One ``aln -G`` run on the card with recorders at K5's launch and
+    the host traceback; returns K5's calls as (inputs, output), the host
+    traceback's seconds, the output, the run's seconds and launches."""
+    calls = {"sweep": [], "traceback_s": 0.0}
+    real_s, real_t = SS._launch_sweep_s, SS._traceback
+
+    def rec_s(ins, plan=None):
+        out = real_s(ins, plan)
+        calls["sweep"].append((ins, out))
+        return out
+
+    def rec_t(*args):
+        t0 = time.perf_counter()
+        out = real_t(*args)
+        calls["traceback_s"] += time.perf_counter() - t0
+        return out
+
+    SS._launch_sweep_s, SS._traceback = rec_s, rec_t
+    try:
+        text, secs, counts = run_cli(aln_main, argv)
+    finally:
+        SS._launch_sweep_s, SS._traceback = real_s, real_t
+    return calls, text, secs, counts
+
+
+def k5_check(name: str, ins: SS.SweepInputsS, sw: SS.SweepS,
+             on_card: bool) -> dict:
+    """K5's planes and final H band against the plain version's, bit for
+    bit (the values as their bits), and the score and knots that lastS
+    and the traceback make of each.  The plain version runs on the card
+    (timed there) or on a CPU copy of the same inputs (the penalty table
+    is one of them, so the copy computes the same values)."""
+    if on_card:
+        got = []
+        plain_ms = time_once_ms(lambda: got.append(SS.sweep_s_ref(ins)))
+        ref, out = got[0], {"plain_ms": plain_ms}
+    else:
+        t0 = time.perf_counter()
+        ref = SS.sweep_s_ref(ins.to("cpu"))
+        out = {"plain_ms": None,
+               "plain_cpu_ms": (time.perf_counter() - t0) * 1e3}
+    for field in SS.SweepS._fields:
+        got, want = getattr(sw, field).cpu(), getattr(ref, field).cpu()
+        if got.dtype == torch.float32:
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K5 {field} != plain on {name}")
+    score, skl = SS.finish_s(ins, sw)
+    if (score, skl) != SS.finish_s(ins, ref):
+        raise AssertionError(f"K5's knots != plain on {name}")
+    out["max_abs_err"] = float((sw.HV.cpu() - ref.HV.cpu()).abs().max())
+    out["knots"] = len(skl)
+    return out
+
+
+def k5_ops(ins: SS.SweepInputsS) -> int:
+    """Float operations the sweep needs on these inputs (counted from
+    sweep_s_ref's wave body): 12 a band cell (the diagonal, vertical and
+    horizontal candidates and their maxima), at most 16 more at an
+    acceptor site (4 candidates of 3 adds and a compare) and 21 at a
+    donor site (3 lanes of threshold, value and rank compares)."""
+    la, lb = ins.la, ins.lb
+    cano3 = ins.cano3.cpu().numpy() > 0
+    cano5 = ins.cano5.cpu().numpy() > 0
+    acc = np.concatenate([[0], np.cumsum(cano3)])
+    don = np.concatenate([[0], np.cumsum(cano5)])
+    m = np.arange(ins.m_start, la + 1)
+    lo = np.maximum(m + ins.lw, 1)
+    hi = np.minimum(m + ins.up, lb)
+    ok = hi >= lo
+    cells = int(np.where(ok, hi - lo + 1, 0).sum())
+    sites = ok & ((m < la) | (not ins.a_exgr))
+    lo_c, hi_c = np.clip(lo, 0, lb + 1), np.clip(hi + 1, 0, lb + 1)
+    n_acc = int(np.where(sites, acc[hi_c] - acc[lo_c], 0).sum())
+    n_don = int(np.where(sites, don[hi_c] - don[lo_c], 0).sum())
+    return 12 * cells + 16 * n_acc + 21 * n_don
+
+
+def k5_bound(ins: SS.SweepInputsS, sw: SS.SweepS) -> dict:
+    ins_bytes = tensor_bytes(*(v for v in vars(ins).values()
+                               if isinstance(v, torch.Tensor)))
+    return bound(ins_bytes + tensor_bytes(*sw), k5_ops(ins))
+
+
+def k5_launch(ins: SS.SweepInputsS, ms: float) -> dict:
+    """K5's launch plan for these inputs, microseconds a wave, and the
+    chosen variant's registers and spilled bytes."""
+    plan = SS.sweep_s_plan(ins.rows, ins.mtx.shape[0], ins.lb + 2)
+    return {"threads": plan["threads"], "rows_a_thread": plan["rpt"],
+            "rings_in_smem": plan["ring_smem"],
+            "penalty_in_smem": plan["pen_smem"], "smem_bytes": plan["smem"],
+            "us_per_wave": ms * 1e3 / max(ins.waves, 1),
+            **SS.spliced_s_wave_attrs(plan["rpt"] > 1)}
+
+
+def phase_aln_G() -> dict:
+    """Phase 14: ``aln -G`` (a cDNA against genomic DNA) on the card, and
+    ``refgs``.  (a) gen1 and gen2 in every mode against the JAX f32
+    engine's fixtures, K5 launched; (b) K5 against its plain version on
+    gen1, gen2 and the medium gene (planes, final band, score and
+    knots); (c) the realistic gene, timed
+    only: the wall cold and warm, K5's time and microseconds a wave, the
+    host traceback's, peak device memory; (d) refgs on the in-repo family
+    against its fixtures, with the launches of K4, K4w, K1, K2 and K3."""
+    out = {"modes": {}}
+    for case in (1, 2):
+        for mode, flags in ALN_G_MODES.items():
+            fixture = f"jax_aln_G_gen{case}_{mode}.txt"
+            calls, text, secs, counts = capture_aln_G(
+                ["-G", *flags, str(FIX / f"gen{case}.fa"),
+                 str(FIX / f"cdna{case}.fa")])
+            if text != (FIX / fixture).read_text():
+                raise AssertionError(f"aln -G {mode} on gen{case} differs "
+                                     f"from {fixture}")
+            if counts.get("spliced_s_wave", 0) != 1:
+                raise AssertionError(f"aln -G {mode} on gen{case}: "
+                                     f"{counts} launches")
+            out["modes"][f"gen{case}_{mode}"] = counts
+            emit({"phase": f"aln_G_gen{case}_{mode}", "seconds": secs,
+                  "bytes": len(text), "fixture": fixture,
+                  "launches": counts})
+            if mode == "default":
+                out[f"gen{case}"] = calls["sweep"][0]
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        introns = {}
+        for name in GENES:
+            genome, cdna, introns[name] = spliced_gene(name)
+            out[name] = (write_fasta(tmp / f"{name}_genome.fa",
+                                     f"{name}_genome", genome),
+                         write_fasta(tmp / f"{name}_cdna.fa", f"{name}_cdna",
+                                     cdna))
+        # (b) K5 against its plain version: on the card for gen2 (its
+        # time there is the kernels line's plain_ms), on a CPU copy of
+        # the inputs for gen1 and the medium gene
+        for name in ("gen1", "gen2", "medium"):
+            if name == "medium":
+                calls, _, _, _ = capture_aln_G(["-G", "-O", "4",
+                                                *out["medium"]])
+                ins, sw = calls["sweep"][0]
+            else:
+                ins, sw = out[name]
+            chk = k5_check(name, ins, sw, on_card=name == "gen2")
+            ms = time_ms(lambda: SS._launch_sweep_s(ins), 5)
+            entry = {"max_abs_err": chk["max_abs_err"], "ms": ms,
+                     "plain_ms": chk["plain_ms"], **k5_bound(ins, sw)}
+            if "plain_cpu_ms" in chk:
+                entry["plain_cpu_ms"] = chk["plain_cpu_ms"]
+            emit({"phase": f"k5_{name}", "rows": ins.rows, "W": ins.W,
+                  "genome": ins.lb, "waves": ins.waves,
+                  "band_cells": ins.band_cells, "planes_equal": True,
+                  "band_equal": True, "knots_equal": True,
+                  "knots": chk["knots"], "k5": entry,
+                  "k5_launch": k5_launch(ins, ms)})
+            out[f"k5_{name}"] = entry
+        # (c) the realistic gene, timing only
+        walls = {}
+        calls = None
+        for run in ("cold", "warm"):
+            calls = None           # the last run's planes are not held
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            calls, text, secs, counts = capture_aln_G(
+                ["-G", "-O", "4", *out["realistic"]])
+            walls[run] = {"seconds": secs, "launches": counts,
+                          "traceback_s": calls["traceback_s"],
+                          "peak_mb": torch.cuda.max_memory_allocated() / 1e6}
+        ins, sw = calls["sweep"][0]
+        ms = time_ms(lambda: SS._launch_sweep_s(ins), 3)
+        emit({"phase": "aln_G_realistic", "rows": ins.rows, "W": ins.W,
+              "genome": ins.lb, "waves": ins.waves,
+              "band_cells": ins.band_cells,
+              "planes_mb": tensor_bytes(sw.ev, sw.jdon) / 1e6,
+              "introns": introns["realistic"], "output_lines":
+              len(text.splitlines()), "walls": walls, "k5_ms": ms,
+              "k5_us_per_wave": ms * 1e3 / ins.waves,
+              "gcups": ins.band_cells / (ms * 1e6),
+              "k5_bound": k5_bound(ins, sw),
+              "k5_launch": k5_launch(ins, ms)})
+        out["realistic_k5"] = {"ms": ms, **k5_bound(ins, sw)}
+        del calls, sw, ins
+        # (d) refgs on the in-repo family
+        from prrn_aln_tpu_torch import refgs as rg
+        from prrn_aln_tpu_torch.cli import refgs_main
+        from prrn_aln_tpu_torch.io import SeqRecord
+        g, fam = refgs_family_inputs()
+        members = [SeqRecord(n_, s_, exons=e_) for n_, s_, e_ in fam]
+
+        def genome_of(name):
+            return (g, 0) if name == "ce13a1" else None
+
+        bad = [SeqRecord(members[0].name, members[0].seq,
+                         exons=list(REFGS_BAD)), *members[1:]]
+        for case, kw, need in (
+                ("ok", dict(records=members, rebuild=False),
+                 ("spliced_h_wave", "spliced_h_walk")),
+                ("perturbed", dict(records=bad, rebuild=True),
+                 ("spliced_h_wave", "spliced_h_walk", "pairwise",
+                  "group_wavefront", "traceback"))):
+            _build.LAUNCHES.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = rg.refgs_family(kw["records"], genome_of, iters=2,
+                                  rebuild=kw["rebuild"],
+                                  device=torch.device("cuda"))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = dict(_build.LAUNCHES)
+            fixture = f"jax_refgs_{case}.txt"
+            if refgs_text(res) != (FIX / fixture).read_text():
+                raise AssertionError(f"refgs {case} differs from {fixture}")
+            for k in need:
+                if counts.get(k, 0) <= 0:
+                    raise AssertionError(f"refgs {case} never launched {k}")
+            out[f"refgs_{case}"] = counts
+            emit({"phase": f"refgs_{case}", "seconds": secs,
+                  "fixture": fixture, "launches": counts})
+        fam_path, gen = write_refgs_inputs(tmp, g, fam)
+        res_path = tmp / "refgs_out.fa"
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            _, secs, counts = run_cli(refgs_main, [
+                "-n", gen, "-m", "ce13a1", "-I", "1", "-t", str(res_path),
+                "-pq", fam_path])
+        text = res_path.read_text() + "--- stderr\n" + err.getvalue()
+        if text != (FIX / "jax_refgs_cli.txt").read_text():
+            raise AssertionError("refgs_main differs from jax_refgs_cli.txt")
+        emit({"phase": "refgs_cli", "seconds": secs,
+              "fixture": "jax_refgs_cli.txt", "launches": counts})
+    print(card_line(), flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1771,6 +2126,7 @@ def main() -> int:
     phase_flagship()
     k2_long, walk_entry = phase_long_pair(dev)
     cli = phase_cli_modes()
+    aln_G = phase_aln_G()
 
     def cli_launches(name):
         return {mode: c[name] for mode, c in cli.items() if c.get(name)}
@@ -1814,6 +2170,14 @@ def main() -> int:
          "source": "prrn_aln_tpu_torch/csrc/spliced_h_walk.cu",
          "replaces": "prrn_aln_tpu/ops/pallas_spliced_h.py:1016",
          "launches": aln_launches["spliced_h_walk"], **k4w},
+        {"name": "spliced_s_wave", "route": "cuda",
+         "source": "prrn_aln_tpu_torch/csrc/spliced_s_wave.cu",
+         "replaces": "prrn_aln_tpu/ops/spliced_jax.py:73",
+         "launches": aln_G["modes"]["gen2_default"]["spliced_s_wave"],
+         **{k: x for k, x in aln_G["k5_gen2"].items()},
+         "medium": aln_G["k5_medium"], "realistic": aln_G["realistic_k5"],
+         "refgs": {"ok": aln_G["refgs_ok"],
+                   "perturbed": aln_G["refgs_perturbed"]}},
     ]
     print(card_line(), flush=True)
     emit({"kernels": kernels})

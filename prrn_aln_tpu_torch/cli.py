@@ -4,8 +4,8 @@ and spliced alignment) of the port.
 Counterparts of ``prrn_aln_tpu/cli.py::prrn_main`` and ``aln_main``:
 the same flags and the same output bytes.  The port adds ``--device``
 (default ``cuda``); a CUDA device that is absent is an error, never a
-switch to the CPU.  What is still to port exits with a "not yet ported"
-error: ``aln -G``/``-yl`` with a DNA query (fwd2s).
+switch to the CPU.  ``refgs_main`` is the counterpart of the JAX
+package's ``refgs`` (concerted gene-structure refinement).
 """
 
 from __future__ import annotations
@@ -512,7 +512,7 @@ def aln_main(argv=None) -> int:
         return 0
 
     if args.G or args.yl in (2, 3):
-        return _aln_spliced(p, args, device)
+        return _aln_spliced(args, device)
 
     groups = []
     for f in args.inputs:
@@ -605,21 +605,28 @@ def _group_pair_text(A, B, merged, score: float, params) -> str:
                                  csym_min=2)
 
 
-def _aln_spliced(p, args, device) -> int:
-    """``aln -yl2|-yl3 <genome> <protein | aligned protein MSA>``: gene
-    prediction by the spliced DP (fwd2h) on ``device``."""
-    from .splice.hapi import spliced_align_h
+def _aln_spliced(args, device) -> int:
+    """``aln -G|-yl2|-yl3 <genome> <query>`` on ``device``: a protein or
+    an aligned protein MSA is gene prediction by the fwd2h DP; a DNA
+    query (cDNA or EST) is spliced alignment by the fwd2s DP, one
+    alignment a query record."""
     grecs = io.sniff_and_read(args.inputs[0])
     qrecs = io.sniff_and_read(args.inputs[1])
-    if ab.infer_molc(qrecs[0].seq) != ab.PROTEIN:
-        p.error("not yet ported: see ROADMAP.md: a DNA query (cDNA "
-                "against genome, fwd2s)")
     mode = args.O & 7 if args.O < 16 else args.O
-    common = dict(gname=grecs[0].name,
-                  sh=args.w if args.w is not None else -50, u=args.u,
-                  v=args.v, pam=args.yp, yj=args.yJ, species=args.T,
-                  device=device)
+    sh = args.w if args.w is not None else -50
     out = []
+    if ab.infer_molc(qrecs[0].seq) != ab.PROTEIN:
+        from .splice.api import spliced_align
+        for q in qrecs:
+            res = spliced_align(grecs[0].seq, q.seq, gname=grecs[0].name,
+                                qname=q.name, sh=sh, u=args.u, v=args.v,
+                                species=args.T, device=device)
+            out.append(res.render(mode))
+        _write("".join(out), args.o)
+        return 0
+    from .splice.hapi import spliced_align_h
+    common = dict(gname=grecs[0].name, sh=sh, u=args.u, v=args.v,
+                  pam=args.yp, yj=args.yJ, species=args.T, device=device)
     if len(qrecs) > 1 and len({len(r.seq) for r in qrecs}) == 1:
         # an aligned MSA: the DP runs against its weighted profile
         msa = io.records_to_msa(qrecs, ab.PROTEIN)
@@ -633,6 +640,73 @@ def _aln_spliced(p, args, device) -> int:
                                   **common)
             out.append(res.render(mode))
     _write("".join(out), args.o)
+    return 0
+
+
+def refgs_main(argv=None) -> int:
+    """Concerted gene-structure refinement (reference perl/refgs.pl):
+    re-predict each member's structure against the profile of the
+    others, rebuild the MSA, iterate.  The JAX package's ``refgs`` flags
+    plus ``--device``."""
+    if argv is None:
+        argv = sys.argv[1:]
+    p = argparse.ArgumentParser(
+        prog="refgs",
+        description="iterative gene-structure refinement "
+                    "(refgs.pl L6 pipeline)")
+    p.add_argument("msa", help="gene-structure-annotated multi-FASTA / "
+                               "MSA of the family")
+    p.add_argument("-n", dest="genome", required=True,
+                   help="genomic sequence file (members are windowed "
+                        "by their ;C coordinates when they fit)")
+    p.add_argument("-I", type=int, default=1, help="max iterations")
+    p.add_argument("-m", action="append", default=None,
+                   help="restrict refinement to these members "
+                        "(repeatable; default all)")
+    p.add_argument("-T", dest="species", default=None,
+                   help="species parameter/table directory")
+    p.add_argument("-yJ", type=float, default=None,
+                   help="intron-position match bonus")
+    p.add_argument("-t", dest="out", default=None,
+                   help="write the refined extended FASTA here "
+                        "(default stdout)")
+    p.add_argument("-pq", action="store_true", help="quiet")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the DP kernels (default cuda)")
+    args = p.parse_args(argv)
+    device = _device(args.device)
+
+    from .refgs import refgs_family
+    recs = io.sniff_and_read(args.msa)
+    grec = io.sniff_and_read(args.genome)[0]
+    genome = grec.seq.upper().replace("-", "")
+    allow = set(args.m) if args.m else None
+
+    def genome_of(name):
+        if allow is not None and name not in allow:
+            return None
+        return genome, 0
+
+    res = refgs_family(recs, genome_of, iters=args.I,
+                       species=args.species, yj=args.yJ,
+                       quiet=args.pq, device=device)
+    lines = []
+    for r in res.records:
+        lines.append(f">{r.name}")
+        if r.exons:
+            parts = ",".join(f"{a}..{b}" for a, b in r.exons)
+            lines.append(f";C join({parts})")
+        s = r.seq.replace("-", "")
+        lines.extend(s[i:i + 60] for i in range(0, len(s), 60))
+    text = "\n".join(lines) + "\n"
+    if args.out:
+        Path(args.out).write_text(text)
+    else:
+        sys.stdout.write(text)
+    for name, st_ in res.status.items():
+        print(f"{name}\t{st_}", file=sys.stderr)
+    if res.outliers:
+        print("outliers: " + " ".join(res.outliers), file=sys.stderr)
     return 0
 
 

@@ -1,0 +1,609 @@
+// Kernel K5: the fwd2s forward sweep (a cDNA against genomic DNA with
+// introns), one wave t = 2i + s per step.
+//
+// Replaces prrn_aln_tpu/ops/spliced_jax.py::_sweep (:73), the lax.scan
+// engine behind spliced_align_device (there is no Pallas kernel on this
+// path).  Its plain version is ops/spliced_s.py::sweep_s_ref; both run
+// the scan engine's float operations in its order (built with
+// -fmad=false, and the intron penalty read from the wrapper's table by
+// length), so their planes are equal.
+//
+// The work: one dependent chain of 2 * rows + W - 2 waves.  At a wave
+// every cDNA row i (m = m_start + i) takes the cell of its slot
+// s = t - 2i, which reads row i - 1's H record at slots s (wave t - 2)
+// and s + 1 (wave t - 1) and its G record at the same slots, and its own
+// row's horizontal carry: the f1 lane, the previous cell's record and the
+// donor candidate list (NCAND = 4 ranks over 5 entries).  At an acceptor
+// site it merges up to 4 candidates (three adds each: penalty, pair53,
+// sss3), at a donor site it pushes up to 3 lanes through the list's
+// insertion sort: tens to some hundreds of scalar operations a cell, with
+// branches that differ from row to row.  The bytes it must write are 16
+// a cell (ev and jdon), 0.67 GB for a 2.2 kb cDNA against a 19 kb locus,
+// about 0.2 ms at the card's memory rate; the chain of waves bounds it far
+// above that.
+//
+// What bounds it on the H100: the latency of one wave (a row's cell and
+// the block barrier), times the waves.  The simple design of this kernel:
+// - one block, rows spread over at most 1,024 threads (rows i, i +
+//   blockDim, ...), one __syncthreads a wave;
+// - a row keeps its horizontal carry in registers when its thread has one
+//   row, and in a global scratch (field by field, the row fastest)
+//   otherwise;
+// - each row keeps a ring of its last three waves' H (V, D, GA, GB, J) and
+//   G (V, GA, GB, J) records, which the row below reads; the rings sit in
+//   shared memory where they fit, else in the global scratch (a barrier
+//   orders a write and the reads of the next waves either way; a slot is
+//   overwritten three waves after its write, one barrier after its last
+//   read);
+// - the match score is gathered from the DNA matrix in shared memory (no
+//   la x lb score table), with pair53 beside it and the penalty table
+//   where it fits; the genome-position tables are read through the
+//   read-only cache.
+// It writes ev (rows, W), jdon (rows, W, 3) and the last row's H records,
+// which the host's lastS and traceback read.  A cluster variant with the
+// rings in distributed shared memory (as K4's) is left for later.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float NEVSEL = -8.9e30f;
+constexpr int DEAD = 0, DIAG = 2, NEWD = 3, VERT = 4, HORI = 8, SPIN = 16,
+              SPJCI = 48;
+constexpr int NCAND = 4, NSLOT = NCAND + 1, INTR = 2;
+constexpr int EV_VNEW = 1 << 2, EV_HNEW = 1 << 3, EV_JXH = 1 << 4,
+              EV_JXF = 1 << 5, EV_JXG = 1 << 6;
+// a ring slot: H's 5 fields, then G's V, GA, GB, J; three slots a row
+constexpr int kRecWords = 9, kRingSlots = 3;
+constexpr int kRingWords = kRecWords * kRingSlots;
+// a row's horizontal carry in the scratch: f1 (V, D, GA, J; its GB is
+// always 0), hp (V, D, GA, GB, J), hlV, hlJ, hlD, nx (5 each), ncand
+constexpr int kStateWords = 4 + 5 + 4 * NSLOT + 1;
+constexpr int kThreadsMax = 1024;
+constexpr int kSmemMax = 232448;
+
+struct Params {
+  const int* a;          // (la,) cDNA codes
+  const int* b;          // (lb,) genome codes
+  const float* mtx;      // (K, K)
+  const int* cano3;      // (lb + 1,)
+  const int* cano5;
+  const float* sig5;
+  const int* dinc5;
+  const int* dinc3;
+  const float* sss3;
+  const float* pair53;   // (16, 16)
+  const float* pen;      // (lb + 2,) penalty by length
+  const float* h0v;      // (W + 2,)
+  const int* h0i;        // (4, W + 2): D, GA, GB, J
+  const float* g0v;
+  const int* g0i;
+  const float* fprm;     // gop, gep
+  int* scratch;          // rings (unless in shared memory), then carries
+  int* ev;               // (rows, W)
+  int* jdon;             // (rows, W, 3)
+  float* HV;             // (W + 2,): the last row's H, slots 1..W
+  int* Hi;               // (4, W + 2)
+  int la, lb, lw, up, a_exgl, a_exgr, K, rows, W, ring_smem, pen_smem;
+};
+
+// the row's horizontal carry
+struct Carry {
+  float f1V;
+  int f1D, f1GA, f1J;
+  float hpV;
+  int hpD, hpGA, hpGB, hpJ;
+  float hlV[NSLOT];
+  int hlJ[NSLOT], hlD[NSLOT], nx[NSLOT];
+  int ncand;
+};
+
+__device__ __forceinline__ bool is_diag(int d) {
+  d &= 15;
+  return d == DIAG || d == NEWD;
+}
+__device__ __forceinline__ bool is_vert(int d) {
+  d &= 15;
+  return (d >= 4 && d <= 7) || d == 12;
+}
+__device__ __forceinline__ bool is_hori(int d) {
+  d &= 15;
+  return (d >= 8 && d <= 11) || d == 13;
+}
+// spliced_np.DIR2NOD: the lane a direction's record came from
+__device__ __forceinline__ int dir2nod(int d) {
+  d &= 15;
+  if (d == 2 || d == 3) return 0;
+  if ((d >= 4 && d <= 6) || d == 12) return 2;
+  if (d == 7) return 4;
+  if ((d >= 8 && d <= 10) || d == 13) return 1;
+  if (d == 11) return 3;
+  return -1;
+}
+
+// entry k of a five-entry list held in registers (static indices only)
+template <typename T>
+__device__ __forceinline__ T sel5(const T (&x)[NSLOT], int k) {
+  T v = x[0];
+#pragma unroll
+  for (int j = 1; j < NSLOT; ++j) v = k == j ? x[j] : v;
+  return v;
+}
+template <typename T>
+__device__ __forceinline__ void set5(T (&x)[NSLOT], int k, T v) {
+#pragma unroll
+  for (int j = 0; j < NSLOT; ++j)
+    if (k == j) x[j] = v;
+}
+
+__device__ __forceinline__ void carry_init(Carry& c, const Params& p) {
+  c.f1V = NEVSEL;
+  c.f1D = c.f1GA = c.f1J = 0;
+  const int W2 = p.W + 2;
+  c.hpV = p.h0v[0];
+  c.hpD = p.h0i[0];
+  c.hpGA = p.h0i[W2];
+  c.hpGB = p.h0i[2 * W2];
+  c.hpJ = p.h0i[3 * W2];
+#pragma unroll
+  for (int j = 0; j < NSLOT; ++j) {
+    c.hlV[j] = NEVSEL;
+    c.hlJ[j] = 0;
+    c.hlD[j] = 0;
+    c.nx[j] = j;
+  }
+  c.ncand = 0;
+}
+
+// the carry of row i in the scratch, word w at st[w * rows + i]
+__device__ __forceinline__ void carry_load(Carry& c, const int* st, int R) {
+  c.f1V = __int_as_float(st[0]);
+  c.f1D = st[R];
+  c.f1GA = st[2 * R];
+  c.f1J = st[3 * R];
+  c.hpV = __int_as_float(st[4 * R]);
+  c.hpD = st[5 * R];
+  c.hpGA = st[6 * R];
+  c.hpGB = st[7 * R];
+  c.hpJ = st[8 * R];
+#pragma unroll
+  for (int j = 0; j < NSLOT; ++j) {
+    c.hlV[j] = __int_as_float(st[(9 + j) * R]);
+    c.hlJ[j] = st[(9 + NSLOT + j) * R];
+    c.hlD[j] = st[(9 + 2 * NSLOT + j) * R];
+    c.nx[j] = st[(9 + 3 * NSLOT + j) * R];
+  }
+  c.ncand = st[(9 + 4 * NSLOT) * R];
+}
+
+__device__ __forceinline__ void carry_store(const Carry& c, int* st, int R) {
+  st[0] = __float_as_int(c.f1V);
+  st[R] = c.f1D;
+  st[2 * R] = c.f1GA;
+  st[3 * R] = c.f1J;
+  st[4 * R] = __float_as_int(c.hpV);
+  st[5 * R] = c.hpD;
+  st[6 * R] = c.hpGA;
+  st[7 * R] = c.hpGB;
+  st[8 * R] = c.hpJ;
+#pragma unroll
+  for (int j = 0; j < NSLOT; ++j) {
+    st[(9 + j) * R] = __float_as_int(c.hlV[j]);
+    st[(9 + NSLOT + j) * R] = c.hlJ[j];
+    st[(9 + 2 * NSLOT + j) * R] = c.hlD[j];
+    st[(9 + 3 * NSLOT + j) * R] = c.nx[j];
+  }
+  st[(9 + 4 * NSLOT) * R] = c.ncand;
+}
+
+// one cell: row i at slot s, wave t (spliced_jax._sweep's cell body)
+__device__ __forceinline__ void cell(const Params& p, Carry& c, int i, int s,
+                                     int t, const float* mtx,
+                                     const float* p53, const float* pen,
+                                     int* ring) {
+  const int R = p.rows, W = p.W, W2 = W + 2;
+  const int m = i + (p.a_exgl ? 1 : 0);
+  const int n = m + p.lw + s - 1;
+  const bool valid = n >= max(m + p.lw, 1) && n <= min(m + p.up, p.lb);
+  const bool internal = !p.a_exgr || m < p.la;
+  const float gop = p.fprm[0], gep = p.fprm[1];
+  const float pua = internal ? gep : 0.f;
+  const bool no_diag = m == 0;
+
+  // row i - 1 at slot s (wave t - 2) and s + 1 (wave t - 1): the ring, or
+  // the init records for row 0 and for slot W + 1
+  float dV, uV, gdV, guV;
+  int dD, dGA, dGB, dJ, uD, uGA, uGB, uJ, gdGA, gdGB, gdJ, guGA, guGB, guJ;
+  if (i == 0) {
+    dV = p.h0v[s];
+    dD = p.h0i[s];
+    dGA = p.h0i[W2 + s];
+    dGB = p.h0i[2 * W2 + s];
+    dJ = p.h0i[3 * W2 + s];
+    gdV = p.g0v[s];
+    gdGA = p.g0i[W2 + s];
+    gdGB = p.g0i[2 * W2 + s];
+    gdJ = p.g0i[3 * W2 + s];
+  } else {
+    const int* r = ring + ((t - 2) % kRingSlots) * kRecWords * R + i - 1;
+    dV = __int_as_float(r[0]);
+    dD = r[R];
+    dGA = r[2 * R];
+    dGB = r[3 * R];
+    dJ = r[4 * R];
+    gdV = __int_as_float(r[5 * R]);
+    gdGA = r[6 * R];
+    gdGB = r[7 * R];
+    gdJ = r[8 * R];
+  }
+  if (i == 0 || s == W) {
+    const int su = s + 1;
+    uV = p.h0v[su];
+    uD = p.h0i[su];
+    uGA = p.h0i[W2 + su];
+    uGB = p.h0i[2 * W2 + su];
+    uJ = p.h0i[3 * W2 + su];
+    guV = p.g0v[su];
+    guGA = p.g0i[W2 + su];
+    guGB = p.g0i[2 * W2 + su];
+    guJ = p.g0i[3 * W2 + su];
+  } else {
+    const int* r = ring + ((t - 1) % kRingSlots) * kRecWords * R + i - 1;
+    uV = __int_as_float(r[0]);
+    uD = r[R];
+    uGA = r[2 * R];
+    uGB = r[3 * R];
+    uJ = r[4 * R];
+    guV = __int_as_float(r[5 * R]);
+    guGA = r[6 * R];
+    guGB = r[7 * R];
+    guJ = r[8 * R];
+  }
+  float bscr = 0.f;
+  if (p.la > 0) {
+    const int am = __ldg(p.a + max(m - 1, 0));
+    const int bn = __ldg(p.b + min(max(n - 1, 0), p.lb - 1));
+    bscr = mtx[am * p.K + bn];
+  }
+
+  // ---- diagonal ----
+  float hV = dV + bscr;
+  int hD = is_diag(dD) ? DIAG : NEWD;
+  int hJ = dJ;
+  if (no_diag) {
+    hV = NEVSEL;
+    hD = DEAD;
+  }
+
+  // ---- vertical ----
+  const float gopv = uGA >= uGB ? gop : 0.f;
+  const float gnpv = guGA >= guGB ? gop : 0.f;
+  const float vu = uV + gopv, vg = guV + gnpv;
+  bool vnew = !is_vert(uD) && vu > vg;
+  float gV = (vnew ? vu : vg) + pua;
+  int gJ = vnew ? uJ : guJ;
+  const int gGB = (vnew ? uGB : guGB) + 1;
+  int gD = VERT;
+  if (no_diag) {
+    gV = NEVSEL;
+    vnew = false;
+  }
+
+  // ---- horizontal ----
+  const float goph = c.hpGA <= c.hpGB ? gop : 0.f;
+  const float hh = c.hpV + goph;
+  const bool hnew = !is_hori(c.hpD) && hh > c.f1V;
+  float nf1V = (hnew ? hh : c.f1V) + gep;
+  int nf1J = hnew ? c.hpJ : c.f1J;
+  const int nf1GA = (hnew ? c.hpGA : c.f1GA) + 1;
+  int nf1D = ((hnew ? c.hpD : c.f1D) & SPIN) + HORI;
+
+  // ---- running max (h -> g strict -> f1 ties) ----
+  int w = 0;
+  float mxV = hV;
+  if (gV > mxV) w = 2;
+  mxV = gV > mxV ? gV : mxV;
+  if (nf1V >= mxV) w = 1;
+  mxV = nf1V > mxV ? nf1V : mxV;
+
+  // ---- 3' acceptor: merge candidates ----
+  const int nc = min(max(n, 0), p.lb);
+  float lv0 = hV, lv1 = nf1V, lv2 = gV;
+  bool jx0 = false, jx1 = false, jx2 = false;
+  int jd0 = 0, jd1 = 0, jd2 = 0;
+  if (valid && internal && __ldg(p.cano3 + nc) > 0) {
+    const int d3 = __ldg(p.dinc3 + nc);
+    const float s3 = __ldg(p.sss3 + nc);
+#pragma unroll
+    for (int l = 0; l < NCAND; ++l) {
+      if (l < c.ncand) {
+        const int idx = c.nx[l];
+        const int cj = sel5(c.hlJ, idx);
+        float x = sel5(c.hlV, idx) + pen[min(max(n - cj, 0), p.lb + 1)];
+        x = x + p53[16 * __ldg(p.dinc5 + min(max(cj, 0), p.lb)) + d3];
+        x = x + s3;
+        const int lane = min(max(sel5(c.hlD, idx), 0), 2);
+        if (lane == 0 && x > lv0) {
+          lv0 = x;
+          jx0 = true;
+          jd0 = cj;
+        } else if (lane == 1 && x > lv1) {
+          lv1 = x;
+          jx1 = true;
+          jd1 = cj;
+        } else if (lane == 2 && x > lv2) {
+          lv2 = x;
+          jx2 = true;
+          jd2 = cj;
+        }
+      }
+    }
+  }
+  hV = lv0;
+  nf1V = lv1;
+  gV = lv2;
+  if (jx0) {
+    hD |= SPJCI;
+    hJ = n;
+  }
+  if (jx1) {
+    nf1D |= SPJCI;
+    nf1J = n;
+  }
+  if (jx2) {
+    gD |= SPJCI;
+    gJ = n;
+  }
+  // merged lanes contest the max strictly, in lane order
+  mxV = w == 0 ? lv0 : (w == 1 ? lv1 : lv2);
+  if (jx0 && lv0 > mxV) {
+    w = 0;
+    mxV = lv0;
+  }
+  if (jx1 && lv1 > mxV) {
+    w = 1;
+    mxV = lv1;
+  }
+  if (jx2 && lv2 > mxV) {
+    w = 2;
+    mxV = lv2;
+  }
+
+  // ---- the cell record (h <- mx) ----
+  const float cV = w == 0 ? hV : (w == 1 ? nf1V : gV);
+  const int cD = w == 0 ? hD : (w == 1 ? nf1D : gD);
+  const int cGA = w == 1 ? nf1GA : 0;
+  const int cGB = w == 2 ? gGB : 0;
+  const int cJ = w == 0 ? hJ : (w == 1 ? nf1J : gJ);
+
+  // ---- 5' donor: push candidates ----
+  if (valid && internal && __ldg(p.cano5 + nc) > 0) {
+    const int hd = dir2nod(cD);
+    const float sj = __ldg(p.sig5 + nc);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const int fD = k == 0 ? cD : (k == 1 ? nf1D : gD);
+      const float fV = k == 0 ? cV : (k == 1 ? nf1V : gV);
+      bool ok = (k != 0 || hd == 0) && fD != 0 && (fD & SPIN) == 0;
+      const bool thr_on = k != hd && hd >= 0 && k != 0;
+      const float y =
+          mxV + ((hd == 0 || ((k - hd) % 2) != 0) ? (k == 2 ? gop : 0.f)
+                                                   : 0.f);
+      if (thr_on) ok = ok && fV > y;
+      if (!ok) continue;
+      const float x = fV + sj;
+      // insertion sort over ranks (fwd2s.h:362 semantics)
+      const int ncand_new = min(c.ncand + 1, NCAND);
+      const int l_start = c.ncand < NCAND ? c.ncand + 1 : NCAND;
+      int pos = 0;
+      bool broken = false;
+#pragma unroll
+      for (int l = NCAND - 1; l >= 0; --l) {
+        const bool active = l < l_start && !broken;
+        const bool gt = x > sel5(c.hlV, c.nx[l]);
+        if (active && gt) {
+          const int tmp = c.nx[l];
+          c.nx[l] = c.nx[l + 1];
+          c.nx[l + 1] = tmp;
+        }
+        if (active && !gt) {
+          pos = l + 1;
+          broken = true;
+        }
+      }
+      const bool accept = pos < INTR;
+      if (accept) {
+        const int slot = pos == 0 ? c.nx[0] : c.nx[1];
+        set5(c.hlV, slot, x);
+        set5(c.hlJ, slot, n);
+        set5(c.hlD, slot, k);
+      }
+      c.ncand = accept ? ncand_new : ncand_new - 1;
+    }
+  }
+
+  const size_t cellx = (size_t)i * W + (s - 1);
+  const int e = w | (vnew ? EV_VNEW : 0) | (hnew ? EV_HNEW : 0) |
+                (jx0 ? EV_JXH : 0) | (jx1 ? EV_JXF : 0) | (jx2 ? EV_JXG : 0);
+  p.ev[cellx] = valid ? e : -1;
+  p.jdon[3 * cellx] = jd0;
+  p.jdon[3 * cellx + 1] = jd1;
+  p.jdon[3 * cellx + 2] = jd2;
+
+  // retain old values on invalid slots
+  const float oV = valid ? cV : dV;
+  const int oD = valid ? cD : dD, oGA = valid ? cGA : dGA,
+            oGB = valid ? cGB : dGB, oJ = valid ? cJ : dJ;
+  int* r = ring + (t % kRingSlots) * kRecWords * R + i;
+  r[0] = __float_as_int(oV);
+  r[R] = oD;
+  r[2 * R] = oGA;
+  r[3 * R] = oGB;
+  r[4 * R] = oJ;
+  r[5 * R] = __float_as_int(valid ? gV : gdV);
+  r[6 * R] = valid ? 0 : gdGA;
+  r[7 * R] = valid ? gGB : gdGB;
+  r[8 * R] = valid ? gJ : gdJ;
+  c.hpV = oV;
+  c.hpD = oD;
+  c.hpGA = oGA;
+  c.hpGB = oGB;
+  c.hpJ = oJ;
+  if (valid) {
+    c.f1V = nf1V;
+    c.f1D = nf1D;
+    c.f1GA = nf1GA;
+    c.f1J = nf1J;
+  }
+  if (i == R - 1) {
+    p.HV[s] = oV;
+    p.Hi[s] = oD;
+    p.Hi[W2 + s] = oGA;
+    p.Hi[2 * W2 + s] = oGB;
+    p.Hi[3 * W2 + s] = oJ;
+  }
+}
+
+// kOne: one row a thread, its carry in registers; otherwise ``rpt`` rows
+// a thread, their carries in the scratch
+template <bool kOne>
+__global__ void __launch_bounds__(kThreadsMax)
+    spliced_s_wave_kernel(Params p, int rpt) {
+  extern __shared__ float smem[];
+  const int R = p.rows, K = p.K;
+  float* mtx = smem;
+  float* p53 = mtx + K * K;
+  float* rest = p53 + 256;
+  int* ring = p.ring_smem ? (int*)rest : p.scratch;
+  if (p.ring_smem) rest += kRingWords * R;
+  const float* pen = p.pen;
+  if (p.pen_smem) {
+    for (int k = threadIdx.x; k < p.lb + 2; k += blockDim.x)
+      rest[k] = p.pen[k];
+    pen = rest;
+  }
+  for (int k = threadIdx.x; k < K * K; k += blockDim.x) mtx[k] = p.mtx[k];
+  for (int k = threadIdx.x; k < 256; k += blockDim.x) p53[k] = p.pair53[k];
+  int* carries = p.scratch + (p.ring_smem ? 0 : kRingWords * R);
+  Carry c;
+  if (kOne) {
+    carry_init(c, p);
+  } else {
+    for (int i = threadIdx.x; i < R; i += blockDim.x) {
+      carry_init(c, p);
+      carry_store(c, carries + i, R);
+    }
+  }
+  __syncthreads();
+  const int T = 2 * (R - 1) + p.W;
+  for (int t = 1; t <= T; ++t) {
+    if (kOne) {
+      const int i = threadIdx.x, s = t - 2 * i;
+      if (i < R && s >= 1 && s <= p.W) cell(p, c, i, s, t, mtx, p53, pen, ring);
+    } else {
+      for (int j = 0; j < rpt; ++j) {
+        const int i = threadIdx.x + j * blockDim.x, s = t - 2 * i;
+        if (i >= R || s < 1 || s > p.W) continue;
+        carry_load(c, carries + i, R);
+        cell(p, c, i, s, t, mtx, p53, pen, ring);
+        carry_store(c, carries + i, R);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+}  // namespace
+
+// words of global scratch a row: its rings unless they sit in shared
+// memory, and its carry when a thread takes several rows
+extern "C" int spliced_s_wave_scratch_words(int ring_smem, int multi) {
+  return (ring_smem ? 0 : kRingWords) + (multi ? kStateWords : 0);
+}
+
+// ``threads`` threads of ``rpt`` rows each (ops/spliced_s.py::
+// sweep_s_plan), ``smem`` bytes of shared memory: the matrix and pair53,
+// then the rings if ``ring_smem`` and the penalty table if ``pen_smem``.
+// A launch the kernel refuses returns its error.
+extern "C" int spliced_s_wave_launch(
+    const void* a, const void* b, const void* mtx, const void* cano3,
+    const void* cano5, const void* sig5, const void* dinc5,
+    const void* dinc3, const void* sss3, const void* pair53, const void* pen,
+    const void* h0v, const void* h0i, const void* g0v, const void* g0i,
+    const void* fprm, void* scratch, void* ev, void* jdon, void* HV,
+    void* Hi, int la, int lb, int lw, int up, int a_exgl, int a_exgr, int K,
+    int threads, int rpt, int ring_smem, int pen_smem, int smem,
+    void* stream) {
+  Params p;
+  p.a = (const int*)a;
+  p.b = (const int*)b;
+  p.mtx = (const float*)mtx;
+  p.cano3 = (const int*)cano3;
+  p.cano5 = (const int*)cano5;
+  p.sig5 = (const float*)sig5;
+  p.dinc5 = (const int*)dinc5;
+  p.dinc3 = (const int*)dinc3;
+  p.sss3 = (const float*)sss3;
+  p.pair53 = (const float*)pair53;
+  p.pen = (const float*)pen;
+  p.h0v = (const float*)h0v;
+  p.h0i = (const int*)h0i;
+  p.g0v = (const float*)g0v;
+  p.g0i = (const int*)g0i;
+  p.fprm = (const float*)fprm;
+  p.scratch = (int*)scratch;
+  p.ev = (int*)ev;
+  p.jdon = (int*)jdon;
+  p.HV = (float*)HV;
+  p.Hi = (int*)Hi;
+  p.la = la;
+  p.lb = lb;
+  p.lw = lw;
+  p.up = up;
+  p.a_exgl = a_exgl;
+  p.a_exgr = a_exgr;
+  p.K = K;
+  p.rows = la + 1 - (a_exgl ? 1 : 0);
+  p.W = up - lw + 1;
+  p.ring_smem = ring_smem;
+  p.pen_smem = pen_smem;
+  const size_t need =
+      ((size_t)K * K + 256 + (ring_smem ? (size_t)kRingWords * p.rows : 0) +
+       (pen_smem ? (size_t)lb + 2 : 0)) *
+      sizeof(float);
+  if (p.rows < 1 || p.W < 1 || lb < 1 || threads < 1 ||
+      threads > kThreadsMax || rpt < 1 || (size_t)threads * rpt < (size_t)p.rows ||
+      (rpt == 1) != (threads >= p.rows) || need != (size_t)smem ||
+      smem > kSmemMax)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (rpt == 1) {
+    cudaError_t err = cudaFuncSetAttribute(
+        spliced_s_wave_kernel<true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    spliced_s_wave_kernel<true><<<1, threads, smem, s>>>(p, rpt);
+  } else {
+    cudaError_t err = cudaFuncSetAttribute(
+        spliced_s_wave_kernel<false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    spliced_s_wave_kernel<false><<<1, threads, smem, s>>>(p, rpt);
+  }
+  return (int)cudaGetLastError();
+}
+
+// registers a thread and local (spilled) bytes of the one-row (multi = 0)
+// or the several-rows variant
+extern "C" int spliced_s_wave_attrs(int multi, void* out) {
+  cudaFuncAttributes at;
+  const cudaError_t err =
+      multi ? cudaFuncGetAttributes(&at, spliced_s_wave_kernel<false>)
+            : cudaFuncGetAttributes(&at, spliced_s_wave_kernel<true>);
+  if (err != cudaSuccess) return (int)err;
+  int* o = (int*)out;
+  o[0] = at.numRegs;
+  o[1] = (int)at.localSizeBytes;
+  return 0;
+}

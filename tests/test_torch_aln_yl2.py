@@ -5,7 +5,8 @@ package's stdout fixtures, made by
         aln_main(['-yl2', G, Q])" > tests/fixtures/jax_aln_yl2_<case>.txt
 
 and against the reference's ``-O 5`` golden; the other modes against
-the JAX CLI; a DNA query (fwd2s) exits as not yet ported."""
+the JAX CLI; a DNA query (fwd2s) against the JAX f32 engine's output
+``jax_aln_yl2_mini_dna.txt`` (``tools/write_jax_fixtures.py``)."""
 
 import contextlib
 import io as _io
@@ -89,11 +90,10 @@ def test_unported_modes_exit(argv, what, tmp_path):
     assert outs[0][0]
 
 
-def test_dna_query_not_yet_ported(capsys):
+def test_dna_query_matches_jax_f32_engine():
     g = str(FIX / "mini_gen.fa")
-    with pytest.raises(SystemExit):
-        aln_main(["-yl2", g, g, "--device", "cpu"])
-    assert "fwd2s" in capsys.readouterr().err
+    got = _stdout(["-yl2", g, g, "--device", "cpu"])
+    assert got == (FIX / "jax_aln_yl2_mini_dna.txt").read_text()
 
 
 def test_absent_cuda_is_an_error():

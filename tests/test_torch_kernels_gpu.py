@@ -818,3 +818,154 @@ def test_walk_kernel_on_k4_planes(cuda_device, depth):
         plan = tsh.walk_plan(*ev.shape, depth=depth)
         got = tsh._launch_walk(*wargs, plan)
         assert got == tsh.walk_h_ref(*wargs) == wk
+
+
+def _mk_gene(rng, nexon=3, exon=(20, 60), intron=(25, 120)):
+    """tests/test_spliced_jax.py's random gene: exons joined by GT..AG
+    introns (that file imports JAX; this one does not)."""
+    bases = "ACGT"
+    genome = []
+    cdna = []
+    for k in range(nexon):
+        ex = "".join(rng.choice(list(bases))
+                     for _ in range(rng.integers(*exon)))
+        genome.append(ex)
+        cdna.append(ex)
+        if k < nexon - 1:
+            ilen = int(rng.integers(*intron))
+            mid = "".join(rng.choice(list(bases))
+                          for _ in range(max(ilen - 4, 1)))
+            genome.append("GT" + mid + "AG")
+    return "".join(genome), "".join(cdna)
+
+
+_ENDS = ((True, True), (True, True))
+
+
+def _k5_gene(case):
+    """K5's cases: tests/test_torch_spliced_s.py's (seeds 0-3, global
+    ends, mismatches, gen1, gen2, introns past 825 nt) and a cDNA of
+    1,100 nt, more rows than K5's 1,024 threads."""
+    if case.startswith("seed"):
+        return (*_mk_gene(np.random.default_rng(int(case[4:]))), *_ENDS)
+    if case == "global_ends":
+        return (*_mk_gene(np.random.default_rng(7), nexon=2),
+                (False, False), (False, False))
+    if case == "mismatches":
+        rng = np.random.default_rng(11)
+        gen, cdna = _mk_gene(rng)
+        c = list(cdna)
+        for p in rng.integers(0, len(c), 6):
+            c[p] = "ACGT"[rng.integers(0, 4)]
+        del c[10:13]
+        return gen, "".join(c), *_ENDS
+    if case in ("gen1", "gen2"):
+        return (tio.sniff_and_read(FIX / f"{case}.fa")[0].seq,
+                tio.sniff_and_read(FIX / f"cdna{case[-1]}.fa")[0].seq,
+                *_ENDS)
+    if case == "long_introns":
+        return (*_mk_gene(np.random.default_rng(5), exon=(60, 120),
+                          intron=(900, 1300)), *_ENDS)
+    return (*_mk_gene(np.random.default_rng(13), nexon=4, exon=(270, 290),
+                      intron=(100, 300)), *_ENDS)
+
+
+_K5_CASES = ["seed0", "seed1", "seed2", "seed3", "global_ends", "mismatches",
+             "gen1", "gen2", "long_introns", "rows1100"]
+_K5_RUNS = {}
+
+
+def _k5_run(case, device):
+    """``spliced_align_device`` of the case on ``device`` with a recorder
+    at K5's launch point: ((score, skl), K5's inputs and output)."""
+    from prrn_aln_tpu_torch.ops import spliced_s as tss
+    from prrn_aln_tpu_torch.splice.penalty import IntronPenalty
+    from prrn_aln_tpu_torch.splice.signals import SpliceSignals
+    gen, cdna, exga, exgb = _k5_gene(case)
+    bg, ac = ab.encode(gen.upper(), ab.DNA), ab.encode(cdna.upper(), ab.DNA)
+    mtx, _ = scoring.dna_matrix(default_params(ab.DNA, "aln"))
+    w = stripe(len(ac), len(bg), -50)
+    calls = []
+    real = tss._launch_sweep_s
+
+    def rec(ins, plan=None):
+        calls.append((ins, real(ins, plan)))
+        return calls[-1][1]
+
+    tss._launch_sweep_s = rec
+    try:
+        res = tss.spliced_align_device(
+            ac, bg, SpliceSignals.build(bg), IntronPenalty.build(), mtx,
+            lw=w.lw, up=w.up, exga=exga, exgb=exgb, device=device)
+    finally:
+        tss._launch_sweep_s = real
+    return res, calls
+
+
+def _k5_same(sw, ref):
+    from prrn_aln_tpu_torch.ops import spliced_s as tss
+    for field in tss.SweepS._fields:
+        got, want = getattr(sw, field).cpu(), getattr(ref, field).cpu()
+        if got.dtype == torch.float32:
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        assert torch.equal(got, want), field
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", _K5_CASES)
+def test_spliced_s_kernel_matches_plain(cuda_device, case):
+    """K5's planes and final H band, bit for bit, against ``sweep_s_ref``
+    on a CPU copy of its inputs (the penalty table is one of them), and
+    the aligner's score and knots on the card against the CPU's.  The
+    plain sweep takes about 4 ms a wave on the CPU: some 16 s for the
+    3,900 waves at 1,101 rows (two rows a thread)."""
+    from prrn_aln_tpu_torch.ops import spliced_s as tss
+    (score, skl), calls = _k5_run(case, cuda_device)
+    (ins, sw), = calls
+    plan = tss.sweep_s_plan(ins.rows, ins.mtx.shape[0], ins.lb + 2)
+    assert plan["rpt"] == (2 if case == "rows1100" else 1)
+    ref = tss.sweep_s_ref(ins.to("cpu"))
+    _K5_RUNS[case] = (ins, ref)
+    _k5_same(sw, ref)
+    if case != "rows1100":
+        (cscore, cskl), _ = _k5_run(case, "cpu")
+        assert np.float32(score) == np.float32(cscore) and skl == cskl
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rings, pen, rpt", [
+    (False, True, 1), (True, False, 1), (False, False, 1), (True, True, 2),
+    (False, False, 3)])
+def test_spliced_s_kernel_plans(cuda_device, rings, pen, rpt):
+    """K5 on gen1 and the long-intron gene under each placement of its
+    rings and penalty table (shared or device memory) and with several
+    rows a thread, against the plain version."""
+    from prrn_aln_tpu_torch.ops import spliced_s as tss
+    for case in ("gen1", "long_introns"):
+        if case not in _K5_RUNS:
+            _, ((ins, _),) = _k5_run(case, cuda_device)
+            _K5_RUNS[case] = (ins, tss.sweep_s_ref(ins.to("cpu")))
+        ins, ref = _K5_RUNS[case]
+        K = ins.mtx.shape[0]
+        threads = (-(-ins.rows // rpt) + 31) // 32 * 32
+        smem = 4 * (K * K + 256 + (tss.K5_RING_WORDS * ins.rows if rings
+                                   else 0) + (ins.lb + 2 if pen else 0))
+        plan = {"threads": threads, "rpt": rpt, "ring_smem": rings,
+                "pen_smem": pen, "smem": smem}
+        _k5_same(tss._launch_sweep_s(ins, plan), ref)
+
+
+@pytest.mark.gpu
+def test_spliced_s_wrapper_rejects_what_k5_does_not_take(cuda_device):
+    from prrn_aln_tpu_torch.ops import spliced_s as tss
+    if "seed0" not in _K5_RUNS:
+        _, ((ins, _),) = _k5_run("seed0", cuda_device)
+    else:
+        ins = _K5_RUNS["seed0"][0].to(cuda_device)
+    import dataclasses
+    bad = dataclasses.replace(ins, pen=ins.pen[:-1].contiguous())
+    with pytest.raises(ValueError, match="shape"):
+        tss._launch_sweep_s(bad)
+    plan = tss.sweep_s_plan(ins.rows, ins.mtx.shape[0], ins.lb + 2)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tss._launch_sweep_s(ins, {**plan, "smem": plan["smem"] + 4})

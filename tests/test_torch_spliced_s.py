@@ -1,0 +1,238 @@
+"""The port's fwd2s engine (``ops/spliced_s.py``) on the CPU against the
+JAX package's f32 scan engine (``prrn_aln_tpu/ops/spliced_jax.py``):
+the same numpy inputs through ``spliced_align_device`` of both, on the
+cases of ``tests/test_spliced_jax.py`` (random genes, seeds 0-3, global
+ends, mismatches), gen1 x cdna1, gen2 x cdna2 and a gene whose introns
+pass DEF_RLMT = 825 nt (the intron penalty's log tail).
+
+Checks: the event and junction planes, the final H band and the SKL
+exactly equal, and the score within 0 f32 ulp: the port's penalty table
+(``penalty_by_length``) repeats the compiled ``jnp.log``'s operations,
+so even the log tail agrees bit for bit.  The JAX sweep's planes are
+taken by wrapping ``spliced_jax._sweep`` for the call."""
+
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from prrn_aln_tpu import alphabet as jab, scoring as jscoring
+from prrn_aln_tpu.config import default_params as jdefault_params
+from prrn_aln_tpu.ops import spliced_jax as SJ
+from prrn_aln_tpu.ops.window import stripe
+from prrn_aln_tpu.splice.penalty import IntronPenalty as JIntronPenalty
+from prrn_aln_tpu.splice.signals import SpliceSignals as JSpliceSignals
+from prrn_aln_tpu_torch.ops import spliced_s as SS
+from prrn_aln_tpu_torch.splice.penalty import IntronPenalty
+from prrn_aln_tpu_torch.splice.signals import SpliceSignals
+from prrn_aln_tpu_torch import alphabet as ab
+from test_spliced_jax import _mk_gene
+
+# one intra-op thread: the suite runs several worker processes at once
+torch.set_num_threads(1)
+
+FIX = Path(__file__).parent / "fixtures"
+
+
+def _fasta(name):
+    return "".join(line.strip() for line in
+                   (FIX / name).read_text().splitlines()
+                   if not line.startswith(">"))
+
+
+def _mismatch_gene():
+    rng = np.random.default_rng(11)
+    gen, cdna = _mk_gene(rng)
+    c = list(cdna)
+    for p in rng.integers(0, len(c), 6):
+        c[p] = "ACGT"[rng.integers(0, 4)]
+    del c[10:13]
+    return gen, "".join(c)
+
+
+# name -> (genome, cDNA, exga, exgb)
+ENDS = ((True, True), (True, True))
+CASES = {
+    **{f"seed{s}": (*_mk_gene(np.random.default_rng(s)), *ENDS)
+       for s in range(4)},
+    "global_ends": (*_mk_gene(np.random.default_rng(7), nexon=2),
+                    (False, False), (False, False)),
+    "mismatches": (*_mismatch_gene(), *ENDS),
+    "gen1": (_fasta("gen1.fa"), _fasta("cdna1.fa"), *ENDS),
+    "gen2": (_fasta("gen2.fa"), _fasta("cdna2.fa"), *ENDS),
+    "long_introns": (*_mk_gene(np.random.default_rng(5), exon=(60, 120),
+                               intron=(900, 1300)), *ENDS),
+}
+
+
+def _jax_run(gen, cdna, exga, exgb):
+    """The JAX f32 engine: (score, skl) and its sweep's outputs."""
+    bg = jab.encode(gen, jab.DNA)
+    ac = jab.encode(cdna, jab.DNA)
+    mtx, _ = jscoring.dna_matrix(jdefault_params(jab.DNA, "aln"))
+    w = stripe(len(ac), len(bg), -50)
+    got = {}
+    real = SJ._sweep
+
+    def sweep(*args):
+        got["sweep"] = real(*args)
+        return got["sweep"]
+
+    SJ._sweep = sweep
+    try:
+        score, skl = SJ.spliced_align_device(
+            ac, bg, JSpliceSignals.build(bg), JIntronPenalty.build(), mtx,
+            lw=w.lw, up=w.up, exga=exga, exgb=exgb)
+    finally:
+        SJ._sweep = real
+    carry, evs, jdons = got["sweep"]
+    return score, skl, [np.asarray(x) for x in carry[:5]], \
+        np.asarray(evs), np.asarray(jdons)
+
+
+def _port_run(gen, cdna, exga, exgb):
+    """The port on the CPU (the plain sweep): (score, skl), the sweep's
+    outputs and its inputs."""
+    from prrn_aln_tpu_torch import scoring
+    from prrn_aln_tpu_torch.config import default_params
+    bg = ab.encode(gen, ab.DNA)
+    ac = ab.encode(cdna, ab.DNA)
+    mtx, _ = scoring.dna_matrix(default_params(ab.DNA, "aln"))
+    w = stripe(len(ac), len(bg), -50)
+    got = {}
+    real = SS.sweep_s
+
+    def sweep(ins):
+        got["ins"] = ins
+        got["sweep"] = real(ins)
+        return got["sweep"]
+
+    SS.sweep_s = sweep
+    try:
+        score, skl = SS.spliced_align_device(
+            ac, bg, SpliceSignals.build(bg), IntronPenalty.build(), mtx,
+            lw=w.lw, up=w.up, exga=exga, exgb=exgb, device="cpu")
+    finally:
+        SS.sweep_s = real
+    return score, skl, got["sweep"], got["ins"]
+
+
+@pytest.fixture(scope="module", params=list(CASES))
+def case(request):
+    gen, cdna, exga, exgb = CASES[request.param]
+    return {"name": request.param, "jax": _jax_run(gen, cdna, exga, exgb),
+            "port": _port_run(gen, cdna, exga, exgb)}
+
+
+def test_planes_equal(case):
+    _, _, _, evs, jdons = case["jax"]
+    sw = case["port"][2]
+    np.testing.assert_array_equal(sw.ev.numpy(), evs)
+    np.testing.assert_array_equal(sw.jdon.numpy(), jdons)
+
+
+def test_final_band_equal(case):
+    carry = case["jax"][2]
+    sw = case["port"][2]
+    np.testing.assert_array_equal(sw.HV.numpy(), carry[0])
+    for k in range(4):
+        np.testing.assert_array_equal(sw.Hi[k].numpy(), carry[k + 1])
+
+
+def test_skl_and_score_equal(case):
+    js, jk = case["jax"][:2]
+    ps, pk = case["port"][:2]
+    assert pk == jk
+    # 0 f32 ulp: the scores are the same f32 value
+    assert np.float32(ps) == np.float32(js)
+
+
+def test_case_shapes(case):
+    """The cases cover what they are named for: more waves than rows,
+    the band's edges and, for long_introns, merges past the table."""
+    ins = case["port"][3]
+    sw = case["port"][2]
+    assert sw.ev.shape == (ins.rows, ins.W)
+    assert ins.waves == 2 * ins.rows + ins.W - 2
+    assert (sw.ev.numpy() == -1).any()
+    if case["name"] == "long_introns":
+        merged = sw.jdon.numpy()
+        m = np.arange(ins.m_start, ins.la + 1)[:, None, None]
+        n = m + ins.lw + np.arange(ins.W)[None, :, None]
+        lens = np.where(merged > 0, n - merged, 0)
+        assert lens.max() > 825
+
+
+def test_penalty_table_equals_jax():
+    """The penalty by length equals the scan engine's compiled
+    ``_penalty`` bit for bit, over the table, the tail and lengths past
+    the realistic gene's 19 kb."""
+    jp, pp = JIntronPenalty.build(), IntronPenalty.build()
+    lb = 40000
+    pack = SJ._pen_arrays(jp)
+    want = np.asarray(jax.jit(lambda n: SJ._penalty(pack, n))(
+        jnp.arange(lb + 2)))
+    np.testing.assert_array_equal(SS.penalty_by_length(pp, lb), want)
+
+
+def test_log32_equals_compiled_jnp_log():
+    rng = np.random.default_rng(0)
+    x = np.concatenate([np.arange(1, 1 << 16, dtype=np.float32),
+                        rng.uniform(0.5, 2.0, 1 << 16).astype(np.float32),
+                        np.exp(rng.uniform(-80, 80, 1 << 16))
+                        .astype(np.float32)])
+    np.testing.assert_array_equal(SS._log32(x),
+                                  np.asarray(jax.jit(jnp.log)(x)))
+
+
+def test_fma32_rounds_once():
+    """The f32 multiply-add against exact rational arithmetic (round to
+    nearest, ties to even): on random values, and on two whose f64 sum
+    lands on an f32 halfway point that the exact value misses by 2**-30,
+    where rounding f64 to f32 would round twice and err."""
+    from fractions import Fraction
+    rng = np.random.default_rng(1)
+    f = np.float32
+    a = rng.uniform(-4, 4, 2000).astype(f)
+    b = rng.uniform(-4, 4, 2000).astype(f)
+    c = rng.uniform(-4, 4, 2000).astype(f)
+    # (1 + 2**-15)(1 - 2**-15) = 1 - 2**-30 beside 2**24 + 2 and - 2**24 - 2
+    a = np.concatenate([a, [f(1 + 2**-15)] * 2])
+    b = np.concatenate([b, [f(1 - 2**-15), f(-1 + 2**-15)]])
+    c = np.concatenate([c, [f(2**24 + 2), f(-2**24 - 2)]])
+    got = SS._fma32(a, b, c)
+    for x, y, z, g in zip(a, b, c, got):
+        exact = Fraction(float(x)) * Fraction(float(y)) + Fraction(float(z))
+        near = np.float32(float(exact))
+        cands = [near, np.nextafter(near, f(np.inf)),
+                 np.nextafter(near, f(-np.inf))]
+        best = min(cands, key=lambda v: (abs(Fraction(float(v)) - exact),
+                                         int(np.float32(v).view(np.int32))
+                                         & 1))
+        assert g == best
+    assert got[-2] == f(2**24 + 2) and got[-1] == f(-2**24 - 2)
+    twice = ((a[-2:].astype(np.float64) * b[-2:] + c[-2:])
+             .astype(np.float32))
+    assert (twice != got[-2:]).all()
+
+
+def test_kernel_wrapper_takes_no_cpu_tensors():
+    """``sweep_s`` takes the plain version for CPU tensors only; the
+    launcher refuses them rather than fall back."""
+    gen, cdna = _mk_gene(np.random.default_rng(0))
+    ins = _port_run(gen, cdna, *ENDS)[3]
+    with pytest.raises(ValueError, match="unsupported device"):
+        SS._launch_sweep_s(ins)
+
+
+@pytest.mark.parametrize("rows, ring, rpt", [
+    (350, True, 1), (1024, True, 1), (1025, True, 2), (2201, False, 3)])
+def test_sweep_plan(rows, ring, rpt):
+    plan = SS.sweep_s_plan(rows, 17, 19002)
+    assert plan["rpt"] == rpt and plan["ring_smem"] == ring
+    assert plan["threads"] * plan["rpt"] >= rows
+    assert plan["threads"] <= SS.K5_THREADS and plan["threads"] % 32 == 0
+    assert plan["smem"] <= SS.K5_SMEM_MAX

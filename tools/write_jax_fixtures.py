@@ -17,12 +17,23 @@ and ce13a17 from the rows of ``jax_prrn_ce13a17_clean_R0.txt``.
 x Multi_B through the JAX package's accelerator branch
 (``group_align``, the f32 wavefront): ``jax.default_backend`` is made to
 answer "gpu" for that call only, so the package itself is unchanged.
+
+The spliced fixtures come from the JAX package's f32 engines, which it
+runs on an accelerator (on a CPU it picks the float64 oracle):
+``jax_aln_G_gen{1,2}_<mode>.txt`` and ``jax_aln_yl2_mini_dna.txt`` are
+``aln -G``/``-yl2`` with a DNA query, ``splice.api.spliced_align`` called
+with ``engine="device"``; ``jax_refgs_*.txt`` are ``refgs`` on the
+family of ``chip_smoke.refgs_family_inputs`` with ``splice.hapi.spliced_align_h``
+called with ``engine="device"``.  Both are wrapped for the run only;
+``aln_main`` and ``refgs`` import them inside the function, so the wrap
+takes effect without touching the package.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import io as _io
 import json
 import os
@@ -68,6 +79,64 @@ def ls3_pair_text(paths: list[str]) -> str:
     return (f"score {score!r}\nswapped {swapped}\n"
             f"skl {json.dumps([list(map(int, k)) for k in skl])}\n"
             + io.write_native_block(merged))
+
+
+# aln -G's modes: the fixtures' suffix and the flags
+ALN_G_MODES = {"O0": ["-O", "0"], "O2": ["-O", "2"], "O3": ["-O", "3"],
+               "O4": ["-O", "4"], "O5": ["-O", "5"], "default": []}
+@contextlib.contextmanager
+def f32_engines():
+    """Route the JAX package's spliced aligners to their f32 engines."""
+    from prrn_aln_tpu.splice import api, hapi
+    real = api.spliced_align, hapi.spliced_align_h
+    api.spliced_align = lambda *a, **k: real[0](*a, **k, engine="device")
+    hapi.spliced_align_h = lambda *a, **k: real[1](*a, **k, engine="device")
+    try:
+        yield
+    finally:
+        api.spliced_align, hapi.spliced_align_h = real
+
+
+def refgs_jobs(tmp: Path) -> dict:
+    """The refgs fixtures' jobs: the family as annotated ("ok"), with
+    ce13a1's second exon perturbed and the MSA rebuilt, and once through
+    ``refgs_main`` (its output file and standard error)."""
+    from chip_smoke import (REFGS_BAD, refgs_family_inputs, refgs_text,
+                            write_refgs_inputs)
+    from prrn_aln_tpu import refgs as rg
+    from prrn_aln_tpu.cli import refgs_main
+    from prrn_aln_tpu.io import SeqRecord
+    g, fam = refgs_family_inputs()
+    members = [SeqRecord(name, seq, exons=exons) for name, seq, exons in fam]
+
+    def genome_of(name):
+        return (g, 0) if name == "ce13a1" else None
+
+    def ok():
+        with f32_engines():
+            return refgs_text(rg.refgs_family(members, genome_of, iters=2,
+                                              rebuild=False))
+
+    def perturbed():
+        bad = [dataclasses.replace(members[0], exons=list(REFGS_BAD)),
+               *members[1:]]
+        with f32_engines():
+            return refgs_text(rg.refgs_family(bad, genome_of, iters=2,
+                                              rebuild=True))
+
+    def cli():
+        fam_path, gen = write_refgs_inputs(tmp, g, fam)
+        out = tmp / "refgs_out.fa"
+        err = _io.StringIO()
+        with f32_engines(), contextlib.redirect_stderr(err):
+            rc = refgs_main(["-n", gen, "-m", "ce13a1", "-I", "1", "-t",
+                             str(out), "-pq", fam_path])
+        if rc != 0:
+            raise SystemExit(f"refgs_main: exit {rc}")
+        return out.read_text() + "--- stderr\n" + err.getvalue()
+
+    return {"jax_refgs_ok.txt": ok, "jax_refgs_perturbed.txt": perturbed,
+            "jax_refgs_cli.txt": cli}
 
 
 def main() -> int:
@@ -122,7 +191,21 @@ def main() -> int:
         "jax_aln_R10_idn.txt":
             lambda: stdout_of(aln_main, ["-R", "10", str(FIX / "idn_p.fa"),
                                          str(FIX / "idn_q.fa")]),
+        **refgs_jobs(tmp),
     }
+
+    def aln_dna(argv):
+        with f32_engines():
+            return stdout_of(aln_main, argv)
+
+    for case in (1, 2):
+        for mode, flags in ALN_G_MODES.items():
+            jobs[f"jax_aln_G_gen{case}_{mode}.txt"] = (
+                lambda flags=flags, case=case: aln_dna(
+                    ["-G", *flags, str(FIX / f"gen{case}.fa"),
+                     str(FIX / f"cdna{case}.fa")]))
+    mini = str(FIX / "mini_gen.fa")
+    jobs["jax_aln_yl2_mini_dna.txt"] = lambda: aln_dna(["-yl2", mini, mini])
     for name, job in jobs.items():
         if args.only and name not in args.only:
             continue
