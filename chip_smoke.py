@@ -65,7 +65,9 @@ Phases (each raises on failure, so the script exits non-zero):
    memory, registers and spilled bytes.  On (b), the window x
    ce13a1, the kernels are timed and not held to the plain sweep (it
    takes over a minute there; the output of (b) is still held to its
-   fixture in phase 10);
+   fixture in phase 10).  Then the long-intron gene (``long_intron_gene``:
+   introns of 879 and 1,187 nt, where the intron penalty comes from its
+   log tail): both K4 variants against the plain version, bit for bit;
 10. the gene-prediction path: ``aln -yl2`` on (a), (b) and (c) through
    the kernels, cold and warm, byte-identical to the JAX package's
    output fixtures (and mini's ``-O 5``/``-O 1`` to the reference's),
@@ -105,21 +107,25 @@ Phases (each raises on failure, so the script exits non-zero):
    (``-O 0, 2, 3, 4, 5`` and the default), each run with the launch
    counts set to 0 just before it, byte-identical to the JAX f32
    engine's fixtures ``jax_aln_G_gen{1,2}_*.txt``, one K5 launch each;
+   each with the plan K5's wrapper picks;
    (b) K5 against its plain version, bit for bit (planes, final H band,
-   and the score and knots lastS and the traceback make of them), on
-   the inputs gen1, gen2 and a medium gene (~600 nt x 3.3 kb, two
+   and the score and knots lastS and the traceback make of them), the
+   plan the wrapper picks (the cluster variant) and the global variant,
+   on the inputs gen1, gen2 and a medium gene (~600 nt x 3.3 kb, two
    introns past 825 nt) give it (the plain sweep on the card for gen2,
-   timed, on a CPU copy of the inputs for the others); K5's time, its
-   launch plan (threads, rows a thread, what sits in shared memory),
-   microseconds a wave, registers and spilled bytes;
+   timed, on a CPU copy of the inputs for the others); each variant's
+   time, launch plan (variant, CTAs, rows a CTA, threads, rows a thread,
+   what sits in shared memory), microseconds a wave, registers and
+   spilled bytes;
    (c) the realistic gene (``GENES``: 8 exons, 7 introns of 300-4,000
-   nt, ~2.2 kb against ~18 kb), timing only: the ``aln -G`` wall cold
-   and warm, the host traceback's seconds, peak device memory, K5's time
-   and microseconds a wave; (d) ``refgs`` on the in-repo family (as
-   annotated, and with ce13a1's second exon perturbed and the MSA
-   rebuilt) and ``refgs_main``, against the fixtures
-   ``jax_refgs_*.txt``, with the launches of K4, K4w, K1, K2 and K3; then
-   the card line.
+   nt, ~2.2 kb against ~18 kb): the ``aln -G`` wall cold and warm, the
+   host traceback's seconds, peak device memory, the cluster variant's
+   planes and final band against the global variant's on the card, bit
+   for bit, and both variants' times, plans and microseconds a wave;
+   (d) ``refgs`` on the in-repo family (as annotated, and with ce13a1's
+   second exon perturbed and the MSA rebuilt) and ``refgs_main``,
+   against the fixtures ``jax_refgs_*.txt``, with the launches of K4,
+   K4w, K1, K2 and K3; then the card line.
 
 Prints one JSON line per phase, then the card line, the kernels line
 (launches from the cold runs of phases 4 and 10, for K1f from the run
@@ -134,6 +140,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -1262,6 +1269,51 @@ def phase_k4() -> dict:
     return out
 
 
+def phase_k4_long_introns() -> dict:
+    """The penalty tail's recheck: fwd2h on the long-intron gene
+    (``long_intron_gene``: introns of 879 and 1,187 nt, lengths at which
+    a correctly rounded log tail differs from the scan engine's), both K4
+    variants against the plain version, bit for bit (on a CPU copy of the
+    inputs: the penalty table by length is one of them)."""
+    from prrn_aln_tpu_torch.splice.hapi import spliced_align_h
+    got = []
+    real = SH._launch_sweep
+
+    def rec(ins, plan=None):
+        got.append((ins, real(ins, plan)))
+        return got[-1][1]
+
+    SH._launch_sweep = rec
+    try:
+        spliced_align_h(*long_intron_gene(), device="cuda")
+    finally:
+        SH._launch_sweep = real
+    (ins, sw), = got
+    cpu = dataclasses.replace(ins, **{
+        k: v.cpu() for k, v in vars(ins).items()
+        if isinstance(v, torch.Tensor)})
+    t0 = time.perf_counter()
+    ref = SH.sweep_h_ref(cpu)
+    plain_cpu_ms = (time.perf_counter() - t0) * 1e3
+    MR, npen = ins.M + 1, ins.rlmt - ins.llmt + 1
+    out = {"rows": MR, "waves": ins.waves, "genome": ins.N,
+           "introns": list(LONG_INTRONS), "plain_cpu_ms": plain_cpu_ms,
+           "default_plan": SH.sweep_plan(MR, npen)["variant"]}
+    for variant in ("cluster", "global"):
+        plan = SH.sweep_plan(MR, npen, variant=variant)
+        got_v = SH._launch_sweep(ins, plan)
+        for field in SH.Sweep._fields:
+            if not torch.equal(getattr(got_v, field).cpu(),
+                               getattr(ref, field)):
+                raise AssertionError(f"K4 {variant} {field} != plain on the "
+                                     "long-intron gene")
+        out[variant] = {"planes_equal": True, "ms": time_ms(
+            lambda p_=plan: SH._launch_sweep(ins, p_), 5),
+            **SH.spliced_h_wave_attrs(variant)}
+    emit({"phase": "k4_long_introns", **out})
+    return out
+
+
 def write_fasta(path: Path, name: str, seq: str) -> str:
     path.write_text(f">{name}\n" + "\n".join(
         seq[i:i + 60] for i in range(0, len(seq), 60)) + "\n")
@@ -1834,6 +1886,39 @@ GENES = {"medium": (1, 3, (180, 220), (900, 1100), 300, 0.01),
          "realistic": (0, 8, (150, 401), (300, 4001), 1000, 0.01)}
 
 
+# fwd2h's long-intron gene: introns of lengths at which a penalty tail
+# taken with a correctly rounded log differs from the scan engine's
+# compiled one in the last bit
+LONG_INTRONS = (879, 1187)
+
+_CODE = "FFLLSSSSYY**CC*WLLLLPPPPHHQQRRRRIIIMTTTTNNKKSSRRVVVVAAAADDEEGGGG"
+_CODONS = {}
+for _k, _aa in enumerate(_CODE):
+    _CODONS.setdefault(_aa, []).append(
+        "TCAG"[_k // 16] + "TCAG"[_k // 4 % 4] + "TCAG"[_k % 4])
+
+
+def long_intron_gene(seed: int = 0) -> tuple[str, str]:
+    """A seeded gene (genome, protein): 180 random residues back-
+    translated into three exons joined by GT...AG introns of
+    LONG_INTRONS nt, in 300-nt random flanks (about 3.2 kb)."""
+    rng = np.random.default_rng(seed)
+    aas = sorted(a for a in _CODONS if a != "*")
+    prot = "".join(aas[k] for k in rng.integers(0, len(aas), 180))
+    cds = "".join(_CODONS[a][rng.integers(0, len(_CODONS[a]))]
+                  for a in prot)
+
+    def rand(k):
+        return "".join("ACGT"[x] for x in rng.integers(0, 4, k))
+
+    cut = (181, 362)
+    exons = (cds[:cut[0]], cds[cut[0]:cut[1]], cds[cut[1]:])
+    introns = ["GTAAGT" + rand(n - 12) + "TTTCAG" for n in LONG_INTRONS]
+    genome = (rand(300) + exons[0] + introns[0] + exons[1] + introns[1]
+              + exons[2] + rand(300))
+    return genome, prot
+
+
 def spliced_gene(name: str) -> tuple[str, str, list]:
     """A gene of ``GENES`` from its seed: random exons joined by GT...AG
     introns in random flanks, its cDNA (the joined exons with a share of
@@ -1888,13 +1973,14 @@ def capture_aln_G(argv) -> tuple[dict, str, float, dict]:
     return calls, text, secs, counts
 
 
-def k5_check(name: str, ins: SS.SweepInputsS, sw: SS.SweepS,
+def k5_check(name: str, ins: SS.SweepInputsS, sws: list,
              on_card: bool) -> dict:
-    """K5's planes and final H band against the plain version's, bit for
-    bit (the values as their bits), and the score and knots that lastS
-    and the traceback make of each.  The plain version runs on the card
-    (timed there) or on a CPU copy of the same inputs (the penalty table
-    is one of them, so the copy computes the same values)."""
+    """K5's planes and final H band (of each output in ``sws``) against
+    the plain version's, bit for bit (the values as their bits), and the
+    score and knots that lastS and the traceback make of each.  The plain
+    version runs on the card (timed there) or on a CPU copy of the same
+    inputs (the penalty table is one of them, so the copy computes the
+    same values)."""
     if on_card:
         got = []
         plain_ms = time_once_ms(lambda: got.append(SS.sweep_s_ref(ins)))
@@ -1904,15 +1990,19 @@ def k5_check(name: str, ins: SS.SweepInputsS, sw: SS.SweepS,
         ref = SS.sweep_s_ref(ins.to("cpu"))
         out = {"plain_ms": None,
                "plain_cpu_ms": (time.perf_counter() - t0) * 1e3}
-    for field in SS.SweepS._fields:
-        got, want = getattr(sw, field).cpu(), getattr(ref, field).cpu()
-        if got.dtype == torch.float32:
-            got, want = got.view(torch.int32), want.view(torch.int32)
-        if not torch.equal(got, want):
-            raise AssertionError(f"K5 {field} != plain on {name}")
-    score, skl = SS.finish_s(ins, sw)
-    if (score, skl) != SS.finish_s(ins, ref):
-        raise AssertionError(f"K5's knots != plain on {name}")
+    want_knots = SS.finish_s(ins, ref)
+    for k, sw in enumerate(sws):
+        for field in SS.SweepS._fields:
+            got, want = getattr(sw, field).cpu(), getattr(ref, field).cpu()
+            if got.dtype == torch.float32:
+                got, want = got.view(torch.int32), want.view(torch.int32)
+            if not torch.equal(got, want):
+                raise AssertionError(f"K5 output {k}'s {field} != plain on "
+                                     f"{name}")
+        score, skl = SS.finish_s(ins, sw)
+        if (score, skl) != want_knots:
+            raise AssertionError(f"K5 output {k}'s knots != plain on {name}")
+    sw = sws[0]
     out["max_abs_err"] = float((sw.HV.cpu() - ref.HV.cpu()).abs().max())
     out["knots"] = len(skl)
     return out
@@ -1947,15 +2037,33 @@ def k5_bound(ins: SS.SweepInputsS, sw: SS.SweepS) -> dict:
     return bound(ins_bytes + tensor_bytes(*sw), k5_ops(ins))
 
 
-def k5_launch(ins: SS.SweepInputsS, ms: float) -> dict:
-    """K5's launch plan for these inputs, microseconds a wave, and the
-    chosen variant's registers and spilled bytes."""
-    plan = SS.sweep_s_plan(ins.rows, ins.mtx.shape[0], ins.lb + 2)
-    return {"threads": plan["threads"], "rows_a_thread": plan["rpt"],
+def k5_plans(ins: SS.SweepInputsS) -> tuple[dict, dict]:
+    """The plan K5's wrapper picks for these inputs, and the global
+    variant's."""
+    K, npen = ins.mtx.shape[0], ins.lb + 2
+    return (SS.launch_plan(ins.rows, K, npen),
+            SS.sweep_s_plan(ins.rows, K, npen, variant="global"))
+
+
+def k5_launch(plan: dict, ins: SS.SweepInputsS, ms: float) -> dict:
+    """A K5 plan (variant, CTAs, rows a CTA, threads, rows a thread, what
+    sits in shared memory), microseconds a wave, and the kernel's
+    registers and spilled bytes."""
+    return {"variant": plan["variant"], "ctas": plan["ctas"],
+            "rows_a_cta": plan["rows"], "threads": plan["threads"],
+            "rows_a_thread": plan["rpt"],
             "rings_in_smem": plan["ring_smem"],
             "penalty_in_smem": plan["pen_smem"], "smem_bytes": plan["smem"],
-            "us_per_wave": ms * 1e3 / max(ins.waves, 1),
-            **SS.spliced_s_wave_attrs(plan["rpt"] > 1)}
+            "ms": ms, "us_per_wave": ms * 1e3 / max(ins.waves, 1),
+            **SS.spliced_s_wave_attrs(plan["variant"], plan["rpt"] > 1)}
+
+
+def k5_same(a: SS.SweepS, b: SS.SweepS) -> bool:
+    """Two sweeps' planes and final H band equal, bit for bit."""
+    return all(torch.equal(x.view(torch.int32) if x.dtype == torch.float32
+                           else x, y.view(torch.int32)
+                           if y.dtype == torch.float32 else y)
+               for x, y in zip(a, b))
 
 
 def phase_aln_G() -> dict:
@@ -1981,9 +2089,11 @@ def phase_aln_G() -> dict:
                 raise AssertionError(f"aln -G {mode} on gen{case}: "
                                      f"{counts} launches")
             out["modes"][f"gen{case}_{mode}"] = counts
+            plan = k5_plans(calls["sweep"][0][0])[0]
             emit({"phase": f"aln_G_gen{case}_{mode}", "seconds": secs,
                   "bytes": len(text), "fixture": fixture,
-                  "launches": counts})
+                  "launches": counts, "k5_plan": {
+                      k: plan[k] for k in ("variant", "ctas", "rows")}})
             if mode == "default":
                 out[f"gen{case}"] = calls["sweep"][0]
     with tempfile.TemporaryDirectory() as tmp_name:
@@ -1995,9 +2105,9 @@ def phase_aln_G() -> dict:
                                      f"{name}_genome", genome),
                          write_fasta(tmp / f"{name}_cdna.fa", f"{name}_cdna",
                                      cdna))
-        # (b) K5 against its plain version: on the card for gen2 (its
-        # time there is the kernels line's plain_ms), on a CPU copy of
-        # the inputs for gen1 and the medium gene
+        # (b) K5 against its plain version, both variants: on the card
+        # for gen2 (its time there is the kernels line's plain_ms), on a
+        # CPU copy of the inputs for gen1 and the medium gene
         for name in ("gen1", "gen2", "medium"):
             if name == "medium":
                 calls, _, _, _ = capture_aln_G(["-G", "-O", "4",
@@ -2005,20 +2115,27 @@ def phase_aln_G() -> dict:
                 ins, sw = calls["sweep"][0]
             else:
                 ins, sw = out[name]
-            chk = k5_check(name, ins, sw, on_card=name == "gen2")
+            plan, gplan = k5_plans(ins)
+            chk = k5_check(name, ins, [sw, SS._launch_sweep_s(ins, gplan)],
+                           on_card=name == "gen2")
             ms = time_ms(lambda: SS._launch_sweep_s(ins), 5)
+            gms = time_ms(lambda: SS._launch_sweep_s(ins, gplan), 5)
             entry = {"max_abs_err": chk["max_abs_err"], "ms": ms,
-                     "plain_ms": chk["plain_ms"], **k5_bound(ins, sw)}
+                     "plain_ms": chk["plain_ms"], **k5_bound(ins, sw),
+                     "global_ms": gms}
             if "plain_cpu_ms" in chk:
                 entry["plain_cpu_ms"] = chk["plain_cpu_ms"]
             emit({"phase": f"k5_{name}", "rows": ins.rows, "W": ins.W,
                   "genome": ins.lb, "waves": ins.waves,
                   "band_cells": ins.band_cells, "planes_equal": True,
                   "band_equal": True, "knots_equal": True,
-                  "knots": chk["knots"], "k5": entry,
-                  "k5_launch": k5_launch(ins, ms)})
-            out[f"k5_{name}"] = entry
-        # (c) the realistic gene, timing only
+                  "global_equal": True, "knots": chk["knots"], "k5": entry,
+                  "k5_launch": k5_launch(plan, ins, ms),
+                  "k5_global": k5_launch(gplan, ins, gms)})
+            out[f"k5_{name}"] = {**entry, "plan": {
+                k: plan[k] for k in ("variant", "ctas", "rows")}}
+        # (c) the realistic gene: walls, and K5's default plan held to its
+        # global variant on the card
         walls = {}
         calls = None
         for run in ("cold", "warm"):
@@ -2031,18 +2148,30 @@ def phase_aln_G() -> dict:
                           "traceback_s": calls["traceback_s"],
                           "peak_mb": torch.cuda.max_memory_allocated() / 1e6}
         ins, sw = calls["sweep"][0]
-        ms = time_ms(lambda: SS._launch_sweep_s(ins), 3)
+        plan, gplan = k5_plans(ins)
+        gsw = SS._launch_sweep_s(ins, gplan)
+        if not k5_same(sw, gsw):
+            raise AssertionError("K5's default plan != its global variant "
+                                 "on the realistic gene")
+        del gsw
+        ms = time_ms(lambda: SS._launch_sweep_s(ins), 5)
+        gms = time_ms(lambda: SS._launch_sweep_s(ins, gplan), 3)
         emit({"phase": "aln_G_realistic", "rows": ins.rows, "W": ins.W,
               "genome": ins.lb, "waves": ins.waves,
               "band_cells": ins.band_cells,
               "planes_mb": tensor_bytes(sw.ev, sw.jdon) / 1e6,
               "introns": introns["realistic"], "output_lines":
-              len(text.splitlines()), "walls": walls, "k5_ms": ms,
+              len(text.splitlines()), "walls": walls,
+              "global_equal": plan["variant"] != "global", "k5_ms": ms,
               "k5_us_per_wave": ms * 1e3 / ins.waves,
               "gcups": ins.band_cells / (ms * 1e6),
               "k5_bound": k5_bound(ins, sw),
-              "k5_launch": k5_launch(ins, ms)})
-        out["realistic_k5"] = {"ms": ms, **k5_bound(ins, sw)}
+              "k5_launch": k5_launch(plan, ins, ms),
+              "k5_global": k5_launch(gplan, ins, gms)})
+        out["realistic_k5"] = {"ms": ms, "global_ms": gms,
+                               **k5_bound(ins, sw), "plan": {
+                                   k: plan[k] for k in
+                                   ("variant", "ctas", "rows")}}
         del calls, sw, ins
         # (d) refgs on the in-repo family
         from prrn_aln_tpu_torch import refgs as rg
@@ -2123,6 +2252,7 @@ def main() -> int:
     phase_forest_shape()
     aln_runs = phase_aln()
     k4, k4w = phase_k4()["win_msa"]
+    k4_long = phase_k4_long_introns()
     phase_flagship()
     k2_long, walk_entry = phase_long_pair(dev)
     cli = phase_cli_modes()
@@ -2165,7 +2295,8 @@ def main() -> int:
         {"name": "spliced_h_wave", "route": "cuda",
          "source": "prrn_aln_tpu_torch/csrc/spliced_h_wave.cu",
          "replaces": "prrn_aln_tpu/ops/pallas_spliced_h.py:201",
-         "launches": aln_launches["spliced_h_wave"], **k4},
+         "launches": aln_launches["spliced_h_wave"], **k4,
+         "long_introns": {v: k4_long[v] for v in ("cluster", "global")}},
         {"name": "spliced_h_walk", "route": "cuda",
          "source": "prrn_aln_tpu_torch/csrc/spliced_h_walk.cu",
          "replaces": "prrn_aln_tpu/ops/pallas_spliced_h.py:1016",

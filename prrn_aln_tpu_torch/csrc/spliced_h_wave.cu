@@ -41,7 +41,9 @@
 //   per-position tables the rows read live in a ring of genome positions
 //   in shared memory, loaded ahead by the CTA's first warp; the rows'
 //   profile entries and the intron penalty table live there too, and
-//   the penalty's log tail comes from the wrapper's table by length.
+//   the penalty past that table comes from the wrapper's table by length
+//   (built on the host with the scan engine's log; the global variant
+//   and the plain version read the same table).
 //   The warps run skewed by kSkew waves and meet at a split cluster
 //   barrier every kEvery steps (see below), so a step has no barrier of
 //   its own.  The barrier's acquire empties L1, which is why nothing the
@@ -113,7 +115,7 @@ struct Params {
   const float* pair53;   // (16, 16)
   const float* qprof;    // (M + 2, TSIMD)
   const float* pen;      // (npen,) intron penalty over [llmt, rlmt]
-  const float* pext;     // (N + 2,) intron penalty by length (cluster)
+  const float* pext;     // (N + 2,) intron penalty by length
   const float* tabT;     // (NCOL, N + 2): tab, column-major (cluster)
   const int* A1T;        // (5, N + 1): A1, column-major (cluster)
   const float* api;      // (3M + 4,)
@@ -181,8 +183,7 @@ spliced_h_wave_global(Params p, int rpt) {
   const int W6 = up - lw + 7;
   const float gop = p.fprm[0], gep = p.fprm[1], gap_e1 = p.fprm[2],
               gap_e2 = p.fprm[3], gap_w1 = p.fprm[4], gap_w2 = p.fprm[5],
-              fO = p.fprm[6], e1V = p.fprm[7], mu = p.fprm[8],
-              int_ep = p.fprm[9], int_fx = p.fprm[10], gap_wi = p.fprm[11];
+              fO = p.fprm[6], e1V = p.fprm[7], gap_wi = p.fprm[8];
   const float* __restrict__ tab = p.tab;
   const float* __restrict__ qp = p.qprof;
 
@@ -260,15 +261,12 @@ spliced_h_wave_global(Params p, int rpt) {
     const int s = (t & 7) * MR + mm;
     return Rec{hV[s], hD[s], hGA[s], hGB[s], hJ[s]};
   };
+  // the penalty table in [llmt, rlmt), else the wrapper's table by
+  // length, as the cluster variant reads it
   auto penalty = [&](int len) -> float {
     if (len < 0) return gap_wi;
     if (len < p.llmt) return NEVSEL;
-    if (len >= p.rlmt) {
-      // XLA's fused multiply-add, as an f64 product and add rounded once
-      const float lg = logf(fmaxf((float)len - mu, 1.0f));
-      return (float)((double)int_ep * (double)lg + (double)int_fx);
-    }
-    return pen[min(max(len - p.llmt, 0), p.npen - 1)];
+    return len < p.rlmt ? pen[len - p.llmt] : p.pext[min(len, N + 1)];
   };
   const Rec guard{NEVSEL, 0, 0, 0, 0};
 
@@ -675,7 +673,7 @@ spliced_h_wave_cluster(Params p) {
   const int W6 = up - lw + 7;
   const float gop = p.fprm[0], gep = p.fprm[1], gap_e1 = p.fprm[2],
               gap_e2 = p.fprm[3], gap_w1 = p.fprm[4], gap_w2 = p.fprm[5],
-              fO = p.fprm[6], e1V = p.fprm[7], gap_wi = p.fprm[11];
+              fO = p.fprm[6], e1V = p.fprm[7], gap_wi = p.fprm[8];
 
   // shared words, field-major with the slab's row fastest: the H ring
   // (V, D, GA, GB, J; kHD waves), the G ring (V, D, GB, J; kHD waves),
@@ -1226,10 +1224,10 @@ extern "C" int spliced_h_wave_scratch_words() {
 
 // ``cluster`` picks the variant, chosen by size by the wrapper
 // (ops/spliced_h.py::sweep_plan): 1, ``ctas`` CTAs of ``threads`` rows in
-// one cluster, reading the penalty by length from ``pext`` and ``tab``
-// and ``A1`` column-major from ``tabT`` and ``A1T``; 0, one block
-// of ``threads`` threads, ``rpt`` rows each, over the global scratch
-// ``ring``.  A launch either variant refuses
+// one cluster, reading ``tab`` and ``A1`` column-major from ``tabT``
+// and ``A1T``; 0, one block of ``threads`` threads, ``rpt`` rows each,
+// over the global scratch ``ring``.  Both read the penalty of a length
+// past the table from ``pext``, the wrapper's table by length.  A launch either variant refuses
 // returns its error; neither stands in for the other.
 extern "C" int spliced_h_wave_launch(
     const void* tab, const void* dinc5, const void* r1idx, const void* A1,

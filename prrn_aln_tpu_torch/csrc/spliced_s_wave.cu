@@ -22,31 +22,51 @@
 // about 0.2 ms at the card's memory rate; the chain of waves bounds it far
 // above that.
 //
-// What bounds it on the H100: the latency of one wave (a row's cell and
-// the block barrier), times the waves.  The simple design of this kernel:
-// - one block, rows spread over at most 1,024 threads (rows i, i +
-//   blockDim, ...), one __syncthreads a wave;
-// - a row keeps its horizontal carry in registers when its thread has one
-//   row, and in a global scratch (field by field, the row fastest)
-//   otherwise;
-// - each row keeps a ring of its last three waves' H (V, D, GA, GB, J) and
-//   G (V, GA, GB, J) records, which the row below reads; the rings sit in
-//   shared memory where they fit, else in the global scratch (a barrier
-//   orders a write and the reads of the next waves either way; a slot is
+// What bounds it on the H100: the latency of one wave, times the waves.
+// Two variants, chosen by size (ops/spliced_s.py::sweep_s_plan):
+// - The cluster variant, up to 16 CTAs of up to 256 rows (4,096 rows):
+//   one row a thread, a slab of consecutive rows a CTA, the CTAs one
+//   thread-block cluster, so a wave's rows run on up to 16 SMs.  A row's
+//   horizontal carry lives in registers, its donor list in rank order
+//   (every register index static), each entry with its donor's dinc5
+//   beside its position.  Only what row i + 1 reads is passed on: the H
+//   and G records of wave t - 1, by __shfl_up_sync inside a warp (row
+//   i + 1 keeps the one of wave t - 2 from the step before), and through
+//   a small ring in shared memory from a warp's last row to the next
+//   warp's first (the first warp of a slab reads the previous CTA's
+//   ring through distributed shared memory).  The warps run skewed by
+//   kSkew waves and meet at a split cluster barrier every kSkew + 1
+//   steps, so a wave has no barrier of its own (skew 7 timed fastest of
+//   1, 3, 5 and 7; waits on each warp's neighbours alone, through
+//   progress counters, timed slower: PERF.md §6).  Shared memory holds
+//   the matrix, pair53, a ring of genome positions (the per-position
+//   tables packed in three words, loaded ahead by the slab's first warp)
+//   and, where it fits, the penalty table by length.  The barrier's
+//   acquire empties L1: past what shared memory takes (a genome past
+//   ~54 kb), the penalty table is read from device memory.
+// - The global variant, past what a cluster holds: one block, rows
+//   spread over at most 1,024 threads (rows i, i + blockDim, ...), one
+//   __syncthreads a wave; a row keeps its horizontal carry in registers
+//   when its thread has one row, and in a global scratch (field by field,
+//   the row fastest) otherwise; each row keeps a ring of its last three
+//   waves' H (V, D, GA, GB, J) and G (V, GA, GB, J) records, in shared
+//   memory where they fit, else in the global scratch (a slot is
 //   overwritten three waves after its write, one barrier after its last
-//   read);
-// - the match score is gathered from the DNA matrix in shared memory (no
-//   la x lb score table), with pair53 beside it and the penalty table
-//   where it fits; the genome-position tables are read through the
-//   read-only cache.
-// It writes ev (rows, W), jdon (rows, W, 3) and the last row's H records,
-// which the host's lastS and traceback read.  A cluster variant with the
-// rings in distributed shared memory (as K4's) is left for later.
+//   read); the match score is gathered from the DNA matrix in shared
+//   memory, with pair53 beside it and the penalty table where it fits;
+//   the genome-position tables are read through the read-only cache.
+// Both write ev (rows, W), jdon (rows, W, 3) and the last row's H
+// records, which the host's lastS and traceback read.  Built with
+// -DK5_PROFILE, each thread sums clock64() cycles by section of a step
+// (tools/k5_bench.py --profile).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr float NEVSEL = -8.9e30f;
 constexpr int DEAD = 0, DIAG = 2, NEWD = 3, VERT = 4, HORI = 8, SPIN = 16,
@@ -62,6 +82,47 @@ constexpr int kRingWords = kRecWords * kRingSlots;
 constexpr int kStateWords = 4 + 5 + 4 * NSLOT + 1;
 constexpr int kThreadsMax = 1024;
 constexpr int kSmemMax = 232448;
+
+// sections of a step (tools/k5_bench.py PROFILE_SECTIONS): the row
+// above's records (and a carry from the scratch), the match score, the
+// diagonal, vertical and horizontal candidates and their maximum, the
+// acceptor merges, the donor pushes, the plane stores, the records row
+// i + 1 reads (and a carry back to the scratch), the barrier, and the
+// wait of a row without a cell while the others take theirs
+enum {
+  kSecRead, kSecMatch, kSecDVH, kSecAcc, kSecDon, kSecPlanes, kSecRing,
+  kSecWait, kSecIdle, kSections
+};
+#ifdef K5_PROFILE
+// per section the cycles summed over threads, then the threads' steps
+__device__ unsigned long long k5_prof[kSections + 1];
+__device__ __forceinline__ long long prof_clock() {
+  long long c;
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(c));
+  return c;
+}
+struct Prof {
+  long long t, acc[kSections];
+  __device__ Prof() : t(prof_clock()) {
+    for (int k = 0; k < kSections; ++k) acc[k] = 0;
+  }
+  __device__ void mark(int sec) {
+    const long long now = prof_clock();
+    acc[sec] += now - t;
+    t = now;
+  }
+  __device__ void flush(long long steps) {
+    for (int k = 0; k < kSections; ++k)
+      atomicAdd(&k5_prof[k], (unsigned long long)acc[k]);
+    atomicAdd(&k5_prof[kSections], (unsigned long long)steps);
+  }
+};
+#else
+struct Prof {
+  __device__ void mark(int) {}
+  __device__ void flush(long long) {}
+};
+#endif
 
 struct Params {
   const int* a;          // (la,) cDNA codes
@@ -201,7 +262,7 @@ __device__ __forceinline__ void carry_store(const Carry& c, int* st, int R) {
 __device__ __forceinline__ void cell(const Params& p, Carry& c, int i, int s,
                                      int t, const float* mtx,
                                      const float* p53, const float* pen,
-                                     int* ring) {
+                                     int* ring, Prof& pf) {
   const int R = p.rows, W = p.W, W2 = W + 2;
   const int m = i + (p.a_exgl ? 1 : 0);
   const int n = m + p.lw + s - 1;
@@ -260,12 +321,14 @@ __device__ __forceinline__ void cell(const Params& p, Carry& c, int i, int s,
     guGB = r[7 * R];
     guJ = r[8 * R];
   }
+  pf.mark(kSecRead);
   float bscr = 0.f;
   if (p.la > 0) {
     const int am = __ldg(p.a + max(m - 1, 0));
     const int bn = __ldg(p.b + min(max(n - 1, 0), p.lb - 1));
     bscr = mtx[am * p.K + bn];
   }
+  pf.mark(kSecMatch);
 
   // ---- diagonal ----
   float hV = dV + bscr;
@@ -306,6 +369,7 @@ __device__ __forceinline__ void cell(const Params& p, Carry& c, int i, int s,
   mxV = gV > mxV ? gV : mxV;
   if (nf1V >= mxV) w = 1;
   mxV = nf1V > mxV ? nf1V : mxV;
+  pf.mark(kSecDVH);
 
   // ---- 3' acceptor: merge candidates ----
   const int nc = min(max(n, 0), p.lb);
@@ -376,6 +440,7 @@ __device__ __forceinline__ void cell(const Params& p, Carry& c, int i, int s,
   const int cGA = w == 1 ? nf1GA : 0;
   const int cGB = w == 2 ? gGB : 0;
   const int cJ = w == 0 ? hJ : (w == 1 ? nf1J : gJ);
+  pf.mark(kSecAcc);
 
   // ---- 5' donor: push candidates ----
   if (valid && internal && __ldg(p.cano5 + nc) > 0) {
@@ -422,6 +487,7 @@ __device__ __forceinline__ void cell(const Params& p, Carry& c, int i, int s,
       c.ncand = accept ? ncand_new : ncand_new - 1;
     }
   }
+  pf.mark(kSecDon);
 
   const size_t cellx = (size_t)i * W + (s - 1);
   const int e = w | (vnew ? EV_VNEW : 0) | (hnew ? EV_HNEW : 0) |
@@ -430,6 +496,7 @@ __device__ __forceinline__ void cell(const Params& p, Carry& c, int i, int s,
   p.jdon[3 * cellx] = jd0;
   p.jdon[3 * cellx + 1] = jd1;
   p.jdon[3 * cellx + 2] = jd2;
+  pf.mark(kSecPlanes);
 
   // retain old values on invalid slots
   const float oV = valid ? cV : dV;
@@ -486,6 +553,7 @@ __global__ void __launch_bounds__(kThreadsMax)
   for (int k = threadIdx.x; k < K * K; k += blockDim.x) mtx[k] = p.mtx[k];
   for (int k = threadIdx.x; k < 256; k += blockDim.x) p53[k] = p.pair53[k];
   int* carries = p.scratch + (p.ring_smem ? 0 : kRingWords * R);
+  Prof pf;
   Carry c;
   if (kOne) {
     carry_init(c, p);
@@ -500,21 +568,536 @@ __global__ void __launch_bounds__(kThreadsMax)
   for (int t = 1; t <= T; ++t) {
     if (kOne) {
       const int i = threadIdx.x, s = t - 2 * i;
-      if (i < R && s >= 1 && s <= p.W) cell(p, c, i, s, t, mtx, p53, pen, ring);
+      if (i < R && s >= 1 && s <= p.W) {
+        cell(p, c, i, s, t, mtx, p53, pen, ring, pf);
+        pf.mark(kSecRing);
+      }
     } else {
       for (int j = 0; j < rpt; ++j) {
         const int i = threadIdx.x + j * blockDim.x, s = t - 2 * i;
         if (i >= R || s < 1 || s > p.W) continue;
         carry_load(c, carries + i, R);
-        cell(p, c, i, s, t, mtx, p53, pen, ring);
+        cell(p, c, i, s, t, mtx, p53, pen, ring, pf);
         carry_store(c, carries + i, R);
+        pf.mark(kSecRing);
       }
     }
+    pf.mark(kSecIdle);
     __syncthreads();
+    pf.mark(kSecWait);
   }
+  pf.flush(T);
+}
+
+// ---------------------------------------------------------------------
+// The cluster variant
+// ---------------------------------------------------------------------
+
+// rows (threads) a CTA and CTAs a cluster (the non-portable most)
+constexpr int kRowsMaxC = 256, kClusterMax = 16;
+// The warps run skewed: warp g (counted over the cluster) takes wave
+// s - g * kSkew at step s, and the cluster barrier closes every kSkew + 1
+// steps.  A warp's first row reads the previous warp's last row's
+// records of wave t - 1, written kSkew + 1 steps earlier, so a barrier
+// lies between.  Those records pass through a ring of kRingD waves of
+// kBWords words (H's 5 fields and G's 4, padded to three 16-byte words);
+// a slot is overwritten kRingD - kSkew - 1 steps after its read, so
+// kRingD >= 2 kSkew + 2 puts a barrier between the read and the write.
+constexpr int kSkew = 7, kEvery = kSkew + 1, kRingD = 16, kBWords = 12;
+static_assert(kRingD >= 2 * kSkew + 2 && (kRingD & (kRingD - 1)) == 0,
+              "a ring slot must outlive its read");
+// The position ring: what a row reads at genome position n (the genome's
+// code at n - 1, cano3, cano5, dinc3, dinc5 in one word; sig5; sss3), for
+// kPosRing positions.  At step s a slab's rows read positions head(s) -
+// (nw - 1) kSkew - (R - 1) ... head(s), head(s) = s + const; the slab's
+// first warp loads kLoad positions every kLoad steps, kSkew + 1 steps
+// ahead of their first read (a barrier lies between), into slots whose
+// last read lies a barrier earlier.
+constexpr int kPosRing = 512, kLoad = 32;
+static_assert(kPosRing >= (kRowsMaxC / 32 - 1) * kSkew + kRowsMaxC - 1 +
+                              2 * kEvery + kLoad - 1,
+              "a position must outlive its reads");
+
+// the records row i + 1 reads: H (V, D, GA, GB, J), G (V, GA, GB, J)
+struct Rec9 {
+  float V;
+  int D, GA, GB, J;
+  float gV;
+  int gGA, gGB, gJ;
+};
+
+// the row's horizontal carry, its donor list in rank order (entry k holds
+// rank k; cK = lane | the donor's dinc5 << 2)
+struct CarryC {
+  float f1V;
+  int f1D, f1GA, f1J;
+  float hpV;
+  int hpD, hpGA, hpGB, hpJ;
+  float cV[NSLOT];
+  int cJ[NSLOT], cK[NSLOT];
+  int ncand;
+};
+
+// the split cluster barrier: a warp's ring and position writes are
+// released at the arrive and acquired by the others at the wait
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__device__ __forceinline__ Rec9 init_rec(const Params& p, int s) {
+  const int W2 = p.W + 2;
+  return Rec9{p.h0v[s],      p.h0i[s],      p.h0i[W2 + s],
+              p.h0i[2 * W2 + s], p.h0i[3 * W2 + s], p.g0v[s],
+              p.g0i[W2 + s], p.g0i[2 * W2 + s], p.g0i[3 * W2 + s]};
+}
+
+__device__ __forceinline__ Rec9 shfl_up9(const Rec9& r) {
+  const unsigned all = 0xffffffffu;
+  return Rec9{__shfl_up_sync(all, r.V, 1),   __shfl_up_sync(all, r.D, 1),
+              __shfl_up_sync(all, r.GA, 1),  __shfl_up_sync(all, r.GB, 1),
+              __shfl_up_sync(all, r.J, 1),   __shfl_up_sync(all, r.gV, 1),
+              __shfl_up_sync(all, r.gGA, 1), __shfl_up_sync(all, r.gGB, 1),
+              __shfl_up_sync(all, r.gJ, 1)};
+}
+
+__device__ __forceinline__ Rec9 ring_read(const int* w) {
+  const int4 a = *(const int4*)w, b = *(const int4*)(w + 4),
+             c = *(const int4*)(w + 8);
+  return Rec9{__int_as_float(a.x), a.y, a.z, a.w, b.x,
+              __int_as_float(b.y), b.z, b.w, c.x};
+}
+
+__device__ __forceinline__ void ring_write(int* w, const Rec9& r) {
+  *(int4*)w = make_int4(__float_as_int(r.V), r.D, r.GA, r.GB);
+  *(int4*)(w + 4) = make_int4(r.J, __float_as_int(r.gV), r.gGA, r.gGB);
+  *(int4*)(w + 8) = make_int4(r.gJ, 0, 0, 0);
+}
+
+// what the rows read at genome position q, packed into the ring
+__device__ __forceinline__ void load_position(const Params& p, int* pr,
+                                              int q) {
+  const int nc = min(max(q, 0), p.lb);
+  const int bn = __ldg(p.b + min(max(q - 1, 0), p.lb - 1));
+  const int k = q & (kPosRing - 1);
+  pr[k] = bn | (__ldg(p.cano3 + nc) > 0 ? 1 << 8 : 0) |
+          (__ldg(p.cano5 + nc) > 0 ? 1 << 9 : 0) |
+          __ldg(p.dinc3 + nc) << 10 | __ldg(p.dinc5 + nc) << 14;
+  pr[kPosRing + k] = __float_as_int(__ldg(p.sig5 + nc));
+  pr[2 * kPosRing + k] = __float_as_int(__ldg(p.sss3 + nc));
+}
+
+// one cell of the cluster variant: row i at slot s and genome position n,
+// the row above's records d (wave t - 2, slot s) and u (wave t - 1, slot
+// s + 1), the position's packed word pw, sig5 and sss3; the same float
+// operations as cell(), in its order.  Returns the records row i + 1
+// reads.
+__device__ __forceinline__ Rec9 cell_c(const Params& p, CarryC& c, int i,
+                                       int s, int n, const Rec9& d,
+                                       const Rec9& u, int pw, float sj,
+                                       float s3, const float* mrow,
+                                       const float* p53, const float* pen,
+                                       float gop, float gep, Prof& pf) {
+  const int W = p.W, W2 = W + 2;
+  const int m = i + (p.a_exgl ? 1 : 0);
+  const bool valid = n >= max(m + p.lw, 1) && n <= min(m + p.up, p.lb);
+  const bool internal = !p.a_exgr || m < p.la;
+  const float pua = internal ? gep : 0.f;
+  const bool no_diag = m == 0;
+  const float bscr = p.la > 0 ? mrow[pw & 0xff] : 0.f;
+  pf.mark(kSecMatch);
+
+  // ---- diagonal ----
+  float hV = d.V + bscr;
+  int hD = is_diag(d.D) ? DIAG : NEWD;
+  int hJ = d.J;
+  if (no_diag) {
+    hV = NEVSEL;
+    hD = DEAD;
+  }
+
+  // ---- vertical ----
+  const float gopv = u.GA >= u.GB ? gop : 0.f;
+  const float gnpv = u.gGA >= u.gGB ? gop : 0.f;
+  const float vu = u.V + gopv, vg = u.gV + gnpv;
+  bool vnew = !is_vert(u.D) && vu > vg;
+  float gV = (vnew ? vu : vg) + pua;
+  int gJ = vnew ? u.J : u.gJ;
+  const int gGB = (vnew ? u.GB : u.gGB) + 1;
+  int gD = VERT;
+  if (no_diag) {
+    gV = NEVSEL;
+    vnew = false;
+  }
+
+  // ---- horizontal ----
+  const float goph = c.hpGA <= c.hpGB ? gop : 0.f;
+  const float hh = c.hpV + goph;
+  const bool hnew = !is_hori(c.hpD) && hh > c.f1V;
+  float nf1V = (hnew ? hh : c.f1V) + gep;
+  int nf1J = hnew ? c.hpJ : c.f1J;
+  const int nf1GA = (hnew ? c.hpGA : c.f1GA) + 1;
+  int nf1D = ((hnew ? c.hpD : c.f1D) & SPIN) + HORI;
+
+  // ---- running max (h -> g strict -> f1 ties) ----
+  int w = 0;
+  float mxV = hV;
+  if (gV > mxV) w = 2;
+  mxV = gV > mxV ? gV : mxV;
+  if (nf1V >= mxV) w = 1;
+  mxV = nf1V > mxV ? nf1V : mxV;
+  pf.mark(kSecDVH);
+
+  // ---- 3' acceptor: merge candidates ----
+  float lv0 = hV, lv1 = nf1V, lv2 = gV;
+  bool jx0 = false, jx1 = false, jx2 = false;
+  int jd0 = 0, jd1 = 0, jd2 = 0;
+  if (valid && internal && (pw >> 8 & 1)) {
+    const int d3 = pw >> 10 & 15;
+#pragma unroll
+    for (int l = 0; l < NCAND; ++l) {
+      if (l < c.ncand) {
+        const int cj = c.cJ[l];
+        float x = c.cV[l] + pen[min(max(n - cj, 0), p.lb + 1)];
+        x = x + p53[16 * (c.cK[l] >> 2) + d3];
+        x = x + s3;
+        const int lane = c.cK[l] & 3;
+        if (lane == 0 && x > lv0) {
+          lv0 = x;
+          jx0 = true;
+          jd0 = cj;
+        } else if (lane == 1 && x > lv1) {
+          lv1 = x;
+          jx1 = true;
+          jd1 = cj;
+        } else if (lane == 2 && x > lv2) {
+          lv2 = x;
+          jx2 = true;
+          jd2 = cj;
+        }
+      }
+    }
+  }
+  hV = lv0;
+  nf1V = lv1;
+  gV = lv2;
+  if (jx0) {
+    hD |= SPJCI;
+    hJ = n;
+  }
+  if (jx1) {
+    nf1D |= SPJCI;
+    nf1J = n;
+  }
+  if (jx2) {
+    gD |= SPJCI;
+    gJ = n;
+  }
+  // merged lanes contest the max strictly, in lane order
+  mxV = w == 0 ? lv0 : (w == 1 ? lv1 : lv2);
+  if (jx0 && lv0 > mxV) {
+    w = 0;
+    mxV = lv0;
+  }
+  if (jx1 && lv1 > mxV) {
+    w = 1;
+    mxV = lv1;
+  }
+  if (jx2 && lv2 > mxV) {
+    w = 2;
+    mxV = lv2;
+  }
+
+  // ---- the cell record (h <- mx) ----
+  const float cV = w == 0 ? hV : (w == 1 ? nf1V : gV);
+  const int cD = w == 0 ? hD : (w == 1 ? nf1D : gD);
+  const int cGA = w == 1 ? nf1GA : 0;
+  const int cGB = w == 2 ? gGB : 0;
+  const int cJ = w == 0 ? hJ : (w == 1 ? nf1J : gJ);
+  pf.mark(kSecAcc);
+
+  // ---- 5' donor: push candidates, the list kept in rank order ----
+  if (valid && internal && (pw >> 9 & 1)) {
+    const int hd = dir2nod(cD);
+    const int d5 = pw >> 14 & 15;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const int fD = k == 0 ? cD : (k == 1 ? nf1D : gD);
+      const float fV = k == 0 ? cV : (k == 1 ? nf1V : gV);
+      bool ok = (k != 0 || hd == 0) && fD != 0 && (fD & SPIN) == 0;
+      const bool thr_on = k != hd && hd >= 0 && k != 0;
+      const float y =
+          mxV + ((hd == 0 || ((k - hd) % 2) != 0) ? (k == 2 ? gop : 0.f)
+                                                   : 0.f);
+      if (thr_on) ok = ok && fV > y;
+      if (!ok) continue;
+      const float x = fV + sj;
+      // insertion sort (fwd2s.h:362 semantics): the spare entry at rank
+      // l_start bubbles up to the insertion rank
+      const int ncand_new = min(c.ncand + 1, NCAND);
+      const int l_start = c.ncand < NCAND ? c.ncand + 1 : NCAND;
+      int pos = 0;
+      bool broken = false;
+#pragma unroll
+      for (int l = NCAND - 1; l >= 0; --l) {
+        const bool active = l < l_start && !broken;
+        const bool gt = x > c.cV[l];
+        if (active && gt) {
+          const float tv = c.cV[l];
+          c.cV[l] = c.cV[l + 1];
+          c.cV[l + 1] = tv;
+          const int tj = c.cJ[l];
+          c.cJ[l] = c.cJ[l + 1];
+          c.cJ[l + 1] = tj;
+          const int tk = c.cK[l];
+          c.cK[l] = c.cK[l + 1];
+          c.cK[l + 1] = tk;
+        }
+        if (active && !gt) {
+          pos = l + 1;
+          broken = true;
+        }
+      }
+      const bool accept = pos < INTR;
+      if (accept && pos == 0) {
+        c.cV[0] = x;
+        c.cJ[0] = n;
+        c.cK[0] = k | d5 << 2;
+      } else if (accept) {
+        c.cV[1] = x;
+        c.cJ[1] = n;
+        c.cK[1] = k | d5 << 2;
+      }
+      c.ncand = accept ? ncand_new : ncand_new - 1;
+    }
+  }
+  pf.mark(kSecDon);
+
+  const size_t cellx = (size_t)i * W + (s - 1);
+  const int e = w | (vnew ? EV_VNEW : 0) | (hnew ? EV_HNEW : 0) |
+                (jx0 ? EV_JXH : 0) | (jx1 ? EV_JXF : 0) | (jx2 ? EV_JXG : 0);
+  p.ev[cellx] = valid ? e : -1;
+  p.jdon[3 * cellx] = jd0;
+  p.jdon[3 * cellx + 1] = jd1;
+  p.jdon[3 * cellx + 2] = jd2;
+  pf.mark(kSecPlanes);
+
+  // retain old values on invalid slots
+  const Rec9 o{valid ? cV : d.V,    valid ? cD : d.D,   valid ? cGA : d.GA,
+               valid ? cGB : d.GB,  valid ? cJ : d.J,   valid ? gV : d.gV,
+               valid ? 0 : d.gGA,   valid ? gGB : d.gGB, valid ? gJ : d.gJ};
+  c.hpV = o.V;
+  c.hpD = o.D;
+  c.hpGA = o.GA;
+  c.hpGB = o.GB;
+  c.hpJ = o.J;
+  if (valid) {
+    c.f1V = nf1V;
+    c.f1D = nf1D;
+    c.f1GA = nf1GA;
+    c.f1J = nf1J;
+  }
+  if (i == p.rows - 1) {
+    p.HV[s] = o.V;
+    p.Hi[s] = o.D;
+    p.Hi[W2 + s] = o.GA;
+    p.Hi[2 * W2 + s] = o.GB;
+    p.Hi[3 * W2 + s] = o.J;
+  }
+  return o;
+}
+
+// The cluster variant: one row a thread, a slab of consecutive rows a
+// CTA (blockDim.x, whole warps), the CTAs one cluster.  Shared memory: the
+// warps' boundary rings, the position ring, the matrix, pair53 and, if
+// pen_smem, the penalty table by length.
+__global__ void __launch_bounds__(kRowsMaxC, 1)
+    spliced_s_wave_cluster(Params p) {
+  extern __shared__ __align__(16) int smc[];
+  const int R = blockDim.x, nw = R >> 5;
+  const int rank = (int)cg::this_cluster().block_rank();
+  const int lane = threadIdx.x & 31, wl = threadIdx.x >> 5;
+  const int i = rank * R + threadIdx.x;
+  const int g = i >> 5;
+  const int RT = p.rows, W = p.W, K = p.K;
+  int* const br = smc;
+  int* const pr = br + nw * kRingD * kBWords;
+  float* const mtx = (float*)(pr + 3 * kPosRing);
+  float* const p53 = mtx + K * K;
+  float* const pen_s = p53 + 256;
+  const float* const pen = p.pen_smem ? pen_s : p.pen;
+  for (int k = threadIdx.x; k < K * K; k += R) mtx[k] = p.mtx[k];
+  for (int k = threadIdx.x; k < 256; k += R) p53[k] = p.pair53[k];
+  if (p.pen_smem)
+    for (int k = threadIdx.x; k < p.lb + 2; k += R) pen_s[k] = p.pen[k];
+  // the ring this warp's last row writes, and the one its first row
+  // reads: the previous warp's, or the previous CTA's last warp's
+  int* const own = br + wl * kRingD * kBWords;
+  const int* above = nullptr;
+  if (wl > 0)
+    above = br + (wl - 1) * kRingD * kBWords;
+  else if (rank > 0)
+    above = cg::this_cluster().map_shared_rank(br, rank - 1) +
+            (nw - 1) * kRingD * kBWords;
+  // row i at wave t reads genome position n = t - i + lw - 1 + m_start;
+  // the slab's highest at step s is head(s) = s + hoff (its first row)
+  const int m0 = p.a_exgl ? 1 : 0;
+  const int hoff = p.lw - 1 + m0 - rank * nw * kSkew - rank * R;
+  for (int q = 1 + hoff + kEvery - (kPosRing - kLoad) + (int)threadIdx.x;
+       q < 1 + hoff + kEvery; q += R)
+    load_position(p, pr, q);
+
+  const int T = 2 * (RT - 1) + W;
+  const int s_last = T + ((int)gridDim.x * nw - 1) * kSkew;
+  const float gop = p.fprm[0], gep = p.fprm[1];
+  const int m = i + m0;
+  const float* const mrow =
+      mtx + (p.la > 0 && i < RT ? __ldg(p.a + max(m - 1, 0)) : 0) * K;
+  // the init records at slot W + 1, and row 0's at slots s and s + 1
+  const Rec9 initW1 = init_rec(p, W + 1);
+  Rec9 i0d = initW1, i0u = initW1;
+  if (i == 0) {
+    i0d = init_rec(p, 1);
+    i0u = init_rec(p, min(2, W + 1));
+  }
+  CarryC c;
+  c.f1V = NEVSEL;
+  c.f1D = c.f1GA = c.f1J = 0;
+  c.hpV = p.h0v[0];
+  c.hpD = p.h0i[0];
+  c.hpGA = p.h0i[W + 2];
+  c.hpGB = p.h0i[2 * (W + 2)];
+  c.hpJ = p.h0i[3 * (W + 2)];
+  const int k0 = __ldg(p.dinc5) << 2;
+#pragma unroll
+  for (int j = 0; j < NSLOT; ++j) {
+    c.cV[j] = NEVSEL;
+    c.cJ[j] = 0;
+    c.cK[j] = k0;
+  }
+  c.ncand = 0;
+  // this row's record of the last wave it took, and the row above's of
+  // the last two
+  Rec9 mine = initW1, ureg = initW1;
+  Prof pf;
+  cluster_arrive();
+  cluster_wait();
+
+  for (int s = 1; s <= s_last; ++s) {
+    const int ph = (s - 1) % kEvery;
+    const int t = s - g * kSkew;
+    __syncwarp();
+    if (ph == 0 && s > 1) cluster_wait();
+    pf.mark(kSecWait);
+    if (wl == 0 && (s - 1) % kLoad == 0)
+      load_position(p, pr, s + hoff + kEvery + lane);
+    if (t >= 1 && t <= T) {
+      // the row above's records: wave t - 2 kept from the last step,
+      // wave t - 1 from lane l - 1 or the ring above
+      const Rec9 dreg = ureg;
+      ureg = shfl_up9(mine);
+      if (lane == 0 && above != nullptr)
+        ureg = ring_read(above + ((t - 1) & (kRingD - 1)) * kBWords);
+      const int sl = t - 2 * i;
+      if (i < RT && sl >= 1 && sl <= W) {
+        const int n = t - i + p.lw - 1 + m0;
+        const int q = n & (kPosRing - 1);
+        const int pw = pr[q];
+        const float sj = __int_as_float(pr[kPosRing + q]);
+        const float s3 = __int_as_float(pr[2 * kPosRing + q]);
+        const Rec9 d = i == 0 ? i0d : dreg;
+        const Rec9 u = i == 0 ? i0u : (sl == W ? initW1 : ureg);
+        pf.mark(kSecRead);
+        mine = cell_c(p, c, i, sl, n, d, u, pw, sj, s3, mrow, p53, pen, gop,
+                      gep, pf);
+        if (lane == 31) ring_write(own + (t & (kRingD - 1)) * kBWords, mine);
+        pf.mark(kSecRing);
+      }
+      pf.mark(kSecIdle);
+      if (i == 0) {
+        i0d = i0u;
+        i0u = init_rec(p, min(t + 2, W + 1));
+      }
+    }
+    if (ph == kEvery - 1) cluster_arrive();
+  }
+  // no CTA leaves while the next one may still read its ring
+  if ((s_last - 1) % kEvery != kEvery - 1) cluster_arrive();
+  cluster_wait();
+  pf.flush(s_last);
 }
 
 }  // namespace
+
+#ifdef K5_PROFILE
+// the profile's sums (kSections, then the steps they cover), cleared
+// after the read if ``clear``
+extern "C" int k5_profile_read(void* out, int clear) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, k5_prof, sizeof(k5_prof));
+  if (e == cudaSuccess && clear) {
+    unsigned long long z[kSections + 1] = {};
+    e = cudaMemcpyToSymbol(k5_prof, z, sizeof(z));
+  }
+  return (int)e;
+}
+#endif
+
+namespace {
+
+size_t cluster_smem(int threads, int K, int lb, int pen_smem) {
+  return ((size_t)(threads / 32) * kRingD * kBWords + 3 * kPosRing +
+          (size_t)K * K + 256 + (pen_smem ? (size_t)lb + 2 : 0)) *
+         sizeof(int);
+}
+
+cudaLaunchConfig_t cluster_config(int ctas, int threads, int smem,
+                                  cudaLaunchAttribute* attr,
+                                  cudaStream_t s) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = ctas;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+cudaError_t cluster_attributes(int smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      spliced_s_wave_cluster, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(spliced_s_wave_cluster,
+                              cudaFuncAttributeNonPortableClusterSizeAllowed,
+                              1);
+}
+
+}  // namespace
+
+// How many clusters of ``ctas`` CTAs of ``threads`` threads and ``smem``
+// bytes the card can hold at once (cudaOccupancyMaxActiveClusters) into
+// out[0]: 0 where it cannot hold one.
+extern "C" int spliced_s_wave_max_clusters(int ctas, int threads, int smem,
+                                           void* out) {
+  if (ctas < 1 || ctas > kClusterMax || threads < 32 ||
+      threads > kRowsMaxC || smem > kSmemMax)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cluster_attributes(smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(ctas, threads, smem, &attr, nullptr);
+  return (int)cudaOccupancyMaxActiveClusters(
+      (int*)out, (const void*)spliced_s_wave_cluster, &cfg);
+}
 
 // words of global scratch a row: its rings unless they sit in shared
 // memory, and its carry when a thread takes several rows
@@ -522,10 +1105,14 @@ extern "C" int spliced_s_wave_scratch_words(int ring_smem, int multi) {
   return (ring_smem ? 0 : kRingWords) + (multi ? kStateWords : 0);
 }
 
-// ``threads`` threads of ``rpt`` rows each (ops/spliced_s.py::
-// sweep_s_plan), ``smem`` bytes of shared memory: the matrix and pair53,
-// then the rings if ``ring_smem`` and the penalty table if ``pen_smem``.
-// A launch the kernel refuses returns its error.
+// The plan of ops/spliced_s.py::sweep_s_plan.  ``cluster``: ``ctas``
+// CTAs of ``threads`` rows in one cluster, ``smem`` bytes of shared memory a CTA (the rings, the position ring,
+// the matrix, pair53 and, if ``pen_smem``, the penalty table).  Else the
+// global variant: one block of ``threads`` threads of ``rpt`` rows each,
+// ``smem`` bytes of shared memory (the matrix and pair53, then the rings
+// if ``ring_smem`` and the penalty table if ``pen_smem``).  A launch
+// either variant refuses returns its error; neither stands in for the
+// other.
 extern "C" int spliced_s_wave_launch(
     const void* a, const void* b, const void* mtx, const void* cano3,
     const void* cano5, const void* sig5, const void* dinc5,
@@ -533,8 +1120,8 @@ extern "C" int spliced_s_wave_launch(
     const void* h0v, const void* h0i, const void* g0v, const void* g0i,
     const void* fprm, void* scratch, void* ev, void* jdon, void* HV,
     void* Hi, int la, int lb, int lw, int up, int a_exgl, int a_exgr, int K,
-    int threads, int rpt, int ring_smem, int pen_smem, int smem,
-    void* stream) {
+    int cluster, int ctas, int threads, int rpt, int ring_smem, int pen_smem,
+    int smem, void* stream) {
   Params p;
   p.a = (const int*)a;
   p.b = (const int*)b;
@@ -568,6 +1155,24 @@ extern "C" int spliced_s_wave_launch(
   p.W = up - lw + 1;
   p.ring_smem = ring_smem;
   p.pen_smem = pen_smem;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (cluster) {
+    if (p.rows < 1 || p.W < 1 || lb < 1 || K > 256 ||
+        ring_smem || ctas < 1 || ctas > kClusterMax || threads < 32 ||
+        threads > kRowsMaxC || threads % 32 != 0 ||
+        (size_t)ctas * threads < (size_t)p.rows ||
+        cluster_smem(threads, K, lb, pen_smem) != (size_t)smem ||
+        smem > kSmemMax)
+      return (int)cudaErrorInvalidValue;
+    cudaError_t err = cluster_attributes(smem);
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg =
+        cluster_config(ctas, threads, smem, &attr, s);
+    err = cudaLaunchKernelEx(&cfg, spliced_s_wave_cluster, p);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+  }
   const size_t need =
       ((size_t)K * K + 256 + (ring_smem ? (size_t)kRingWords * p.rows : 0) +
        (pen_smem ? (size_t)lb + 2 : 0)) *
@@ -575,9 +1180,8 @@ extern "C" int spliced_s_wave_launch(
   if (p.rows < 1 || p.W < 1 || lb < 1 || threads < 1 ||
       threads > kThreadsMax || rpt < 1 || (size_t)threads * rpt < (size_t)p.rows ||
       (rpt == 1) != (threads >= p.rows) || need != (size_t)smem ||
-      smem > kSmemMax)
+      smem > kSmemMax || ctas != 1)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
   if (rpt == 1) {
     cudaError_t err = cudaFuncSetAttribute(
         spliced_s_wave_kernel<true>,
@@ -594,13 +1198,15 @@ extern "C" int spliced_s_wave_launch(
   return (int)cudaGetLastError();
 }
 
-// registers a thread and local (spilled) bytes of the one-row (multi = 0)
-// or the several-rows variant
-extern "C" int spliced_s_wave_attrs(int multi, void* out) {
+// registers a thread and local (spilled) bytes of a kernel: the global
+// variant's one-row (variant 0) or several-rows (1) kernel, or the
+// cluster variant's (2)
+extern "C" int spliced_s_wave_attrs(int variant, void* out) {
   cudaFuncAttributes at;
   const cudaError_t err =
-      multi ? cudaFuncGetAttributes(&at, spliced_s_wave_kernel<false>)
-            : cudaFuncGetAttributes(&at, spliced_s_wave_kernel<true>);
+      variant == 2   ? cudaFuncGetAttributes(&at, spliced_s_wave_cluster)
+      : variant == 1 ? cudaFuncGetAttributes(&at, spliced_s_wave_kernel<false>)
+                     : cudaFuncGetAttributes(&at, spliced_s_wave_kernel<true>);
   if (err != cudaSuccess) return (int)err;
   int* o = (int*)out;
   o[0] = at.numRegs;

@@ -45,9 +45,10 @@ _SIGNATURES = {
     "spliced_h_wave_scratch_words": [],
     "spliced_h_walk_launch": [_vp] * 3 + [_int] * 10 + [_vp],
     "spliced_h_walk_attrs": [_vp],
-    "spliced_s_wave_launch": [_vp] * 21 + [_int] * 12 + [_vp],
+    "spliced_s_wave_launch": [_vp] * 21 + [_int] * 14 + [_vp],
     "spliced_s_wave_scratch_words": [_int, _int],
     "spliced_s_wave_attrs": [_int, _vp],
+    "spliced_s_wave_max_clusters": [_int] * 3 + [_vp],
 }
 
 _lib = None

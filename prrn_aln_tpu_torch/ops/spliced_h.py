@@ -16,8 +16,11 @@ per-wave planes ev (winner, vertical/horizontal source, junction and sj
 bits), jd (the donor position of each lane's junction and the sj
 source), V and D (the cell record's value and direction), which the
 walk turns into the knot chain.  The kernel and the plain version run
-the same float operations in the same order; the intron penalty is the
-table form of ``spliced_jax._penalty``, which the scan engine uses.
+the same float operations in the same order; the intron penalty is one
+table by length (``pext``, built once on the host by
+``spliced_s.penalty_by_length`` with the operations of the scan engine's
+compiled ``spliced_jax._penalty``), which the plain version and both
+kernel variants read, so none of them calls a logarithm.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from ..splice import tron
 from . import _build
 from .spliced_np import NEVSEL, DEAD, DIAG, NEWD, VERT, HORI, SPIN, SPJCI
 from .spliced_h_np import _IS_HORI, NCAND_H, INTR, HORI3
+from .spliced_s import penalty_by_length
 
 F32 = torch.float32
 I32 = torch.int32
@@ -54,7 +58,7 @@ TAB_FILL = (0.0, 0.0, -2.0, -2.0, 0.0, 0.0, 0.0, 4.0, 0.0, 0.0, 0.0, 0.0,
             0.0)
 # float parameters, in the order csrc/spliced_h_wave.cu reads them
 FPRM = ("gop", "gep", "gap_e1", "gap_e2", "gap_w1", "gap_w2", "fO", "e1V",
-        "mu", "int_ep", "int_fx", "gap_wi")
+        "gap_wi")
 
 
 def _codon_tables(b: np.ndarray):
@@ -106,21 +110,12 @@ def _codon_tables(b: np.ndarray):
     return A1, A2, e3idx, r1idx
 
 
-def _penalty(pen, fp, llmt: int, rlmt: int, length):
-    """IntronPenalty::Penalty as tensor ops (spliced_jax._penalty): the
-    f32 table in [llmt, rlmt), the log tail from rlmt, NEVSEL below
-    llmt and gap_wi for a negative length.  XLA fuses the tail's
-    int_fx + int_ep * log(.) into a multiply-add; it is computed here as
-    an f64 product (exact for f32 factors) plus an f64 add, rounded once
-    to f32, as csrc/spliced_h_wave.cu does."""
-    li = torch.clamp(length - llmt, 0, pen.shape[0] - 1)
-    tab = pen[li]
-    lg = torch.log(torch.clamp_min(length.to(F32) - fp["mu"], 1.0))
-    tail = (fp["int_ep"].double() * lg.double()
-            + fp["int_fx"].double()).to(F32)
-    out = torch.where(length >= rlmt, tail, tab)
-    out = torch.where(length < llmt, fp["nev"], out)
-    return torch.where(length < 0, fp["gap_wi"], out)
+def _penalty(pext, gap_wi, length):
+    """IntronPenalty::Penalty (spliced_jax._penalty) read from the table
+    by length ``pext``: gap_wi for a negative length (a length is at
+    most N: a donor and an acceptor lie in [0, N])."""
+    li = torch.clamp(length, 0, pext.shape[0] - 1)
+    return torch.where(length < 0, gap_wi, pext[li])
 
 
 @dataclasses.dataclass
@@ -131,10 +126,11 @@ class SweepInputs:
     (N + 1,), r1idx (N + 1,) and A1 (N + 1, 5) i32, read at a donor
     candidate's position; pair53 (16, 16) f32; qprof (M + 2, 26) f32;
     api (3M + 4,) f32 intron-position bonus; pen f32 intron penalty
-    table over [llmt, rlmt]; h0v (W + 6,) f32 and h0i (4, W + 6) i32
-    (D, GA, GB, J): the initH band records; e1i (4,) i32 the e1
-    pre-init record's D, GA, GB, J (its V is fprm's e1V); fprm (12,)
-    f32 in FPRM order."""
+    table over [llmt, rlmt]; pext (N + 2,) f32 the penalty of every
+    length 0 ... N + 1 (``spliced_s.penalty_by_length``); h0v (W + 6,)
+    f32 and h0i (4, W + 6) i32 (D, GA, GB, J): the initH band records;
+    e1i (4,) i32 the e1 pre-init record's D, GA, GB, J (its V is fprm's
+    e1V); fprm (9,) f32 in FPRM order."""
     tab: torch.Tensor
     dinc5: torch.Tensor
     r1idx: torch.Tensor
@@ -143,6 +139,7 @@ class SweepInputs:
     qprof: torch.Tensor
     api: torch.Tensor
     pen: torch.Tensor
+    pext: torch.Tensor
     h0v: torch.Tensor
     h0i: torch.Tensor
     e1i: torch.Tensor
@@ -210,8 +207,7 @@ def pack_sweep(qprof, b, exin, ipen, prm, lw: int, up: int, a_exgr: bool,
     e1 = e1pre if e1pre is not None else (0.0, 0, 0, 0, 0)
     fvals = dict(gop=prm.gop, gep=prm.gep, gap_e1=prm.gap_e1,
                  gap_e2=prm.gap_e2, gap_w1=prm.gap_w1, gap_w2=prm.gap_w2,
-                 fO=prm.fO, e1V=e1[0], mu=ipen.mu, int_ep=ipen.int_ep,
-                 int_fx=ipen.int_fx, gap_wi=ipen.gap_wi)
+                 fO=prm.fO, e1V=e1[0], gap_wi=ipen.gap_wi)
 
     def dt(x, dtype):
         return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
@@ -225,6 +221,7 @@ def pack_sweep(qprof, b, exin, ipen, prm, lw: int, up: int, a_exgr: bool,
         qprof=dt(np.asarray(qprof, np.float32), F32),
         api=dt(np.asarray(api_arr, np.float32), F32),
         pen=dt(np.asarray(ipen.table, np.float32), F32),
+        pext=dt(penalty_by_length(ipen, N), F32),
         h0v=dt(np.asarray(h0["V"], np.float32), F32),
         h0i=dt(np.stack([h0[f] for f in ("D", "GA", "GB", "J")]), I32),
         e1i=dt(np.asarray(e1[1:], np.int64), I32),
@@ -275,11 +272,9 @@ def sweep_h_ref(ins: SweepInputs) -> Sweep:
     off0 = 3 - lw
     LL = off0
     r0_max = min(up, N)
-    llmt, rlmt = ins.llmt, ins.rlmt
     fp = {k: ins.fprm[i] for i, k in enumerate(FPRM)}
     nev = torch.tensor(NEVSEL, dtype=F32, device=dev)
     zf = torch.zeros((), dtype=F32, device=dev)
-    fp["nev"] = nev
     gop, gep, fO = fp["gop"], fp["gep"], fp["fO"]
     gap_e1, gap_e2 = fp["gap_e1"], fp["gap_e2"]
     gap_w1, gap_w2 = fp["gap_w1"], fp["gap_w2"]
@@ -557,7 +552,7 @@ def sweep_h_ref(ins: SweepInputs) -> Sweep:
             act = ap[:, None] & (k4[None, :] < nc_li[:, None])
             cJc = torch.clamp(cJ, 0, N)
             xm = cV + sigJ[:, None]
-            xm = xm + _penalty(ins.pen, fp, llmt, rlmt, nb[:, None] - cJ)
+            xm = xm + _penalty(ins.pext, fp["gap_wi"], nb[:, None] - cJ)
             xm = xm + flat53[dinc5[cJc] * 16 + dinc3v[:, None]]
             xm = xm + sss3v[:, None]
             aa1 = A1[cJc, e3v[:, None]]
@@ -781,18 +776,6 @@ def sweep_plan(MR: int, npen: int, *, variant: str | None = None,
     return plan
 
 
-def penalty_by_length(ins: SweepInputs) -> torch.Tensor:
-    """The intron penalty of every length 0 ... N + 1 (a donor and an
-    acceptor both lie in [0, N]), as the plain version computes it
-    (``_penalty``), on the inputs' device: the table K4's cluster
-    variant reads in place of the penalty's branches and log tail."""
-    dev = ins.tab.device
-    fp = {k: ins.fprm[i] for i, k in enumerate(FPRM)}
-    fp["nev"] = torch.tensor(NEVSEL, dtype=F32, device=dev)
-    return _penalty(ins.pen, fp, ins.llmt, ins.rlmt,
-                    torch.arange(ins.N + 2, device=dev))
-
-
 def _launch_sweep(ins: SweepInputs, plan: dict | None = None) -> Sweep:
     dev = ins.tab.device
     if dev.type != "cuda":
@@ -811,6 +794,7 @@ def _launch_sweep(ins: SweepInputs, plan: dict | None = None) -> Sweep:
             (ins.qprof, "qprof", F32, (M + 2, tron.TSIMD)),
             (ins.api, "api", F32, (3 * M + 4,)),
             (ins.pen, "pen", F32, (ins.rlmt - ins.llmt + 1,)),
+            (ins.pext, "pext", F32, (N + 2,)),
             (ins.h0v, "h0v", F32, (W + 6,)),
             (ins.h0i, "h0i", I32, (4, W + 6)),
             (ins.e1i, "e1i", I32, (4,)),
@@ -823,9 +807,8 @@ def _launch_sweep(ins: SweepInputs, plan: dict | None = None) -> Sweep:
     D = torch.empty((T, MR), dtype=I32, device=dev)
     lib = _build.load()
     cluster = plan["variant"] == "cluster"
-    ring = pext = tabT = A1T = None
+    ring = tabT = A1T = None
     if cluster:
-        pext = penalty_by_length(ins)
         tabT = ins.tab.t().contiguous()
         A1T = ins.A1.t().contiguous()
     else:
@@ -837,8 +820,9 @@ def _launch_sweep(ins: SweepInputs, plan: dict | None = None) -> Sweep:
         ins.A1.data_ptr(), ins.pair53.data_ptr(), ins.qprof.data_ptr(),
         ins.api.data_ptr(), ins.pen.data_ptr(), ins.h0v.data_ptr(),
         ins.h0i.data_ptr(), ins.e1i.data_ptr(), ins.fprm.data_ptr(),
-        *(None if x is None else x.data_ptr() for x in (pext, tabT, A1T,
-                                                        ring)), ev.data_ptr(),
+        ins.pext.data_ptr(),
+        *(None if x is None else x.data_ptr() for x in (tabT, A1T, ring)),
+        ev.data_ptr(),
         jd.data_ptr(), V.data_ptr(), D.data_ptr(), M, N, ins.lw, ins.up,
         int(ins.a_exgr), ins.e1pre_t, ins.llmt, ins.rlmt, tron.TRM,
         tron.TRM2, ab.AMB, int(cluster), plan["ctas"], plan["rows"],

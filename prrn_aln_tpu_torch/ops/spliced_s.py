@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -472,30 +473,111 @@ def sweep_s(ins: SweepInputsS) -> SweepS:
     return _launch_sweep_s(ins)
 
 
-# K5's launch: one block of at most K5_THREADS threads, rows spread over
-# them (rows i, i + threads, ...); the matrix and pair53 in shared memory,
-# then the rows' H and G rings (K5_RING_WORDS words a row) and the penalty
-# table where they fit in K5_SMEM_MAX bytes, else in device memory
+# K5's launch (csrc/spliced_s_wave.cu).  The cluster variant: one row a
+# thread, at most K5_ROWS_MAX rows a CTA and K5_CLUSTER_MAX CTAs a cluster
+# (the non-portable most); shared memory a CTA holds a ring of
+# K5_RING_DEPTH waves of K5_BOUNDARY_WORDS words a warp, K5_POS_WORDS
+# words of genome-position tables, the matrix, pair53 and, where it fits,
+# the penalty table.  The global variant: one block of at most
+# K5_THREADS threads, rows spread over them (rows i, i + threads, ...);
+# the matrix and pair53 in shared memory, then the rows' H and G rings
+# (K5_RING_WORDS words a row) and the penalty table where they fit.  At
+# most K5_SMEM_MAX bytes a CTA.
+K5_ROWS_MAX = 256
+K5_CLUSTER_MAX = 16
+K5_RING_DEPTH = 16
+K5_BOUNDARY_WORDS = 12
+K5_POS_WORDS = 3 * 512
 K5_THREADS = 1024
 K5_RING_WORDS = 27
 K5_SMEM_MAX = 232448
 
 
-def sweep_s_plan(rows: int, K: int, npen: int) -> dict:
+def sweep_s_plan(rows: int, K: int, npen: int, *, variant: str | None = None,
+                 ctas: int | None = None, pen_smem: bool | None = None,
+                 cluster_max: int = K5_CLUSTER_MAX) -> dict:
     """K5's launch for ``rows`` cDNA rows, a K x K matrix and a penalty
-    table of ``npen`` lengths: threads, rows a thread, and which of the
-    rings and the penalty table sit in shared memory (its bytes)."""
-    rpt = max(-(-rows // K5_THREADS), 1)
-    threads = (-(-rows // rpt) + 31) // 32 * 32
-    smem = 4 * (K * K + 256)
-    ring_smem = smem + 4 * K5_RING_WORDS * rows <= K5_SMEM_MAX
-    if ring_smem:
-        smem += 4 * K5_RING_WORDS * rows
-    pen_smem = smem + 4 * npen <= K5_SMEM_MAX
-    if pen_smem:
-        smem += 4 * npen
-    return {"threads": threads, "rpt": rpt, "ring_smem": ring_smem,
-            "pen_smem": pen_smem, "smem": smem}
+    table of ``npen`` lengths: the variant, CTAs, rows a CTA (its
+    threads), rows a thread, which of the rings and the penalty table sit
+    in shared memory, and shared bytes a CTA.
+
+    Up to ``cluster_max`` * K5_ROWS_MAX rows (the most CTAs a cluster the
+    card holds, K5_CLUSTER_MAX at most) the cluster variant takes them,
+    one row a thread, in slabs of whole warps: by default the smallest
+    slab that ``cluster_max`` CTAs hold, over as few CTAs as that slab
+    needs, and the penalty table in shared memory where it fits.  Past
+    that the global variant takes them in one block (``threads`` threads
+    of ``rpt`` rows; its ``rows`` is all the rows).  ``variant``,
+    ``ctas`` and ``pen_smem`` ask for a plan, as the bench and the tests
+    do; a plan the kernels cannot take raises."""
+    cluster_max = min(cluster_max, K5_CLUSTER_MAX)
+    if variant is None:
+        variant = ("cluster" if rows <= cluster_max * K5_ROWS_MAX
+                   and K <= 256 else "global")
+    base = 4 * (K * K + 256)
+    if variant == "cluster":
+        if ctas is None:
+            ctas = cluster_max
+        rows_cta = (-(-rows // max(ctas, 1)) + 31) // 32 * 32
+        if (not 1 <= ctas <= cluster_max or rows_cta > K5_ROWS_MAX
+                or rows < 1 or K > 256):
+            raise ValueError(f"K5's cluster variant cannot take {rows} rows "
+                             f"over {ctas} CTAs")
+        smem = base + 4 * (rows_cta // 32 * K5_RING_DEPTH
+                           * K5_BOUNDARY_WORDS + K5_POS_WORDS)
+        if pen_smem is None:
+            pen_smem = smem + 4 * npen <= K5_SMEM_MAX
+        plan = {"variant": "cluster", "ctas": -(-rows // rows_cta),
+                "rows": rows_cta, "threads": rows_cta, "rpt": 1,
+                "ring_smem": False, "pen_smem": bool(pen_smem),
+                "smem": smem + (4 * npen if pen_smem else 0)}
+    elif variant == "global":
+        if ctas not in (None, 1):
+            raise ValueError("K5's global variant runs one block")
+        rpt = max(-(-rows // K5_THREADS), 1)
+        threads = (-(-rows // rpt) + 31) // 32 * 32
+        smem = base
+        ring_smem = smem + 4 * K5_RING_WORDS * rows <= K5_SMEM_MAX
+        if ring_smem:
+            smem += 4 * K5_RING_WORDS * rows
+        if pen_smem is None:
+            pen_smem = smem + 4 * npen <= K5_SMEM_MAX
+        if pen_smem:
+            smem += 4 * npen
+        plan = {"variant": "global", "ctas": 1, "rows": rows,
+                "threads": threads, "rpt": rpt, "ring_smem": ring_smem,
+                "pen_smem": bool(pen_smem), "smem": smem}
+    else:
+        raise ValueError(f"unknown K5 variant {variant!r}")
+    if plan["smem"] > K5_SMEM_MAX:
+        raise ValueError(f"K5 needs {plan['smem']} bytes of shared memory")
+    return plan
+
+
+@functools.lru_cache(maxsize=None)
+def _clusters_held(ctas: int, threads: int, smem: int) -> int:
+    """Clusters of this shape the card holds at once."""
+    out = (ctypes.c_int * 1)()
+    _build.check(_build.load().spliced_s_wave_max_clusters(
+        ctas, threads, smem, ctypes.addressof(out)),
+        "spliced_s_wave_max_clusters")
+    return out[0]
+
+
+def launch_plan(rows: int, K: int, npen: int) -> dict:
+    """``sweep_s_plan`` within what the card holds: the cluster size is
+    cut until ``cudaOccupancyMaxActiveClusters`` finds room for one
+    cluster of the plan (the global variant takes the rows the smaller
+    cluster cannot); raises if the card holds no cluster at all."""
+    cmax = K5_CLUSTER_MAX
+    while True:
+        plan = sweep_s_plan(rows, K, npen, cluster_max=cmax)
+        if plan["variant"] != "cluster" or _clusters_held(
+                plan["ctas"], plan["threads"], plan["smem"]) >= 1:
+            return plan
+        cmax = plan["ctas"] - 1
+        if cmax < 1:
+            raise RuntimeError("the card holds no cluster of K5's plan")
 
 
 def _launch_sweep_s(ins: SweepInputsS, plan: dict | None = None) -> SweepS:
@@ -530,11 +612,14 @@ def _launch_sweep_s(ins: SweepInputsS, plan: dict | None = None) -> SweepS:
     if R <= 0:
         return SweepS(ev, jdon, HV, Hi)
     if plan is None:
-        plan = sweep_s_plan(R, K, lb + 2)
+        plan = launch_plan(R, K, lb + 2)
     lib = _build.load()
-    scratch = torch.empty((lib.spliced_s_wave_scratch_words(
-        int(plan["ring_smem"]), int(plan["rpt"] > 1)) * R,),
-        dtype=I32, device=dev)
+    cluster = plan["variant"] == "cluster"
+    scratch = None
+    if not cluster:
+        scratch = torch.empty((lib.spliced_s_wave_scratch_words(
+            int(plan["ring_smem"]), int(plan["rpt"] > 1)) * R,),
+            dtype=I32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.spliced_s_wave_launch(
         ins.a.data_ptr(), ins.b.data_ptr(), ins.mtx.data_ptr(),
@@ -542,23 +627,25 @@ def _launch_sweep_s(ins: SweepInputsS, plan: dict | None = None) -> SweepS:
         ins.dinc5.data_ptr(), ins.dinc3.data_ptr(), ins.sss3.data_ptr(),
         ins.pair53.data_ptr(), ins.pen.data_ptr(), ins.h0v.data_ptr(),
         ins.h0i.data_ptr(), ins.g0v.data_ptr(), ins.g0i.data_ptr(),
-        ins.fprm.data_ptr(), scratch.data_ptr(), ev.data_ptr(),
-        jdon.data_ptr(), HV.data_ptr(), Hi.data_ptr(), la, lb, ins.lw,
-        ins.up, int(ins.a_exgl), int(ins.a_exgr), K, plan["threads"],
-        plan["rpt"], int(plan["ring_smem"]), int(plan["pen_smem"]),
-        plan["smem"], stream)
+        ins.fprm.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        ev.data_ptr(), jdon.data_ptr(), HV.data_ptr(), Hi.data_ptr(), la, lb,
+        ins.lw, ins.up, int(ins.a_exgl), int(ins.a_exgr), K, int(cluster),
+        plan["ctas"], plan["threads"], plan["rpt"], int(plan["ring_smem"]),
+        int(plan["pen_smem"]), plan["smem"], stream)
     _build.check(err, "spliced_s_wave_launch")
     _build.LAUNCHES["spliced_s_wave"] += 1
     return SweepS(ev, jdon, HV, Hi)
 
 
-def spliced_s_wave_attrs(multi: bool) -> dict:
-    """Registers a thread and local (spilled) bytes of K5's one-row
-    (``multi`` False) or several-rows variant, as the card's loader
-    reports them."""
+def spliced_s_wave_attrs(variant: str, multi: bool = False) -> dict:
+    """Registers a thread and local (spilled) bytes of one of K5's
+    kernels, as the card's loader reports them: the cluster variant's,
+    or the global variant's one-row (``multi`` False) or several-rows
+    kernel."""
+    which = 2 if variant == "cluster" else int(multi)
     out = (ctypes.c_int * 2)()
     _build.check(_build.load().spliced_s_wave_attrs(
-        int(multi), ctypes.addressof(out)), "spliced_s_wave_attrs")
+        which, ctypes.addressof(out)), "spliced_s_wave_attrs")
     return {"registers": out[0], "local_bytes": out[1]}
 
 

@@ -5,6 +5,7 @@ no JAX, so it also runs where JAX is absent:
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 """
 
+import sys
 import zlib
 from pathlib import Path
 
@@ -351,6 +352,8 @@ _K4_CASES = {
     "rich": ("cluster", 5),
     "rows527": ("cluster", 6),
     "rows1100": ("cluster", 7),
+    "long_introns": ("cluster", 6),
+    "long_introns_global": ("global", 1),
 }
 
 
@@ -369,6 +372,10 @@ def _k4_pair(case):
         return g, p
     if case == "rich":
         return _rich_pair(5, 900, 150, 0.3)
+    if case.startswith("long"):
+        sys.path.insert(0, str(FIX.parent.parent))
+        from chip_smoke import long_intron_gene
+        return long_intron_gene()
     if case == "rows527":
         return _rich_pair(7, 1650, 526, 0.1)
     return _rich_pair(3, 3360, 1100, 0.1)
@@ -388,7 +395,9 @@ def test_spliced_kernels_match_plain(cuda_device, case):
     §6): some 12 s for the 957 waves of the random cases (the plain sweep
     runs once for the three), 17 s for mini's 1,414, 16 s for rich's
     1,347, 38 s for the 3,225 waves at 527 rows and 75 s for the 6,657 at
-    1,101."""
+    1,101.  The long-intron gene (introns of 879 and 1,187 nt, 181 rows,
+    3,743 waves) holds both variants to the plain version where the
+    intron penalty comes from its table by length."""
     calls = _spliced_calls(*_k4_pair(case), cuda_device)
     base = case.split("_")[0]
     ins, sw = calls["sweep"]
@@ -842,10 +851,41 @@ def _mk_gene(rng, nexon=3, exon=(20, 60), intron=(25, 120)):
 _ENDS = ((True, True), (True, True))
 
 
+def _k5_sized_gene(rows, seed, rich=0.0):
+    """A gene whose cDNA has ``rows`` nt (``rows`` rows of K5 with the
+    default ends): three exons joined by GT...AG introns of 100-300 nt
+    in 60-nt flanks; ``rich`` is the share of draws in the genome's
+    random parts that are splice-like motifs (GT, AG, GTAAGT, TTTCAG)."""
+    rng = np.random.default_rng(seed)
+
+    def rand(k):
+        parts, size = [], 0
+        while size < k:
+            if rng.random() < rich:
+                part = ("GT", "AG", "GTAAGT", "TTTCAG")[rng.integers(0, 4)]
+            else:
+                part = "ACGT"[rng.integers(0, 4)]
+            parts.append(part)
+            size += len(part)
+        return "".join(parts)[:k]
+
+    cuts = sorted(rng.choice(np.arange(1, rows), 2, replace=False)) \
+        if rows >= 3 else [rows, rows]
+    cdna = rand(rows)
+    exons = [cdna[:cuts[0]], cdna[cuts[0]:cuts[1]], cdna[cuts[1]:]]
+    genome = rand(60)
+    for k, ex in enumerate(exons):
+        genome += ex
+        if k < 2 and ex:
+            genome += "GT" + rand(int(rng.integers(100, 300))) + "AG"
+    return genome + rand(60), cdna, *_ENDS
+
+
 def _k5_gene(case):
     """K5's cases: tests/test_torch_spliced_s.py's (seeds 0-3, global
-    ends, mismatches, gen1, gen2, introns past 825 nt) and a cDNA of
-    1,100 nt, more rows than K5's 1,024 threads."""
+    ends, mismatches, gen1, gen2, introns past 825 nt), a cDNA of 1,100
+    nt (1,105 rows), cDNAs of 1, 255, 256, 257, 512 and 4,096 nt, and a
+    genome rich in GT and AG (many donor pushes and acceptor merges)."""
     if case.startswith("seed"):
         return (*_mk_gene(np.random.default_rng(int(case[4:]))), *_ENDS)
     if case == "global_ends":
@@ -866,12 +906,26 @@ def _k5_gene(case):
     if case == "long_introns":
         return (*_mk_gene(np.random.default_rng(5), exon=(60, 120),
                           intron=(900, 1300)), *_ENDS)
+    if case == "rich":
+        return _k5_sized_gene(300, 17, rich=0.35)
+    if case.startswith("rows") and case != "rows1100":
+        return _k5_sized_gene(int(case[4:]), int(case[4:]))
     return (*_mk_gene(np.random.default_rng(13), nexon=4, exon=(270, 290),
                       intron=(100, 300)), *_ENDS)
 
 
-_K5_CASES = ["seed0", "seed1", "seed2", "seed3", "global_ends", "mismatches",
-             "gen1", "gen2", "long_introns", "rows1100"]
+# K5's cases and the plan the wrapper picks for each (variant, CTAs, rows
+# a CTA): the cluster variant up to 4,096 rows
+_K5_CASES = {
+    "seed0": ("cluster", 4, 32), "seed1": ("cluster", 5, 32),
+    "seed2": ("cluster", 6, 32), "seed3": ("cluster", 5, 32),
+    "global_ends": ("cluster", 4, 32), "mismatches": ("cluster", 4, 32),
+    "gen1": ("cluster", 11, 32), "gen2": ("cluster", 10, 32),
+    "long_introns": ("cluster", 8, 32), "rows1100": ("cluster", 12, 96),
+    "rows1": ("cluster", 1, 32), "rows255": ("cluster", 8, 32),
+    "rows256": ("cluster", 8, 32), "rows257": ("cluster", 9, 32),
+    "rows512": ("cluster", 16, 32), "rich": ("cluster", 10, 32),
+}
 _K5_RUNS = {}
 
 
@@ -911,19 +965,30 @@ def _k5_same(sw, ref):
         assert torch.equal(got, want), field
 
 
+def _k5_case(case, device):
+    """The case's K5 inputs on the card and the plain sweep's output on a
+    CPU copy of them (run once a case)."""
+    from prrn_aln_tpu_torch.ops import spliced_s as tss
+    if case not in _K5_RUNS:
+        _, ((ins, _),) = _k5_run(case, device)
+        _K5_RUNS[case] = (ins, tss.sweep_s_ref(ins.to("cpu")))
+    return _K5_RUNS[case]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", _K5_CASES)
+@pytest.mark.parametrize("case", list(_K5_CASES))
 def test_spliced_s_kernel_matches_plain(cuda_device, case):
     """K5's planes and final H band, bit for bit, against ``sweep_s_ref``
     on a CPU copy of its inputs (the penalty table is one of them), and
-    the aligner's score and knots on the card against the CPU's.  The
-    plain sweep takes about 4 ms a wave on the CPU: some 16 s for the
-    3,900 waves at 1,101 rows (two rows a thread)."""
+    the aligner's score and knots on the card against the CPU's, through
+    the plan the wrapper picks (asserted).  The plain sweep takes about 4
+    ms a wave on the CPU: some 16 s for the 3,900 waves at 1,101 rows."""
     from prrn_aln_tpu_torch.ops import spliced_s as tss
     (score, skl), calls = _k5_run(case, cuda_device)
     (ins, sw), = calls
-    plan = tss.sweep_s_plan(ins.rows, ins.mtx.shape[0], ins.lb + 2)
-    assert plan["rpt"] == (2 if case == "rows1100" else 1)
+    plan = tss.launch_plan(ins.rows, ins.mtx.shape[0], ins.lb + 2)
+    assert (plan["variant"], plan["ctas"], plan["rows"]) == _K5_CASES[case]
+    assert plan["rpt"] == 1 and plan["pen_smem"]
     ref = tss.sweep_s_ref(ins.to("cpu"))
     _K5_RUNS[case] = (ins, ref)
     _k5_same(sw, ref)
@@ -933,24 +998,66 @@ def test_spliced_s_kernel_matches_plain(cuda_device, case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case, kw, want", [
+    ("rows255", dict(ctas=1), (1, 256)),
+    ("rows256", dict(ctas=1), (1, 256)),
+    ("rows257", dict(ctas=2), (2, 160)),
+    ("gen1", dict(ctas=2), (2, 192)),
+    ("gen1", dict(ctas=3), (3, 128)),
+    ("gen1", dict(pen_smem=False), (11, 32)),
+    ("long_introns", dict(pen_smem=False), (8, 32)),
+    ("long_introns", dict(ctas=2), (2, 128)),
+    ("rich", dict(ctas=2), (2, 160)),
+    ("rows1100", dict(ctas=5, pen_smem=False), (5, 224)),
+    ("rows1100", dict(ctas=16), (12, 96))])
+def test_spliced_s_cluster_plans(cuda_device, case, kw, want):
+    """K5's cluster variant under the plans the bench asks for: one CTA
+    of a slab's 256 rows (255 and 256 rows; 257 take two CTAs), several
+    cluster sizes, and the penalty table in device memory rather than
+    shared memory; each against the plain version."""
+    from prrn_aln_tpu_torch.ops import spliced_s as tss
+    ins, ref = _k5_case(case, cuda_device)
+    plan = tss.sweep_s_plan(ins.rows, ins.mtx.shape[0], ins.lb + 2,
+                            variant="cluster", **kw)
+    assert (plan["ctas"], plan["rows"]) == want
+    assert plan["pen_smem"] == kw.get("pen_smem", True)
+    _k5_same(tss._launch_sweep_s(ins, plan), ref)
+
+
+@pytest.mark.gpu
+def test_spliced_s_cluster_most_rows(cuda_device):
+    """4,096 rows, 16 CTAs of 256 (the most the cluster variant takes),
+    against the global variant on the card (held to the plain version in
+    the tests above), and 4,097 rows planned onto the global variant."""
+    from prrn_aln_tpu_torch.ops import spliced_s as tss
+    (_, _), ((ins, sw),) = _k5_run("rows4096", cuda_device)
+    K = ins.mtx.shape[0]
+    plan = tss.launch_plan(ins.rows, K, ins.lb + 2)
+    assert (plan["variant"], plan["ctas"], plan["rows"]) == \
+        ("cluster", 16, 256)
+    glob = tss._launch_sweep_s(ins, tss.sweep_s_plan(
+        ins.rows, K, ins.lb + 2, variant="global"))
+    _k5_same(sw, glob)
+    assert tss.sweep_s_plan(4097, K, ins.lb + 2)["variant"] == "global"
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("rings, pen, rpt", [
     (False, True, 1), (True, False, 1), (False, False, 1), (True, True, 2),
     (False, False, 3)])
 def test_spliced_s_kernel_plans(cuda_device, rings, pen, rpt):
-    """K5 on gen1 and the long-intron gene under each placement of its
-    rings and penalty table (shared or device memory) and with several
-    rows a thread, against the plain version."""
+    """K5's global variant on gen1 and the long-intron gene under each
+    placement of its rings and penalty table (shared or device memory)
+    and with several rows a thread, against the plain version."""
     from prrn_aln_tpu_torch.ops import spliced_s as tss
     for case in ("gen1", "long_introns"):
-        if case not in _K5_RUNS:
-            _, ((ins, _),) = _k5_run(case, cuda_device)
-            _K5_RUNS[case] = (ins, tss.sweep_s_ref(ins.to("cpu")))
-        ins, ref = _K5_RUNS[case]
+        ins, ref = _k5_case(case, cuda_device)
         K = ins.mtx.shape[0]
         threads = (-(-ins.rows // rpt) + 31) // 32 * 32
         smem = 4 * (K * K + 256 + (tss.K5_RING_WORDS * ins.rows if rings
                                    else 0) + (ins.lb + 2 if pen else 0))
-        plan = {"threads": threads, "rpt": rpt, "ring_smem": rings,
+        plan = {"variant": "global", "ctas": 1, "rows": ins.rows,
+                "threads": threads, "rpt": rpt, "ring_smem": rings,
                 "pen_smem": pen, "smem": smem}
         _k5_same(tss._launch_sweep_s(ins, plan), ref)
 
@@ -958,14 +1065,16 @@ def test_spliced_s_kernel_plans(cuda_device, rings, pen, rpt):
 @pytest.mark.gpu
 def test_spliced_s_wrapper_rejects_what_k5_does_not_take(cuda_device):
     from prrn_aln_tpu_torch.ops import spliced_s as tss
-    if "seed0" not in _K5_RUNS:
-        _, ((ins, _),) = _k5_run("seed0", cuda_device)
-    else:
-        ins = _K5_RUNS["seed0"][0].to(cuda_device)
+    ins = _k5_case("seed0", cuda_device)[0]
     import dataclasses
     bad = dataclasses.replace(ins, pen=ins.pen[:-1].contiguous())
     with pytest.raises(ValueError, match="shape"):
         tss._launch_sweep_s(bad)
+    for variant in ("cluster", "global"):
+        plan = tss.sweep_s_plan(ins.rows, ins.mtx.shape[0], ins.lb + 2,
+                                variant=variant)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            tss._launch_sweep_s(ins, {**plan, "smem": plan["smem"] + 4})
     plan = tss.sweep_s_plan(ins.rows, ins.mtx.shape[0], ins.lb + 2)
     with pytest.raises(RuntimeError, match="CUDA error"):
-        tss._launch_sweep_s(ins, {**plan, "smem": plan["smem"] + 4})
+        tss._launch_sweep_s(ins, {**plan, "ctas": 17})

@@ -1,19 +1,24 @@
 """The port's fwd2h (spliced protein x genome DP) against the JAX package
-on the CPU: the tables it is built from, the plain sweep's planes against
-the JAX scan engine's, and forwardH's score and knots on four cases cut
-from the in-repo CET10B9 window and ce13a1."""
+on the CPU: the tables it is built from (the intron penalty by length
+among them, to 40,001 nt), the plain sweep's planes against the JAX scan
+engine's (on mini and on a seeded gene whose introns reach the penalty's
+log tail), and forwardH's score and knots on four cases cut from the
+in-repo CET10B9 window and ce13a1."""
 
 import dataclasses
 import functools
+import sys
 from pathlib import Path
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from prrn_aln_tpu import alphabet as jab, io as jio, scoring as jscoring
 from prrn_aln_tpu.config import default_params as jdefault_params
-from prrn_aln_tpu.ops import spliced_h_jax as jsh
+from prrn_aln_tpu.ops import spliced_h_jax as jsh, spliced_jax as jsj
 from prrn_aln_tpu.ops.spliced_h_np import HParams as JHParams
 from prrn_aln_tpu.splice import hapi as jhapi, tron as jtron
 from prrn_aln_tpu.splice.exin import build_exin as jbuild_exin
@@ -25,6 +30,10 @@ from prrn_aln_tpu_torch.ops.spliced_h_np import HParams
 from prrn_aln_tpu_torch.splice import hapi, tron
 from prrn_aln_tpu_torch.splice.exin import build_exin
 from prrn_aln_tpu_torch.splice.penalty import IntronPenalty
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+from chip_smoke import LONG_INTRONS, long_intron_gene  # noqa: E402
 
 # one intra-op thread: the suite runs several worker processes at once
 torch.set_num_threads(1)
@@ -53,8 +62,6 @@ CASES = {
     "intron_bonus": (slice(149, 1050), 172, 50, 3 * 62),
     "no_intron": (slice(214, 400), 60, 100, None),
 }
-
-
 def _pmtx(scoring_mod, ab_mod, dp):
     pm, _ = scoring_mod.build_matrix(ab_mod.PROTEIN, dp(ab_mod.PROTEIN, "aln"))
     return pm
@@ -74,8 +81,11 @@ def _qprof(tron_mod, pm, a):
 def _run_case(name):
     """Both packages' forwardH on one case; the sweep planes of each are
     captured by wrappers around their sweep functions."""
-    gsl, plen, sh_pct, bonus = CASES[name]
-    g, p = _window()[gsl], _ce13a1()[:plen]
+    if name == "long_introns":
+        (g, p), sh_pct, bonus = long_intron_gene(), 50, None
+    else:
+        gsl, plen, sh_pct, bonus = CASES[name]
+        g, p = _window()[gsl], _ce13a1()[:plen]
 
     def api(pt):
         return 20.0 if pt == bonus else 0.0
@@ -192,17 +202,55 @@ def test_query_profile_equal(query):
 # ---------------------------------------------------------------------
 # (ii) the plain sweep against the JAX scan engine
 
-def test_sweep_planes_match_jax_scan_engine():
-    """Mini: event and junction planes and the final band's directions
-    equal; band values to rtol 1e-5 (XLA may fuse a product into a
-    multiply-add where the plain version rounds twice)."""
-    got = _run_case("mini")
+def _planes_match(name):
+    """Event and junction planes and the final band's directions equal;
+    band values to rtol 1e-5 (XLA may fuse a product into a multiply-add
+    where the plain version rounds twice)."""
+    got = _run_case(name)
     bandV, bandD, evw, jdw = got["jax_planes"]
     sw = got["port_planes"]
     np.testing.assert_array_equal(sw.ev.numpy(), evw.astype(np.int32))
     np.testing.assert_array_equal(sw.jd.numpy().transpose(0, 2, 1), jdw)
     np.testing.assert_array_equal(sw.bandD.numpy(), bandD)
     np.testing.assert_allclose(sw.bandV.numpy(), bandV, rtol=1e-5)
+    return got
+
+
+def test_sweep_planes_match_jax_scan_engine():
+    _planes_match("mini")
+
+
+def test_sweep_planes_match_jax_past_the_log_tail():
+    """A gene whose introns (879 and 1,187 nt) lie where a correctly
+    rounded log and the scan engine's compiled one differ: the planes
+    still equal the JAX engine's, and junctions of those lengths were
+    merged (the knots span both introns)."""
+    got = _planes_match("long_introns")
+    knots = got["jax"][1]
+    assert knots == got["port"][1]
+    spans = {n1 - n0 for (m0, n0), (m1, n1) in zip(knots[:-1], knots[1:])
+             if m0 == m1}
+    assert set(LONG_INTRONS) <= spans
+
+
+@pytest.mark.parametrize("pen", ["default", "fwd2h_cases"])
+def test_penalty_by_length_equals_jax(pen):
+    """The table by length fwd2h packs (``pext``) and its gather for a
+    negative length equal the scan engine's compiled ``_penalty`` bit for
+    bit over lengths -5 ... 40,001: the f32 table, NEVSEL below llmt,
+    gap_wi below 0 and the log tail."""
+    kw = PEN if pen == "fwd2h_cases" else {}
+    jp, pp = JIntronPenalty.build(**kw), IntronPenalty.build(**kw)
+    N = 40000
+    lens = np.arange(-5, N + 2)
+    pack = jsj._pen_arrays(jp)
+    want = np.asarray(jax.jit(lambda n: jsj._penalty(pack, n))(
+        jnp.asarray(lens)))
+    pext = torch.as_tensor(sh.penalty_by_length(pp, N))
+    got = sh._penalty(pext, torch.tensor(np.float32(pp.gap_wi)),
+                      torch.as_tensor(lens))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert pext.shape == (N + 2,)
 
 
 # ---------------------------------------------------------------------

@@ -231,8 +231,78 @@ def test_kernel_wrapper_takes_no_cpu_tensors():
 @pytest.mark.parametrize("rows, ring, rpt", [
     (350, True, 1), (1024, True, 1), (1025, True, 2), (2201, False, 3)])
 def test_sweep_plan(rows, ring, rpt):
-    plan = SS.sweep_s_plan(rows, 17, 19002)
+    """The global variant's plan: rows spread over at most 1,024 threads,
+    the rings in shared memory while they fit."""
+    plan = SS.sweep_s_plan(rows, 17, 19002, variant="global")
+    assert plan["variant"] == "global" and plan["ctas"] == 1
     assert plan["rpt"] == rpt and plan["ring_smem"] == ring
     assert plan["threads"] * plan["rpt"] >= rows
     assert plan["threads"] <= SS.K5_THREADS and plan["threads"] % 32 == 0
     assert plan["smem"] <= SS.K5_SMEM_MAX
+
+
+# the cluster variant's shared bytes a CTA without the penalty table: the
+# matrix and pair53, a boundary ring a warp, the position ring
+def _cluster_base(rows_cta, K=17):
+    return 4 * (K * K + 256 + rows_cta // 32 * SS.K5_RING_DEPTH
+                * SS.K5_BOUNDARY_WORDS + SS.K5_POS_WORDS)
+
+
+# (rows, npen, keywords) -> (variant, CTAs, rows a CTA, penalty table in
+# shared memory): each limit and one past it
+CLUSTER_PLANS = [
+    (1, 19002, {}, ("cluster", 1, 32, True)),
+    (313, 1030, {}, ("cluster", 10, 32, True)),
+    (2275, 18452, {}, ("cluster", 15, 160, True)),
+    (256, 19002, dict(ctas=1), ("cluster", 1, 256, True)),
+    (255, 19002, dict(ctas=1), ("cluster", 1, 256, True)),
+    (257, 19002, dict(ctas=2), ("cluster", 2, 160, True)),
+    (512, 19002, {}, ("cluster", 16, 32, True)),
+    (513, 19002, {}, ("cluster", 9, 64, True)),
+    (4096, 19002, {}, ("cluster", 16, 256, True)),
+    (4097, 19002, {}, ("global", 1, 4097, True)),
+    (3840, 19002, dict(cluster_max=15), ("cluster", 15, 256, True)),
+    (3841, 19002, dict(cluster_max=15), ("global", 1, 3841, True)),
+    (4096, (SS.K5_SMEM_MAX - _cluster_base(256)) // 4, {},
+     ("cluster", 16, 256, True)),
+    (4096, (SS.K5_SMEM_MAX - _cluster_base(256)) // 4 + 1, {},
+     ("cluster", 16, 256, False)),
+    (300, 19002, dict(pen_smem=False), ("cluster", 10, 32, False)),
+]
+
+
+@pytest.mark.parametrize("rows, npen, kw, want", CLUSTER_PLANS)
+def test_sweep_plan_cluster(rows, npen, kw, want):
+    """One row a thread in whole warps over at most 16 CTAs (the
+    non-portable cluster) up to 4,096 rows, every row covered, the slab
+    the smallest the cluster holds; the penalty table in shared memory
+    while it fits; past that the global variant."""
+    plan = SS.sweep_s_plan(rows, 17, npen, **kw)
+    assert (plan["variant"], plan["ctas"], plan["rows"],
+            plan["pen_smem"]) == want
+    assert plan["smem"] <= SS.K5_SMEM_MAX
+    if plan["variant"] == "cluster":
+        assert plan["rows"] % 32 == 0 and plan["rpt"] == 1
+        assert plan["ctas"] * plan["rows"] >= rows
+        assert (plan["ctas"] - 1) * plan["rows"] < rows
+        assert plan["smem"] == _cluster_base(plan["rows"]) + (
+            4 * npen if plan["pen_smem"] else 0)
+
+
+@pytest.mark.parametrize("rows, npen, K, kw", [
+    (257, 19002, 17, dict(variant="cluster", ctas=1)),
+    (100, 19002, 17, dict(variant="cluster", ctas=17)),
+    (100, 19002, 17, dict(variant="cluster", ctas=0)),
+    (4097, 19002, 17, dict(variant="cluster")),
+    (100, 19002, 257, dict(variant="cluster")),
+    (100, 60000, 17, dict(variant="cluster", pen_smem=True)),
+    (100, 19002, 17, dict(variant="global", ctas=2)),
+    (100, 19002, 17, dict(variant="shared")),
+    (100, 60000, 17, dict(variant="global", pen_smem=True))])
+def test_sweep_plan_refuses_what_the_kernels_cannot_take(rows, npen, K, kw):
+    """More than 256 rows a CTA or 16 CTAs, a matrix past 256 codes in
+    the cluster variant, more than one block of the global variant, an
+    unknown variant, more than 227 KB of shared memory: the plan raises,
+    and nothing falls back to another plan."""
+    with pytest.raises(ValueError):
+        SS.sweep_s_plan(rows, K, npen, **kw)

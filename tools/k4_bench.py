@@ -37,7 +37,7 @@ in each warp, the clock cycles of each section of a step
 (PROFILE_SECTIONS) and prints them a warp-step, for the default plan.
 ``--ablate`` builds a copy with a part of a step taken out (ABLATIONS;
 its planes are wrong and not checked) or with another barrier schedule
-or penalty tail (SCHEDULES; checked as above).
+(SCHEDULES; checked as above).
 
 Prints the card and its power limit, then one JSON line a timed call:
 the median of warm calls (CUDA events), microseconds a wave, the
@@ -76,13 +76,8 @@ ABLATIONS = {
               ("constexpr int kHD = 8,", "constexpr int kHD = 16,")],
     "skew5": [("constexpr int kSkew = 1,", "constexpr int kSkew = 5,"),
               ("constexpr int kHD = 8, kSD = 16;", "constexpr int kHD = 16, kSD = 32;")],
-    # the penalty's log tail computed in the kernel, as the global variant
-    # does, in place of the wrapper's table
-    "logtail": [("p.pext[min(len, N + 1)]",
-                 "(float)((double)p.fprm[9] * (double)logf(fmaxf((float)len - "
-                 "p.fprm[8], 1.0f)) + (double)p.fprm[10])")],
 }
-SCHEDULES = ("skew0", "skew2", "skew5", "logtail")
+SCHEDULES = ("skew0", "skew2", "skew5")
 
 
 def time_ms(fn, reps: int) -> float:
