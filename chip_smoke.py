@@ -8,8 +8,8 @@ Run from the repository root with no arguments:
 Phases (each raises on failure, so the script exits non-zero):
 
 0. device: CUDA must be available; prints the card and its power limit;
-1. build: compiles the seven CUDA kernels from ``prrn_aln_tpu_torch/csrc``
-   (one ``nvcc`` per source, all at once);
+1. build: compiles the eight CUDA kernel sources of
+   ``prrn_aln_tpu_torch/csrc`` (one ``nvcc`` per source, all at once);
 2. K1 (pairwise DP) against its plain PyTorch version on the card, on the
    pairwise fixtures and on 512 random pairs of 512 x 512 at sh=-60,
    with kernel and plain times, GCUPS and K1's launch plan (variant,
@@ -125,13 +125,36 @@ Phases (each raises on failure, so the script exits non-zero):
    (d) ``refgs`` on the in-repo family (as annotated, and with ce13a1's
    second exon perturbed and the MSA rebuilt) and ``refgs_main``,
    against the fixtures ``jax_refgs_*.txt``, with the launches of K4,
-   K4w, K1, K2 and K3; then the card line.
+   K4w, K1, K2 and K3; then the card line;
+15. the utility programs (``utils_cli``): every run of ``utils_cases``
+   (``phyln`` UPGMA and NJ on dnafam, ce13a17 and fam19 at full width and
+   ``-k`` on ce13a17 aligned; ``iden``, ``decomp``, ``makmdm``,
+   ``makdbs``, ``rdn`` with each flag and writer, ``utn``, ``utp``), each
+   with the launch counts set to 0 just before it, against the JAX
+   package's standard output, error and files
+   (``tests/fixtures/jax_utils_cli.json``); ``phyln`` without ``-k``
+   launches K1 once, the others nothing; then the card line;
+16. the multi-device paths on ``torch.distributed`` (``multi_device``):
+   after the kernels are built, world 1 (a gloo group in this process)
+   and world 2 (two spawned ranks), every rank on ``cuda:0``: the
+   distance pass (K1, and K1f under ``PRRN_PW_FUSED=1``) and
+   ``group_align_batch`` (K2, K3) bit-equal to the run with no group,
+   each rank's block of the batch; ``build_msa`` on ce13a17 with ``-R
+   0``'s settings byte-identical to ``jax_prrn_ce13a17_clean_R0.txt``;
+   ``frontier_pairwise_score`` (K6) on tests/test_frontier.py's 96 x 96
+   pair and on a seeded 4 kb DNA pair at band +-256, equal to the run
+   with no group and within 1e-3 relative of K1's score, three K6
+   launches a row, and K6 bit-equal to its plain version on each run's
+   recorded middle row; each run's ms a row and the share of it spent in
+   the exchanges; K6's time a row on the 4 kb pair's recorded row; then
+   the card line.
 
 Prints one JSON line per phase, then the card line, the kernels line
 (launches from the cold runs of phases 4 and 10, for K1f from the run
 under the switch in phase 6, for K3's range walk from the linear
 aligner's run in phase 12, each phase 13 mode's under ``cli_modes``,
-and K5's from ``aln -G`` on gen2 in phase 14; times at the main paths'
+K5's from ``aln -G`` on gen2 in phase 14, and K6's from rank 0 of phase
+16's world-2 run on the 4 kb pair; times at the main paths'
 shapes, bounds from the same inputs) and, last, ``{"ok": true,
 "device": {...}}``.
 """
@@ -2225,6 +2248,450 @@ def phase_aln_G() -> dict:
     return out
 
 
+
+# phase 15's inputs, copied from tests/fixtures into the runs' input
+# directory, and the two it writes there: decomp's bundle (the input of
+# test_utils_cli.py's decomp case) and a prosite.dat of two patterns
+UTILS_FIXTURES = ("dnafam.fa", "ce13a17_clean.fa", "fam19.fa", "idn_a.fa",
+                  "idn_b.fa", "idn_p.fa", "idn_q.fa")
+DECOMP_BUNDLE = (">sp|P12345|ABC_HUMAN test\nACDEFG\nHIKL\n"
+                 ">seq-2.1 other\nMNPQ\n>plain\nWXYZ\n")
+PROSITE_DAT = ("ID   PKC_PHOSPHO_SITE; PATTERN.\nAC   PS00005;\n"
+               "PA   [ST]-x-\nPA   [RK].\n//\n"
+               "ID   ASN_GLYCOSYLATION; PATTERN.\nAC   PS00001;\n"
+               "PA   N-{P}-[ST]-{P}.\n//\n")
+UTILS_JSON = "jax_utils_cli.json"
+
+
+def utils_cases() -> dict:
+    """Phase 15's runs of the utility programs: name -> (program, argv).
+    Each runs in a directory of its own beside the input directory
+    ``in``, which ``write_utils_inputs`` fills; what a run writes into
+    its directory is part of its output."""
+    i = "../in/"
+    cases = {}
+    for fam in ("dnafam", "ce13a17_clean", "fam19"):
+        for method in ("upgma", "nj"):
+            cases[f"phyln_{fam}_{method}"] = ("phyln", ["-m", method,
+                                                        f"{i}{fam}.fa"])
+    for method in ("upgma", "nj"):
+        cases[f"phyln_k_{method}"] = ("phyln", ["-k", "-m", method,
+                                                f"{i}ce13a17_aligned.txt"])
+    cases.update({
+        "iden_dna": ("iden", [f"{i}idn_a.fa", f"{i}idn_b.fa"]),
+        "iden_pro": ("iden", [f"{i}idn_p.fa", f"{i}idn_q.fa"]),
+        "iden_O0": ("iden", ["-O", "0", "-t", "50", f"{i}idn_a.fa",
+                             f"{i}idn_b.fa"]),
+        "decomp": ("decomp", ["-p", ".", f"{i}bundle.fa"]),
+        "makmdm": ("makmdm", ["150", "-d", "."]),
+        "makdbs": ("makdbs", [f"{i}dnafam.fa", "-b", "db"]),
+        "rdn_o": ("rdn", ["-d", "-F", "msf", "-o", "out.msf",
+                          f"{i}ce13a17_aligned.txt"]),
+    })
+    for name, flags in {"e": ["-e", "1,3,5"], "d": ["-d"],
+                        "c": ["-e", "2,4", "-c"], "jl": ["-j", "l"],
+                        "jr": ["-j", "r", "-c"]}.items():
+        cases[f"rdn_{name}"] = ("rdn", [*flags, f"{i}ce13a17_aligned.txt"])
+    for fmt in ("native", "fasta", "clustal", "phylip", "msf", "gde",
+                "nexus"):
+        cases[f"rdn_F_{fmt}"] = ("rdn", ["-e", "1,2,7", "-F", fmt,
+                                         f"{i}ce13a17_aligned.txt"])
+    for name, flags in {"c": ["-c"], "t0": ["-t", "0"], "t2": ["-t", "2"],
+                        "O": ["-O"], "r": ["-r"], "z_all": ["-z", "all"],
+                        "z_all_max": ["-z", "all,2,1"],
+                        "z_named": ["-z", "EcoRI,HaeIII,NoSuch"],
+                        "fp": ["-fp", "GGNCC"],
+                        "all": ["-c", "-t", "1", "-O", "-r", "-fp",
+                                "TTAA"]}.items():
+        cases[f"utn_{name}"] = ("utn", [*flags, f"{i}dnafam.fa"])
+    for name, flags in {"default": [], "c": ["-c"],
+                        "m": ["-m", "[ST]-x-[RK]."],
+                        "m_c": ["-m", "N-{P}-[ST]-{P}.", "-c"],
+                        "P": ["-P", f"{i}prosite.dat"]}.items():
+        cases[f"utp_{name}"] = ("utp", [*flags, f"{i}ce13a17_clean.fa"])
+    return cases
+
+
+def write_utils_inputs(root: Path, aligned: Path) -> Path:
+    """The input directory of phase 15's runs, with ``aligned`` (an
+    aligned ce13a17) as ``ce13a17_aligned.txt``."""
+    inp = root / "in"
+    inp.mkdir(parents=True)
+    for name in UTILS_FIXTURES:
+        (inp / name).write_bytes((FIX / name).read_bytes())
+    (inp / "ce13a17_aligned.txt").write_bytes(aligned.read_bytes())
+    (inp / "bundle.fa").write_text(DECOMP_BUNDLE)
+    (inp / "prosite.dat").write_text(PROSITE_DAT)
+    return inp
+
+
+def run_util(main, argv, workdir: Path) -> dict:
+    """One utility run in ``workdir`` (made empty): its standard output
+    and error, and the files it wrote there (hex)."""
+    workdir.mkdir()
+    out, err = io.StringIO(), io.StringIO()
+    here = os.getcwd()
+    os.chdir(workdir)
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = main(argv)
+    finally:
+        os.chdir(here)
+    if rc != 0:
+        raise AssertionError(f"{argv}: exit {rc}")
+    return {"stdout": out.getvalue(), "stderr": err.getvalue(),
+            "files": {p.name: p.read_bytes().hex()
+                      for p in sorted(workdir.iterdir())}}
+
+
+def phase_utils_cli() -> dict:
+    """Phase 15: the utility programs on the card, each against the JAX
+    package's output (``tests/fixtures/jax_utils_cli.json``), with the
+    launch counts set to 0 just before each: ``phyln`` launches K1
+    (without ``-k``) and the others launch nothing.  Returns each
+    ``phyln`` run's launches."""
+    from prrn_aln_tpu_torch import cli
+    want = json.loads((FIX / UTILS_JSON).read_text())
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        write_utils_inputs(tmp, FIX / "jax_prrn_ce13a17_clean_R0.txt")
+        for name, (prog, argv) in utils_cases().items():
+            if prog == "phyln":
+                argv = [*argv, "--device", "cuda"]
+            _build.LAUNCHES.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = run_util(getattr(cli, f"{prog}_main"), argv, tmp / name)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = dict(_build.LAUNCHES)
+            if got != want[name]:
+                raise AssertionError(f"{name} differs from {UTILS_JSON}")
+            k1 = prog == "phyln" and "-k" not in argv
+            if (counts.get("pairwise", 0) == 1) != k1 or \
+                    sum(counts.values()) != int(k1):
+                raise AssertionError(f"{name}: launches {counts}")
+            if prog == "phyln":
+                launches[name] = counts
+            emit({"phase": f"utils_{name}", "seconds": secs,
+                  "stdout_bytes": len(got["stdout"]),
+                  "files": sorted(got["files"]), "launches": counts})
+    print(card_line(), flush=True)
+    return launches
+
+
+
+# phase 16's band-frontier pairs: tests/test_frontier.py's 96 x 96 pair,
+# and a seeded 4 kb DNA sequence against a mutant at band +-256
+FRONTIER_DNA_NT = 4000
+FRONTIER_DNA_BAND = 256
+# ranks a run of phase 16 waits for before it fails
+RANK_TIMEOUT_S = 300
+
+
+def frontier_pairs() -> dict:
+    """name -> (a, b, lw, up, u, v, mtx) of phase 16's frontier runs."""
+    rng = np.random.default_rng(9)
+    a = rng.integers(0, 24, 96).astype(np.int32)
+    b = rng.integers(0, 24, 96).astype(np.int32)
+    mtx = rng.normal(0, 2, (26, 26)).astype(np.float32)
+    out = {"pair96": (a, b, -40, 40, 2.0, 9.0, mtx)}
+    rng = np.random.default_rng(4)
+    base = rng.integers(0, 4, FRONTIER_DNA_NT)
+    params = default_params(ab.DNA, "prrn")
+    dna, _ = scoring.build_matrix(ab.DNA, params)
+    codes = ab.encode("ACGT", ab.DNA)
+    out["dna4k"] = (codes[base].astype(np.int32),
+                    codes[mutate(rng, base)].astype(np.int32),
+                    -FRONTIER_DNA_BAND, FRONTIER_DNA_BAND, params.u,
+                    params.v, dna.astype(np.float32))
+    return out
+
+
+def sharding_inputs():
+    """tests/test_sharding.py's inputs: 9 seeded proteins (36 pairs) and
+    five group pairs, with the matrix."""
+    mtx, _ = scoring.protein_matrix(AlnParams(pam=150))
+    rng = np.random.default_rng(17)
+    seqs = [rng.integers(3, 23, size=rng.integers(30, 70)).astype(np.int32)
+            for _ in range(9)]
+    rows = ["MKVLAAGFDDEERRKKLL", "MKVLAAGFDEEERRKQLL",
+            "MKVLAGGFDDEERRKKLL", "MKVLAAGFDDEERRQKLL",
+            "MKVLAAGFDDEDRRKKLL", "MKVIAAGFDDEERRKKLL"]
+    A, B, C = (msa_from_strings(r, ab.PROTEIN).prepare(mtx.shape[0])
+               for r in (rows[:3], rows[3:], [x[2:] for x in rows[:2]]))
+    return mtx, seqs, [(A, B), (B, C), (A, C), (C, B), (A, B)]
+
+
+@contextlib.contextmanager
+def frontier_probe(target: int):
+    """Wrap K6's entry points and the ring's exchanges while a frontier
+    score runs: record the inputs of row ``target`` (H, G, scores and
+    the four received values) and sum the seconds spent in exchanges."""
+    from prrn_aln_tpu_torch.ops import frontier as F
+    rec = {"rows": 0, "exchange_s": 0.0, "row": None}
+    edges, scan, close, shift = (F.row_edges, F.row_scan, F.row_close,
+                                 F._Ring.shift)
+
+    def row_edges(H, G, s_row, hedge, gedge, u, v):
+        if rec["rows"] == target:
+            rec["row"] = {"H": H.clone(), "G": G.clone(),
+                          "s_row": s_row.clone(), "recv": [hedge, gedge]}
+        rec["rows"] += 1
+        return edges(H, G, s_row, hedge, gedge, u, v)
+
+    def row_scan(X, xin, m, j0, lw, u, v):
+        if m == target:
+            rec["row"]["recv"].append(xin)
+            rec["row"].update(m=m, j0=j0, lw=lw, u=u, v=v)
+        return scan(X, xin, m, j0, lw, u, v)
+
+    def row_close(X, M, carry, m, j0, lw, W, lb, u):
+        if m == target:
+            rec["row"]["recv"].append(carry)
+            rec["row"].update(W=W, lb=lb)
+        return close(X, M, carry, m, j0, lw, W, lb, u)
+
+    def ring_shift(self, vals, step, fill):
+        t0 = time.perf_counter()
+        got = shift(self, vals, step, fill)
+        rec["exchange_s"] += time.perf_counter() - t0
+        return got
+
+    F.row_edges, F.row_scan, F.row_close = row_edges, row_scan, row_close
+    F._Ring.shift = ring_shift
+    try:
+        yield rec
+    finally:
+        F.row_edges, F.row_scan, F.row_close = edges, scan, close
+        F._Ring.shift = shift
+
+
+def k6_row_check(row: dict) -> dict:
+    """K6 on a recorded row against ``frontier_row_ref`` on the card:
+    H0 and G0 bit for bit."""
+    from prrn_aln_tpu_torch.ops import frontier as F
+    kw = {k: row[k] for k in ("m", "j0", "lw", "W", "lb", "u", "v")}
+    args = (row["H"], row["G"], row["s_row"], tuple(row["recv"]))
+    got = F.frontier_row(*args, **kw)
+    want = F.frontier_row_ref(*args, **kw)
+    for x, y in zip(got, want):
+        if not torch.equal(x.view(torch.int32), y.view(torch.int32)):
+            raise AssertionError(f"K6 != frontier_row_ref on row {row['m']} "
+                                 f"(j0 {row['j0']})")
+    return {"lanes": row["H"].shape[0], "m": row["m"], "j0": row["j0"],
+            "max_abs_err": max(float((x - y).abs().max())
+                               for x, y in zip(got, want))}
+
+
+def multi_device_cases(group, dev) -> dict:
+    """Phase 16's cases on ``dev`` with ``group`` (None: the run with no
+    group), each with the launch counts set to 0 just before it:
+    the distance pass (K1, then K1f under ``PRRN_PW_FUSED=1``),
+    ``group_align_batch`` (K2, K3), ``build_msa`` with ``prrn -R 0``'s
+    settings on ce13a17, and the frontier score of each pair, whose
+    middle row is recorded and held to the plain version after the run
+    (K6's launches there are not the run's)."""
+    from prrn_aln_tpu_torch.ops import frontier as F
+    mtx, seqs, pairs = sharding_inputs()
+    out = {}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def run(name, fn):
+        _build.LAUNCHES.clear()
+        sync()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        out[name] = {"result": res, "seconds": time.perf_counter() - t0,
+                     "launches": dict(_build.LAUNCHES)}
+        return res
+
+    run("scores", lambda: distance.all_pairs_scores(
+        seqs, mtx, 2.0, 9.0, -60, group, device=dev))
+    os.environ["PRRN_PW_FUSED"] = "1"
+    try:
+        run("scores_fused", lambda: distance.all_pairs_scores(
+            seqs, mtx, 2.0, 9.0, -60, group, device=dev))
+    finally:
+        del os.environ["PRRN_PW_FUSED"]
+    run("batch", lambda: G.group_align_batch(
+        pairs, mtx, u=2.0, v=9.0, sh=-60, pads=(6, 32), group=group,
+        device=dev))
+    out["batch"]["shard"] = G.LAST_BATCH_SHARD
+    recs = pio.sniff_and_read(FIX / "ce13a17_clean.fa")
+    molc = ab.infer_molc(recs[0].seq)
+    run("msa", lambda: pio.write_native_block(pipeline.build_msa(
+        recs, params=default_params(molc, "prrn"), molc=molc, randseed=0,
+        group=group, device=dev)))
+    for name, (a, b, lw, up, u, v, fmtx) in frontier_pairs().items():
+        if group is not None:
+            # the ranks start together, so no rank's wall holds its wait
+            # for a slower one
+            torch.distributed.barrier(group)
+        with frontier_probe(len(a) // 2) as rec:
+            run(name, lambda: F.frontier_pairwise_score(
+                a, b, lw, up, u, v, fmtx, group, device=dev))
+        out[name].update(rows=rec["rows"], exchange_s=rec["exchange_s"],
+                         row_check=k6_row_check(rec["row"]))
+        out[name]["row"] = {k: (x.cpu() if torch.is_tensor(x) else x)
+                            for k, x in rec["row"].items()}
+    return out
+
+
+def multi_device_rank(rank: int, world: int, store: str, out_dir: str,
+                      dev: str):
+    """One rank of phase 16's run (a spawned process): the cases on a
+    gloo group of ``world`` ranks, written to ``out_dir``."""
+    import pickle
+    import torch.distributed as dist
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        res = multi_device_cases(dist.group.WORLD, torch.device(dev))
+    finally:
+        dist.destroy_process_group()
+    with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(res, f)
+
+
+def spawn_ranks(world: int, tmp: Path, dev) -> list[dict]:
+    """Phase 16's cases in ``world`` spawned ranks, all on ``dev``."""
+    import pickle
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(multi_device_rank,
+                             args=(world, str(tmp / "store"), str(tmp),
+                                   str(dev)),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"world {world}: the ranks did not end "
+                                   f"in {RANK_TIMEOUT_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+    return [pickle.loads((tmp / f"rank{r}.pkl").read_bytes())
+            for r in range(world)]
+
+
+def k6_entry(alone: dict, dev) -> dict:
+    """K6 on the 4 kb pair's recorded middle row (world 1: one shard of
+    the whole band): its time a row (the three entry points through
+    their wrappers, CUDA events; and the three kernels' own device time,
+    ``torch.profiler``: queued launches would time the wrappers' host
+    work), the plain version's on the card, and the bound: a row's lanes
+    of H, G and scores read and of H0 and G0 written over the memory
+    rate (about 14 float operations a lane)."""
+    from prrn_aln_tpu_torch.ops import frontier as F
+    row = alone["dna4k"]["row"]
+    kw = {k: row[k] for k in ("m", "j0", "lw", "W", "lb", "u", "v")}
+    args = (row["H"].to(dev), row["G"].to(dev), row["s_row"].to(dev),
+            tuple(row["recv"]))
+    Wl = row["H"].shape[0]
+    ms = time_ms(lambda: F.frontier_row(*args, **kw), 20)
+    return {"ms": ms, "device_ms": device_ms(
+                lambda: F.frontier_row(*args, **kw), 50, "frontier_"),
+            "plain_ms": time_ms(lambda: F.frontier_row_ref(*args, **kw), 5),
+            **bound(5 * 4 * Wl, 14 * Wl), "lanes": Wl}
+
+
+def phase_multi_device(dev) -> dict:
+    """Phase 16: the multi-device paths on gloo, world 1 (in this
+    process) and world 2 (two spawned ranks), every rank on ``cuda:0``:
+    each case equal to the run with no group (scores bit for bit, SKLs,
+    the shard each rank took), ``build_msa`` on ce13a17 byte-identical to
+    ``jax_prrn_ce13a17_clean_R0.txt``, each frontier score within 1e-3
+    relative of K1's on the pair, and K6 bit-equal to its plain version
+    on each rank's recorded middle row.  Prints each frontier run's ms a
+    row, K6 launches and the share of the wall spent in the exchanges.
+    The kernels are built before any rank starts."""
+    import torch.distributed as dist
+    _build.load()
+    want_msa = (FIX / "jax_prrn_ce13a17_clean_R0.txt").read_text()
+    alone = multi_device_cases(None, dev)
+    k1 = {}
+    for name, (a, b, lw, up, u, v, fmtx) in frontier_pairs().items():
+        k1[name] = float(pairwise.pairwise_scores(
+            torch.as_tensor(a[None], device=dev),
+            torch.as_tensor(b[None], device=dev), len(a), len(b),
+            torch.as_tensor(fmtx, device=dev), u, v, lw=np.array([lw]),
+            up=np.array([up]), fused=False)[0])
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        (tmp / "w1").mkdir()
+        dist.init_process_group("gloo", store=dist.FileStore(
+            str(tmp / "w1" / "store"), 1), rank=0, world_size=1)
+        try:
+            runs[1] = [multi_device_cases(dist.group.WORLD, dev)]
+        finally:
+            dist.destroy_process_group()
+        (tmp / "w2").mkdir()
+        runs[2] = spawn_ranks(2, tmp / "w2", dev)
+
+    def bits(x):
+        return np.asarray(x, np.float32).view(np.int32).tolist()
+
+    out = {"alone": alone, "k1": k1, "k6": k6_entry(alone, dev)}
+    for world, ranks in runs.items():
+        for rank, res in enumerate(ranks):
+            for key in ("scores", "scores_fused"):
+                if bits(res[key]["result"]) != bits(alone[key]["result"]):
+                    raise AssertionError(f"world {world} rank {rank}: {key} "
+                                         "differ from the run with no group")
+            got, want = res["batch"]["result"], alone["batch"]["result"]
+            if [k for _, k in got] != [k for _, k in want] or \
+                    bits([s for s, _ in got]) != bits([s for s, _ in want]):
+                raise AssertionError(f"world {world} rank {rank}: "
+                                     "group_align_batch differs")
+            per = -(-len(want) // world)
+            lo = min(len(want), rank * per)
+            if res["batch"]["shard"] != (rank, world, lo,
+                                         min(len(want), lo + per)):
+                raise AssertionError(f"shard {res['batch']['shard']}")
+            if res["msa"]["result"] != want_msa:
+                raise AssertionError(f"world {world} rank {rank}: build_msa "
+                                     "differs from jax_prrn_ce13a17_clean_"
+                                     "R0.txt")
+            for name in k1:
+                got = res[name]["result"]
+                if bits(got) != bits(alone[name]["result"]):
+                    raise AssertionError(f"world {world} rank {rank}: the "
+                                         f"frontier score of {name} differs")
+                if abs(got - k1[name]) > 1e-3 * max(1.0, abs(k1[name])):
+                    raise AssertionError(f"{name}: frontier {got} against "
+                                         f"K1's {k1[name]}")
+                if res[name]["launches"].get("frontier_row") != 3 * len(
+                        frontier_pairs()[name][0]):
+                    raise AssertionError(f"{name}: {res[name]['launches']}")
+            emit({"phase": f"multi_device_w{world}_r{rank}",
+                  "launches": {k: res[k]["launches"] for k in
+                               ("scores", "scores_fused", "batch", "msa")},
+                  "seconds": {k: res[k]["seconds"] for k in
+                              ("scores", "scores_fused", "batch", "msa")},
+                  "shard": res["batch"]["shard"], "frontier": {
+                      name: {"score": res[name]["result"], "k1": k1[name],
+                             "rows": res[name]["rows"],
+                             "seconds": res[name]["seconds"],
+                             "ms_a_row": 1e3 * res[name]["seconds"]
+                             / res[name]["rows"],
+                             "exchange_share": res[name]["exchange_s"]
+                             / res[name]["seconds"],
+                             "launches": res[name]["launches"],
+                             "row_check": res[name]["row_check"]}
+                      for name in k1}})
+        out[world] = ranks
+    print(card_line(), flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2257,6 +2724,8 @@ def main() -> int:
     k2_long, walk_entry = phase_long_pair(dev)
     cli = phase_cli_modes()
     aln_G = phase_aln_G()
+    phyln = phase_utils_cli()
+    multi = phase_multi_device(dev)
 
     def cli_launches(name):
         return {mode: c[name] for mode, c in cli.items() if c.get(name)}
@@ -2270,7 +2739,9 @@ def main() -> int:
          "launches": launches["pairwise"], **k1,
          "fam19_edges": {"launches": forest_runs["cold"]["pairwise"],
                          "ms": k1f["k1_ms"]},
-         "cli_modes": cli_launches("pairwise")},
+         "cli_modes": cli_launches("pairwise"),
+         "phyln": {name: c["pairwise"] for name, c in phyln.items()
+                   if c.get("pairwise")}},
         {"name": "pairwise_rows", "route": "cuda",
          "source": "prrn_aln_tpu_torch/csrc/pairwise_rows.cu",
          "replaces": "prrn_aln_tpu/ops/pallas_pairwise.py:341",
@@ -2309,6 +2780,18 @@ def main() -> int:
          "medium": aln_G["k5_medium"], "realistic": aln_G["realistic_k5"],
          "refgs": {"ok": aln_G["refgs_ok"],
                    "perturbed": aln_G["refgs_perturbed"]}},
+        {"name": "frontier_row", "route": "cuda",
+         "source": "prrn_aln_tpu_torch/csrc/frontier_row.cu",
+         "replaces": "prrn_aln_tpu/ops/frontier.py:51",
+         "launches": multi[2][0]["dna4k"]["launches"]["frontier_row"],
+         "max_abs_err": max(r[name]["row_check"]["max_abs_err"]
+                            for ranks in (multi[1], multi[2]) for r in ranks
+                            for name in ("pair96", "dna4k")),
+         **multi["k6"],
+         "world2_ms_a_row": 1e3 * multi[2][0]["dna4k"]["seconds"]
+         / multi[2][0]["dna4k"]["rows"],
+         "world2_exchange_share": multi[2][0]["dna4k"]["exchange_s"]
+         / multi[2][0]["dna4k"]["seconds"]},
     ]
     print(card_line(), flush=True)
     emit({"kernels": kernels})

@@ -5,7 +5,11 @@ Counterparts of ``prrn_aln_tpu/cli.py::prrn_main`` and ``aln_main``:
 the same flags and the same output bytes.  The port adds ``--device``
 (default ``cuda``); a CUDA device that is absent is an error, never a
 switch to the CPU.  ``refgs_main`` is the counterpart of the JAX
-package's ``refgs`` (concerted gene-structure refinement).
+package's ``refgs`` (concerted gene-structure refinement), and
+``phyln_main``, ``makmdm_main``, ``makdbs_main``, ``decomp_main``,
+``iden_main``, ``rdn_main``, ``utn_main`` and ``utp_main`` of its utility
+programs; of these only ``phyln`` launches a kernel (K1), so only it
+takes ``--device``.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from . import io, scoring
 from .config import default_params
 from .msa.merge import merge_msas
 from .msa.progressive import align_pair
+from .ops.frontier import maybe_init_distributed
 from .pipeline import build_msa
 from .utils.runstat import load_checkpoint, runstat, save_checkpoint
 
@@ -50,12 +55,12 @@ def _write(text: str, path) -> None:
 
 
 def _out(msa, fmt: str, path=None, markeij: int = 0):
-    if fmt == "fasta":
-        text = io.write_fasta(msa)
-    elif fmt == "clustal":
-        text = io.write_clustal(msa)
-    else:
+    if fmt == "native":
         text = io.write_native_block(msa, markeij=markeij)
+    else:
+        text = {"fasta": io.write_fasta, "clustal": io.write_clustal,
+                "phylip": io.write_phylip, "msf": io.write_msf,
+                "gde": io.write_gde, "nexus": io.write_nexus}[fmt](msa)
     _write(text, path)
 
 
@@ -138,6 +143,7 @@ def _device(name: str) -> torch.device:
 
 
 def prrn_main(argv=None) -> int:
+    maybe_init_distributed()   # a gloo group when the environment asks
     p = argparse.ArgumentParser(
         prog="prrn",
         description="multiple sequence alignment with randomized "
@@ -387,6 +393,7 @@ def _aln_argv(argv) -> list[str]:
 
 
 def aln_main(argv=None) -> int:
+    maybe_init_distributed()   # a gloo group when the environment asks
     if argv is None:
         argv = sys.argv[1:]
     p = argparse.ArgumentParser(
@@ -707,6 +714,364 @@ def refgs_main(argv=None) -> int:
         print(f"{name}\t{st_}", file=sys.stderr)
     if res.outliers:
         print("outliers: " + " ".join(res.outliers), file=sys.stderr)
+    return 0
+
+
+
+def phyln_main(argv=None) -> int:
+    """Guide-tree utility: the reference's phyln/upg/nj family, plus
+    ``--device`` for the distance pass (K1)."""
+    p = argparse.ArgumentParser(
+        prog="phyln", description="print a UPGMA or NJ tree (Newick)")
+    p.add_argument("inputs", nargs="+")
+    p.add_argument("-m", choices=["upgma", "nj"], default="upgma")
+    p.add_argument("-k", action="store_true",
+                   help="use in-MSA divergence (input is an alignment)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the DP kernels (default cuda)")
+    args = p.parse_args(argv)
+    device = _device(args.device)
+
+    from .msa import distance as dmod, tree as tmod
+
+    records = []
+    for f in args.inputs:
+        records += io.sniff_and_read(f)
+    molc = ab.infer_molc(records[0].seq)
+    names = [r.name for r in records]
+    if args.k:
+        m = io.records_to_msa(records, molc)
+        d = dmod.msa_distance_matrix(m.codes)
+    else:
+        params = default_params(molc, "prrn")
+        mtx, _ = scoring.build_matrix(molc, params)
+        seqs = [ab.encode(r.seq.replace("-", ""), molc) for r in records]
+        d = dmod.distance_matrix(seqs, mtx, u=params.u, v=params.v,
+                                 sh=params.sh, device=device)
+    n = len(records)
+    t = (tmod.neighbor_joining(d, n) if args.m == "nj"
+         else tmod.upgma(d, n))
+    print(tmod.to_newick(t, names))
+    return 0
+
+
+def makmdm_main(argv=None) -> int:
+    """Write mutation-data (PAM) matrix tables (reference makmdm.cc).
+
+    Emits the integer score table for the requested PAM level in the
+    reference's space-separated layout, derivable for any level from
+    the bundled mdm eigendecomposition series."""
+    p = argparse.ArgumentParser(
+        prog="makmdm", description="generate mutation data matrix")
+    p.add_argument("pam", type=int, nargs="+", help="PAM level(s)")
+    p.add_argument("-d", dest="outdir", default=".")
+    args = p.parse_args(argv)
+    for pam in args.pam:
+        prm = dataclasses.replace(default_params(ab.PROTEIN, "aln"),
+                                  pam=pam)
+        mtx, meta = scoring.protein_matrix(prm)
+        dim = mtx.shape[0]
+        lines = [f"# mdm{pam} nrmlf={meta['nrmlf']:g} avtrc={meta['avtrc']:g}"]
+        for i in range(dim):
+            lines.append(" ".join(f"{mtx[i, j]:7.2f}"
+                                  for j in range(dim)))
+        out = Path(args.outdir) / f"mdm{pam}"
+        out.write_text("\n".join(lines) + "\n")
+        print(f"wrote {out}")
+    return 0
+
+
+def makdbs_main(argv=None) -> int:
+    """Build a formatted sequence database (reference makdbs.cc; the
+    SeqDB .psq/.pix/.pnm layout of native/seqlib.cpp)."""
+    p = argparse.ArgumentParser(
+        prog="makdbs", description="build formatted sequence DB")
+    p.add_argument("input")
+    p.add_argument("-b", dest="base", default=None,
+                   help="output base path (default: input stem)")
+    args = p.parse_args(argv)
+    from . import native
+    recs = io.sniff_and_read(args.input)
+    molc = ab.infer_molc(recs[0].seq)
+    base = args.base or str(Path(args.input).with_suffix(""))
+    seqs = [ab.encode(r.seq, molc) for r in recs]
+    names = [r.name for r in recs]
+    native.SeqDB.build(base, seqs, names)
+    print(f"{len(seqs)} entries -> {base}.psq/.pix/.pnm")
+    return 0
+
+
+def decomp_main(argv=None) -> int:
+    """Split a bundled flat DB file into per-entry files (reference
+    decomp.cc): filename = last '|'-separated field of the id token,
+    restricted to [alnum._]; optional date filter for GenBank entries."""
+    import datetime
+    import re
+
+    p = argparse.ArgumentParser(
+        prog="decomp", description="decompose a flat DB file")
+    p.add_argument("input", nargs="?", default="-")
+    p.add_argument("-p", dest="path", default=".", help="output path")
+    p.add_argument("-n", dest="date", default=None,
+                   help='keep entries dated on/after "Day-MON-Year"')
+    p.add_argument("-f", dest="field", type=int, default=0,
+                   help="id field number (whitespace separated)")
+    p.add_argument("-q", action="store_true", help="quiet")
+    args = p.parse_args(argv)
+
+    text = (sys.stdin.read() if args.input == "-"
+            else Path(args.input).read_text())
+    lines = text.splitlines(keepends=True)
+    given = None
+    if args.date:
+        given = datetime.datetime.strptime(args.date, "%d-%b-%Y")
+
+    def emit(entry_lines, idline):
+        toks = idline.split()
+        if args.field < len(toks):
+            tok = toks[args.field]
+        else:
+            return
+        parts = tok.split("|")
+        name = re.sub(r"[^A-Za-z0-9._]", "", parts[-1] or
+                      (parts[-2] if len(parts) > 1 else tok))
+        if not name:
+            return
+        out = Path(args.path) / name
+        out.write_text("".join(entry_lines))
+        if not args.q:
+            print(f"{name}: {idline}")
+
+    i = 0
+    while i < len(lines):
+        line = lines[i]
+        if line.startswith(">"):                 # FASTA entry
+            j = i + 1
+            while j < len(lines) and not lines[j].startswith(">"):
+                j += 1
+            emit(lines[i:j], line[1:].rstrip("\n"))
+            i = j
+        elif line.startswith(("LOCUS", "ID")):   # GenBank / EMBL
+            j = i + 1
+            while j < len(lines) and not lines[j].startswith("//"):
+                j += 1
+            if j < len(lines):
+                j += 1
+            keep = True
+            if given is not None and line.startswith("LOCUS"):
+                try:
+                    d = datetime.datetime.strptime(
+                        line[62:].split()[0], "%d-%b-%Y")
+                    keep = d >= given
+                except (ValueError, IndexError):
+                    keep = False
+            if keep:
+                emit(lines[i:j], line.split(None, 1)[1].rstrip("\n")
+                     if len(line.split()) > 1 else "")
+            i = j
+        else:
+            i += 1
+    return 0
+
+
+def iden_main(argv=None) -> int:
+    """Detect differences between two closely related sequences
+    (reference iden.cc: banded min-cost alignment, u=v=1, sh=2; prints
+    only the 60-column blocks containing a difference)."""
+    p = argparse.ArgumentParser(
+        prog="iden", description="differences between similar sequences")
+    p.add_argument("inputs", nargs=2)
+    p.add_argument("-u", type=float, default=1.0)
+    p.add_argument("-v", type=float, default=1.0)
+    p.add_argument("-w", type=int, default=2, help="band shoulder")
+    p.add_argument("-t", type=float, default=1.0,
+                   help="distance threshold %% (alprm.thr)")
+    p.add_argument("-O", type=int, default=1,
+                   help="0: score only; 1: difference blocks")
+    args = p.parse_args(argv)
+
+    from .ops.iden_np import iden_align, path_stats, alignment_columns
+    recs = [io.sniff_and_read(f)[0] for f in args.inputs]
+    molc = ab.infer_molc(recs[0].seq)
+    sa = recs[0].seq.upper()
+    sb = recs[1].seq.upper()
+    ca = ab.encode(sa, molc)
+    cb = ab.encode(sb, molc)
+    cut = int((len(ca) + len(cb)) * args.t / 100)
+    if args.O == 0:
+        dist, _ = iden_align(ca, cb, u=args.u, v=args.v, sh=args.w)
+        if dist < cut:
+            print(f"{recs[0].name:<12} {recs[1].name:<12} {int(dist):3d}")
+        return 0
+    dist, skl = iden_align(ca, cb, u=args.u, v=args.v, sh=args.w)
+    mch, mmc, runs, unp = path_stats(ca, cb, skl)
+    span = mch + mmc + unp
+    if not span:
+        return 0
+    rowa, rowb = alignment_columns(sa, sb, skl)
+    out = ["", f">{recs[0].name} [1:{len(sa)}]  ( 1 - {len(sa)} ) - "
+               f">{recs[1].name} [1:{len(sb)}]  ( 1 - {len(sb)} )"]
+    pct = 100.0 * mch / span
+    out.append("Dist = %4d, Cons = %3d, Repl = %3d,  Gaps = %2d, "
+               "Unpairs = %3d, (%6.2f %%)" % (int(dist), mch, mmc,
+                                              runs, unp, pct))
+    lpw = 60
+    na = nb = 0
+    for z in range(0, len(rowa), lpw):
+        sega = rowa[z: z + lpw]
+        segb = rowb[z: z + lpw]
+        ra = sum(1 for c in sega if c != "-")
+        rb = sum(1 for c in segb if c != "-")
+        if any(x != y for x, y in zip(sega, segb)):
+            out.append("")
+            for seg, n0, n1 in ((sega, na, na + ra), (segb, nb, nb + rb)):
+                if n1 > n0:
+                    out.append("%8d  %s%6d" % (n0 + 1, seg.ljust(lpw), n1))
+                else:
+                    out.append(" " * 10 + seg.ljust(lpw))
+                if seg is sega:
+                    ind = "".join("*" if x != y else " "
+                                  for x, y in zip(sega.ljust(lpw),
+                                                  segb.ljust(lpw)))
+                    out.append(" " * 10 + ind)
+        na += ra
+        nb += rb
+    sys.stdout.write("\n".join(out) + "\n\n")
+    return 0
+
+
+def rdn_main(argv=None) -> int:
+    """MSA editing utility (reference rdn)."""
+    p = argparse.ArgumentParser(prog="rdn", description="MSA row/column "
+                                "editing (extract, dedup, degap, justify)")
+    p.add_argument("input")
+    p.add_argument("-e", default=None, metavar="IDX",
+                   help="extract 1-based member indices, comma separated")
+    p.add_argument("-d", action="store_true", help="remove duplicates")
+    p.add_argument("-c", action="store_true", help="delete common gaps")
+    p.add_argument("-j", choices=["l", "r"], default=None, help="justify")
+    p.add_argument("-F", choices=["native", "fasta", "clustal", "phylip",
+                                  "msf", "gde", "nexus"], default="fasta")
+    p.add_argument("-o", default=None)
+    args = p.parse_args(argv)
+
+    from .utils import seqtools as st
+    recs = io.sniff_and_read(args.input)
+    msa = io.records_to_msa(recs)
+    if args.e:
+        keep = [int(x) - 1 for x in args.e.split(",")]
+        msa = st.extract_members(msa, keep)
+    if args.d:
+        msa = st.remove_duplicates(msa)
+    if args.j:
+        msa = st.justify(msa, left=args.j == "l")
+    if args.c:
+        msa = st.delete_common_gaps(msa)
+    _out(msa, args.F, args.o)
+    return 0
+
+
+def utn_main(argv=None) -> int:
+    """Nucleotide utility (reference utn): composition, translation,
+    ORFs, reverse complement."""
+    p = argparse.ArgumentParser(prog="utn")
+    p.add_argument("input")
+    p.add_argument("-c", action="store_true", help="composition")
+    p.add_argument("-t", type=int, default=None, metavar="FRAME",
+                   help="translate in frame 0/1/2")
+    p.add_argument("-O", action="store_true", help="find ORFs")
+    p.add_argument("-r", action="store_true", help="reverse complement")
+    p.add_argument("-z", default=None, metavar="ENZ|all[,max[,min]]",
+                   help="restriction sites (reference utn resezm/allezm; "
+                        "table: renzyme)")
+    p.add_argument("-fp", default=None, metavar="PATTERN",
+                   help="find IUPAC pattern positions (reference -f)")
+    args = p.parse_args(argv)
+
+    from .utils import resite as rz
+    from .utils import seqtools as st
+    for rec in io.sniff_and_read(args.input):
+        codes = ab.encode(rec.seq.replace("-", ""), ab.DNA)
+        if args.z or args.fp:
+            seq = rec.seq.replace("-", "").upper()
+            if args.fp:
+                locs = rz.pattern_positions(seq, args.fp)
+                print(f"{rec.name}  ({args.fp})  {len(locs)}")
+                if locs:
+                    print(rz.format_loc(locs))
+            if args.z and args.z.startswith("all"):
+                parts = args.z.split(",")
+                mx = int(parts[1]) if len(parts) > 1 else 2 ** 31 - 1
+                mn = int(parts[2]) if len(parts) > 2 else (0 if mx == 0
+                                                           else 1)
+                for e, locs in rz.all_sites(seq, mn, mx):
+                    print(f"{e.name:<10} {e.pattern:<10} {e.cut:2d}   "
+                          f"{len(locs)}")
+                    if locs:
+                        print(rz.format_loc(locs))
+            elif args.z:
+                total = []
+                for nm in args.z.split(","):
+                    e = rz.find_enzyme(nm)
+                    if e is None:
+                        print(f"{nm} not found", file=sys.stderr)
+                        continue
+                    locs = rz.respos(seq, e)
+                    print(f"{rec.name}  ({e.name:<10} {e.pattern:<10} "
+                          f"{e.cut:2d} )  {len(locs)}")
+                    total.extend(locs)
+                if total:
+                    print(rz.format_loc(sorted(total)))
+        if args.c:
+            comp = st.composition(codes, ab.DNA)
+            total = sum(comp.values())
+            print(rec.name, total,
+                  " ".join(f"{k}:{v}" for k, v in sorted(comp.items())))
+        if args.t is not None:
+            print(f">{rec.name}_frame{args.t}")
+            print(st.translate(codes, args.t))
+        if args.O:
+            for s, e, f in st.find_orfs(codes):
+                print(f"{rec.name}\t{s}\t{e}\t{f}")
+        if args.r:
+            print(f">{rec.name}_rc")
+            print(ab.decode(st.reverse_complement(codes), ab.DNA))
+    return 0
+
+
+def utp_main(argv=None) -> int:
+    """Protein utility (reference utp): composition, PROSITE motifs."""
+    p = argparse.ArgumentParser(prog="utp")
+    p.add_argument("input")
+    p.add_argument("-c", action="store_true", help="composition")
+    p.add_argument("-m", default=None, metavar="PATTERN",
+                   help="scan a PROSITE-syntax motif (reference prs.cc)")
+    p.add_argument("-P", default=None, metavar="DAT",
+                   help="scan every pattern of a prosite.dat file")
+    args = p.parse_args(argv)
+
+    from .utils import prosite as psm
+    from .utils import seqtools as st
+    pats = None
+    if args.P:
+        pats = [(pid, acc, psm.compile_pattern(pat))
+                for pid, acc, pat in psm.parse_dat(args.P)]
+    for rec in io.sniff_and_read(args.input):
+        seq = rec.seq.replace("-", "")
+        if args.m:
+            for s, e in psm.scan(seq, args.m):
+                print(f"{rec.name}\t{s + 1}\t{e}\t{seq[s:e]}")
+        if pats is not None:
+            for pid, acc, rx in pats:
+                for s, e in psm.scan(seq, rx):
+                    print(f"{rec.name}\t{pid}\t{acc}\t{s + 1}\t{e}\t"
+                          f"{seq[s:e]}")
+        if args.c or not (args.m or pats is not None):
+            codes = ab.encode(seq, ab.PROTEIN)
+            comp = st.composition(codes, ab.PROTEIN)
+            total = sum(comp.values())
+            print(rec.name, total,
+                  " ".join(f"{k}:{v}" for k, v in sorted(comp.items())))
     return 0
 
 

@@ -5,8 +5,10 @@ and ``distance_matrix`` run on ``ops.pairwise.pairwise_scores`` (kernel
 K1, or K1f under ``PRRN_PW_FUSED=1``, on a CUDA device; the plain
 versions on the CPU); ``condensed_index``,
 ``scores_to_dist`` and the MSA divergences (``pairdvn``,
-``msa_distance_matrix``) are host NumPy, copied unchanged.  The mesh
-paths (``_sharded_*``) are not ported yet.
+``msa_distance_matrix``) are host NumPy, copied unchanged.  With a
+``torch.distributed`` ``group`` (the JAX package's ``mesh``) each rank
+scores its block of the pairs and the blocks are gathered
+(``ops/frontier.py``).
 
 Distance semantics follow the reference's score-based mode (``DynScr``):
 
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from ..ops.window import stripe
+from ..ops.frontier import gather_blocks, shard_block
 from ..ops.pairwise import pairwise_scores
 
 
@@ -34,16 +37,20 @@ def condensed_index(i: int, j: int) -> int:
 
 
 def all_pairs_scores(seqs: list[np.ndarray], mtx: np.ndarray,
-                     u: float, v: float, sh: int,
-                     device: torch.device | str,
+                     u: float, v: float, sh: int, group=None,
                      pairs: list[tuple[int, int]] | None = None,
-                     lossy: bool = False) -> np.ndarray:
+                     lossy: bool = False, *,
+                     device: torch.device | str) -> np.ndarray:
     """Banded wavefront scores of ``pairs`` in one batch; by default all
     N*(N-1)/2 pairs.
 
     Returns the score array in the order of ``pairs``; the default is
     the condensed order of the reference's elem(i,j) = j*(j-1)/2 + i
     (i < j).  ``lossy`` is the bf16 score screen of ``pairwise_scores``.
+    With ``group`` each rank scores its block of the pairs on ``device``
+    with the whole batch's packing offset (K1f's lanes start at the
+    batch's smallest ``lw``; K1's scores do not depend on the batch), so
+    every score is bit-equal to the run without a group.
     """
     n = len(seqs)
     if pairs is None:
@@ -57,20 +64,29 @@ def all_pairs_scores(seqs: list[np.ndarray], mtx: np.ndarray,
     ai = np.array([p[0] for p in pairs], np.int64)
     bi = np.array([p[1] for p in pairs], np.int64)
     wdws = [stripe(lens[i], lens[j], sh) for i, j in pairs]
+    lw = np.array([w.lw for w in wdws], np.int32)
+    up = np.array([w.up for w in wdws], np.int32)
+    lo, hi = 0, len(pairs)
+    if group is not None:
+        _, _, lo, hi = shard_block(len(pairs), group)
 
     def dev(x):
-        return torch.as_tensor(np.ascontiguousarray(x), device=device)
+        return torch.as_tensor(np.ascontiguousarray(x[lo:hi]), device=device)
 
-    # lengths and band diagonals go as host arrays: the row sweep (K1f)
-    # takes its packing from them without reading the device
-    scores = pairwise_scores(
-        dev(padded[ai]), dev(padded[bi]),
-        np.array([lens[i] for i in ai], np.int32),
-        np.array([lens[j] for j in bi], np.int32),
-        dev(mtx.astype(np.float32)), u, v,
-        lw=np.array([w.lw for w in wdws], np.int32),
-        up=np.array([w.up for w in wdws], np.int32), lossy=lossy)
-    return scores.cpu().numpy()
+    scores = np.zeros(0, np.float32)
+    if hi > lo:
+        # lengths and band diagonals go as host arrays: the row sweep
+        # (K1f) takes its packing from them without reading the device
+        scores = pairwise_scores(
+            dev(padded[ai]), dev(padded[bi]),
+            np.array([lens[i] for i in ai[lo:hi]], np.int32),
+            np.array([lens[j] for j in bi[lo:hi]], np.int32),
+            torch.as_tensor(mtx.astype(np.float32), device=device), u, v,
+            lw=lw[lo:hi], up=up[lo:hi], lossy=lossy,
+            lw0=int(lw.min())).cpu().numpy()
+    if group is None:
+        return scores
+    return np.array(gather_blocks(list(scores), group), np.float32)
 
 
 def scores_to_dist(scores: np.ndarray, self_scores: np.ndarray,
@@ -86,12 +102,12 @@ def scores_to_dist(scores: np.ndarray, self_scores: np.ndarray,
 
 
 def distance_matrix(seqs: list[np.ndarray], mtx: np.ndarray,
-                    u: float, v: float, sh: int,
+                    u: float, v: float, sh: int, group=None, *,
                     device: torch.device | str) -> np.ndarray:
     """Condensed DynScr distance matrix for encoded sequences."""
     n = len(seqs)
     pairs = [(i, j) for j in range(1, n) for i in range(j)]
-    scores = all_pairs_scores(seqs, mtx, u, v, sh, device)
+    scores = all_pairs_scores(seqs, mtx, u, v, sh, group, device=device)
     self_scores = np.array([float(mtx[s, s].sum()) for s in seqs])
     lens = np.array([len(s) for s in seqs])
     return scores_to_dist(scores, self_scores, lens, pairs, u)

@@ -93,11 +93,12 @@ def align_pair(A: Msa, B: Msa, mtx: np.ndarray, u: float, v: float,
 
 def progressive_msa_forest(trees: list, leaves_list: list, mtx: np.ndarray,
                            u: float, v: float, sh: int, spb: float = 20.0,
-                           *, device) -> list[Msa]:
+                           group=None, *, device) -> list[Msa]:
     """Level-synchronous progressive alignment over a FOREST: every
     merge whose children are both built, across all trees and across
     independent subtrees within one tree, runs in one
-    ``group_align_batch`` launch on ``device``.
+    ``group_align_batch`` launch on ``device`` (split over the ranks of
+    ``group`` when given).
 
     This is the reference's per-subtree thread fan-out
     (prrn5.cc:1151-1155) recast as device batching: the wall-clock per
@@ -137,7 +138,7 @@ def progressive_msa_forest(trees: list, leaves_list: list, mtx: np.ndarray,
         assert jobs, "forest merge deadlock"
         results = group_align_batch([(A, B) for _, _, A, B, _ in jobs],
                                     mtx, u=u, v=v, sh=sh, pads=pads,
-                                    spb=spb, device=device)
+                                    spb=spb, group=group, device=device)
         for (ti, node, A, B, swapped), (_, skl) in zip(jobs, results):
             merged = merge_msas(A, B, skl)
             merged.prepare(mtx.shape[0])

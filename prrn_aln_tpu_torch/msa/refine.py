@@ -13,12 +13,12 @@ rir/onecycle/divideseq :413-666, Prrn ctor :688-781, preprrn :786-839):
   at ``maxitr`` cycles
 
 Counterpart of ``prrn_aln_tpu/msa/refine.py`` (``refine_msa`` and
-``refine_with_consreg``; multi-device runs are not ported yet): each
-candidate realignment is one group-DP launch on an explicit ``device``,
-and the speculative best-of-n fan-out (``nbatch > 1``) is one
-``group_align_batch``.  The random draws use the copied
-``GlibcRand``/``McRand`` generators, seeded as in the JAX package, so
-both draw the same partitions.
+``refine_with_consreg``): each candidate realignment is one group-DP
+launch on an explicit ``device``, and the speculative best-of-n fan-out
+(``nbatch > 1``) is one ``group_align_batch``, split over the ranks of
+a ``torch.distributed`` ``group`` when one is given.  The random draws
+use the copied ``GlibcRand``/``McRand`` generators, seeded as in the JAX
+package, so both draw the same partitions.
 """
 
 from __future__ import annotations
@@ -153,7 +153,7 @@ def refine_msa(msa: Msa, mtx: np.ndarray, u: float, v: float, sh: int,
                crand: GlibcRand | None = None,
                accept_ties: bool = True,
                tree_data=None, col_range=None,
-               nbatch: int = 1, spb: float = 20.0,
+               nbatch: int = 1, spb: float = 20.0, group=None,
                subset=None, divmode: str = "tree", *,
                device) -> RefineResult:
     """One Prrn pass over a flat MSA (every sequence its own group).
@@ -385,7 +385,7 @@ def refine_msa(msa: Msa, mtx: np.ndarray, u: float, v: float, sh: int,
             from ..ops.group import group_align_batch
             results = group_align_batch(
                 [(c["A"], c["B"]) for c in cands], mtx, u=u, v=v, sh=sh,
-                pads=pads, spb=spb, device=device)
+                pads=pads, spb=spb, group=group, device=device)
             scored = []
             for c, (s_new, skl_new) in zip(cands, results):
                 acc, delta = evaluate(c, s_new, skl_new)
@@ -472,7 +472,7 @@ def refine_msa(msa: Msa, mtx: np.ndarray, u: float, v: float, sh: int,
 def refine_with_consreg(msa: Msa, mtx: np.ndarray, u: float, v: float,
                         sh: int, maxitr: int = 10, randseed: int = 1,
                         crand: GlibcRand | None = None,
-                        spb: float = 20.0, nbatch: int = 1,
+                        spb: float = 20.0, nbatch: int = 1, group=None,
                         divmode: str = "tree", *,
                         device) -> RefineResult:
     """preprrn with conserved-region segmentation (prrn5.cc:786-839):
@@ -504,7 +504,7 @@ def refine_with_consreg(msa: Msa, mtx: np.ndarray, u: float, v: float,
                          randseed=randseed, crand=crand,
                          tree_data=(t, vol, cur, leaf_vol),
                          col_range=(lo, hi), spb=spb, nbatch=nbatch,
-                         divmode=divmode, device=device)
+                         group=group, divmode=divmode, device=device)
         work = res.msa
         improvements += res.improvements
         iterations += res.iterations

@@ -5,7 +5,8 @@ bookkeeping (``Edge``, ``SlNode``, ``build_forest``, ``slnode_to_tree``,
 ``split_oversized``) is host code, copied unchanged; ``candidate_edges``
 scores its pairs with one call of ``ops.pairwise.pairwise_scores`` (in
 ``distance.all_pairs_scores``) on an explicit ``device``: kernel K1, or
-K1f under ``PRRN_PW_FUSED=1``.
+K1f under ``PRRN_PW_FUSED=1``, split over the ranks of a
+``torch.distributed`` ``group`` when one is given.
 
 Reference flow (src/adjmat.cc + src/sltree.cc): build a sparse distance
 graph (candidate pairs from a k-mer selectivity filter, scored with the
@@ -40,7 +41,8 @@ class Edge:
 
 def candidate_edges(seqs: list[np.ndarray], molc: int, mtx, u: float,
                     v: float, sh: int, thr: float,
-                    m_nearest: int = 8, *, device) -> list[Edge]:
+                    m_nearest: int = 8, group=None, *,
+                    device) -> list[Edge]:
     """Sparse edge list: k-mer nearest candidates scored by DP distance."""
     n = len(seqs)
     knn_thr = int(os.environ.get("PRRN_KNN_THRESHOLD", "2048"))
@@ -69,7 +71,7 @@ def candidate_edges(seqs: list[np.ndarray], molc: int, mtx, u: float,
     # selection is soft; the groups the forest later aligns are scored
     # exactly)
     scores = dmod.all_pairs_scores(
-        seqs, mtx, u, v, sh, device, pairs=pairs,
+        seqs, mtx, u, v, sh, group, pairs=pairs, device=device,
         lossy=os.environ.get("PRRN_EDGE_SCREEN") == "bf16")
     lens = [len(s) for s in seqs]
     selfs = np.array([float(mtx[s, s].sum()) for s in seqs])

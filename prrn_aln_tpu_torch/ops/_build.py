@@ -29,7 +29,7 @@ _BUILD = (Path(__file__).resolve().parent.parent.parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
 
-_vp, _int = ctypes.c_void_p, ctypes.c_int
+_vp, _int, _flt = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the kernels' launchers; each returns cudaGetLastError()
 _SIGNATURES = {
     "pairwise_scores_launch": [_vp] * 12 + [_int] * 11 + [_vp],
@@ -49,6 +49,9 @@ _SIGNATURES = {
     "spliced_s_wave_scratch_words": [_int, _int],
     "spliced_s_wave_attrs": [_int, _vp],
     "spliced_s_wave_max_clusters": [_int] * 3 + [_vp],
+    "frontier_edges_launch": [_vp] * 5 + [_int] * 2 + [_flt] * 4 + [_vp],
+    "frontier_scan_launch": [_vp] * 2 + [_int] * 5 + [_flt] * 3 + [_vp],
+    "frontier_close_launch": [_vp] * 3 + [_int] * 7 + [_flt] * 2 + [_vp],
 }
 
 _lib = None

@@ -11,8 +11,10 @@ versions ``wavefront_core_ref`` (of ``_wavefront_core`` with the
 ``group_wavefront`` (CUDA kernel ``csrc/group_wavefront.cu``, which
 replaces ``ops/pallas_group.py::_kernel``, resumable carries included)
 and ``traceback``/``traceback_range`` (CUDA kernel
-``csrc/traceback.cu``).  ``group_align`` and ``group_align_batch`` are
-ported without the mesh, and keep the corner-miss retry at sh=-100;
+``csrc/traceback.cu``).  ``group_align`` and ``group_align_batch`` keep
+the corner-miss retry at sh=-100; ``group_align_batch`` splits its batch
+over the ranks of a ``torch.distributed`` ``group`` (the JAX package's
+``mesh``) and records the split in ``LAST_BATCH_SHARD``;
 ``group_align_linear`` is the linear-space aligner, chunks of the
 wavefront resumed from checkpointed carries.
 
@@ -40,10 +42,13 @@ import torch
 from ..msa.msa import Msa
 from ..msa import sshp as _sshp
 from . import _build
+from .frontier import gather_blocks, shard_block
 from .window import Window, stripe
 from .group_np import _col_arrays, DIAG, VERT, HORI, VERT2, HORI2
 
 NEVSEL = -1.0e30
+# (rank, world, start, stop) of the last group_align_batch call's block
+LAST_BATCH_SHARD = None
 
 # H dir codes (match group_np)
 D_DEAD, D_DIAG, D_VERT, D_HORI = 0, 1, 2, 3
@@ -1117,11 +1122,17 @@ def group_align(A: Msa, B: Msa, mtx: np.ndarray, u: float, v: float,
 
 def group_align_batch(pairs, mtx, u: float, v: float, sh: int,
                       pads: tuple[int, int], spb: float = 0.0,
-                      scale: float = 1.0, *, device):
+                      scale: float = 1.0, group=None, *, device):
     """Score and trace back a batch of group pairs in one launch of each
     kernel (the speculative best-of-n refinement fan-out).  ``pairs`` =
     list of (A, B) prepared Msa pairs, padded to common shapes via
-    ``pads``.  Returns a list of (score, skl)."""
+    ``pads``.  Returns a list of (score, skl).
+
+    With ``group`` every rank packs the whole batch's shapes, aligns its
+    own block of the pairs on ``device`` and gathers the others', so the
+    results equal the run without a group; ``LAST_BATCH_SHARD`` holds
+    (rank, world, start, stop) of the last call."""
+    global LAST_BATCH_SHARD
     if not pairs:
         return []
     an_pad, len_pad = pads
@@ -1132,11 +1143,16 @@ def group_align_batch(pairs, mtx, u: float, v: float, sh: int,
     wdws = [stripe(A.length, B.length, sh) for A, B in pairs]
     nslot = _bucket(max(w.up - w.lw + 3 for w in wdws), 128)
     nsteps = _bucket(max(A.length + B.length + 1 for A, B in pairs), 256)
+    rank, world, lo, hi = 0, 1, 0, len(pairs)
+    if group is not None:
+        rank, world, lo, hi = shard_block(len(pairs), group)
+    LAST_BATCH_SHARD = (rank, world, lo, hi)
+    pairs, wdws = pairs[lo:hi], wdws[lo:hi]
     items = [_pack_inputs(A, B, mtx, u, v, w, an_pad, an_pad, la_max,
                           lb_max, spb=spb, scale=scale)
              for (A, B), w in zip(pairs, wdws)]
-    scores, skls = _align_items(items, nslot, nsteps, la_max, lb_max, False,
-                                device)
+    scores, skls = (_align_items(items, nslot, nsteps, la_max, lb_max,
+                                 False, device) if items else ([], []))
     out = []
     for k, ((A, B), w) in enumerate(zip(pairs, wdws)):
         if float(scores[k]) <= NEVSEL / 2 or not skl_in_band(skls[k], w.lw,
@@ -1148,7 +1164,7 @@ def group_align_batch(pairs, mtx, u: float, v: float, sh: int,
                                    _retried=True))
         else:
             out.append((float(scores[k]), skls[k]))
-    return out
+    return out if group is None else gather_blocks(out, group)
 
 
 # steps of one K2 launch of the TPU kernel (pallas_group.DSTEP): the

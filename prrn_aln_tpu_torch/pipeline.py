@@ -43,7 +43,7 @@ FOREST_MIN_SEQS = 16
 def build_msa(records: list[SeqRecord], params: AlnParams | None = None,
               molc: int | None = None, maxitr: int = 10,
               randseed: int = 1, refine: bool = True,
-              local_thr: float = 35.0, nbatch: int = 1,
+              local_thr: float = 35.0, group=None, nbatch: int = 1,
               divmode: str = "tree", *, device) -> Msa:
     if molc is None:
         molc = ab.infer_molc(records[0].seq)
@@ -61,11 +61,11 @@ def build_msa(records: list[SeqRecord], params: AlnParams | None = None,
     if len(seqs) >= FOREST_MIN_SEQS:      # sl-forest scale-out
         return build_msa_denovo_large(records, params, molc, maxitr=maxitr,
                                       randseed=randseed, refine=refine,
-                                      nbatch=nbatch, divmode=divmode,
-                                      device=device)
+                                      group=group, nbatch=nbatch,
+                                      divmode=divmode, device=device)
 
     d = distance.distance_matrix(seqs, mtx, u=params.u, v=params.v,
-                                 sh=params.sh, device=device)
+                                 sh=params.sh, group=group, device=device)
     t = tree.upgma(d, len(seqs))
 
     leaves = [single(s, molc, n, eij=e)
@@ -79,11 +79,12 @@ def build_msa(records: list[SeqRecord], params: AlnParams | None = None,
                                       sh=params.sh, maxitr=maxitr,
                                       randseed=randseed, crand=crand,
                                       spb=params.spb, nbatch=nbatch,
-                                      divmode=divmode, device=device)
+                                      group=group, divmode=divmode,
+                                      device=device)
         else:
             res = refine_msa(msa, mtx, u=params.u, v=params.v, sh=params.sh,
                              maxitr=maxitr, randseed=randseed, crand=crand,
-                             spb=params.spb, nbatch=nbatch,
+                             spb=params.spb, nbatch=nbatch, group=group,
                              divmode=divmode, device=device)
         msa = res.msa
     return msa
@@ -128,7 +129,7 @@ def cut_in(mom: Msa, dau: Msa, mtx, params: AlnParams, *, device) -> Msa:
 
 def update_msa(groups: list[Msa], params: AlnParams | None = None,
                molc: int | None = None, maxitr: int = 10, randseed: int = 1,
-               refine: bool = False, nbatch: int = 1,
+               refine: bool = False, nbatch: int = 1, group=None,
                divmode: str = "tree", *, device) -> Msa:
     """Combine pre-aligned host MSAs and single-sequence guests
     (prrn5.cc:1529-1605 update_prrn): hosts merged by group alignment,
@@ -159,7 +160,7 @@ def update_msa(groups: list[Msa], params: AlnParams | None = None,
         msd.weight = None
         res = refine_msa(msd, mtx, u=params.u, v=params.v, sh=params.sh,
                          maxitr=maxitr, randseed=randseed,
-                         crand=GlibcRand(1), nbatch=nbatch,
+                         crand=GlibcRand(1), nbatch=nbatch, group=group,
                          divmode=divmode, device=device)
         msd = res.msa
     return msd
@@ -202,8 +203,8 @@ def build_msa_guided(treefile: str, params: AlnParams | None = None,
 def build_msa_denovo_large(records, params: AlnParams, molc: int,
                            maxitr: int = 10, randseed: int = 1,
                            refine: bool = True, m_nearest: int = 8,
-                           max_memb: int = 2 ** 31 - 1, nbatch: int = 1,
-                           divmode: str = "tree",
+                           max_memb: int = 2 ** 31 - 1, group=None,
+                           nbatch: int = 1, divmode: str = "tree",
                            dump_prefix: str | None = None, *,
                            device) -> Msa:
     """De-novo MSA for many sequences via the single-linkage forest
@@ -220,7 +221,7 @@ def build_msa_denovo_large(records, params: AlnParams, molc: int,
 
     edges = slforest.candidate_edges(
         seqs, molc, mtx, u=params.u, v=params.v, sh=params.sh,
-        thr=params.thr, m_nearest=m_nearest, device=device)
+        thr=params.thr, m_nearest=m_nearest, group=group, device=device)
     runstat.stamp(len(edges))         # edges built (prrn5.cc:1317)
     trees, singles = slforest.build_forest(n, edges, thr=params.thr,
                                            max_memb=max_memb)
@@ -238,13 +239,13 @@ def build_msa_denovo_large(records, params: AlnParams, molc: int,
     if ts:
         for m in progressive_msa_forest(ts, leaves_lists, mtx, u=params.u,
                                         v=params.v, sh=params.sh,
-                                        device=device):
+                                        group=group, device=device):
             if refine and m.many > 2:
                 res = refine_msa(m, mtx, u=params.u, v=params.v,
                                  sh=params.sh, maxitr=maxitr,
                                  randseed=randseed, crand=crand,
-                                 nbatch=nbatch, divmode=divmode,
-                                 device=device)
+                                 nbatch=nbatch, group=group,
+                                 divmode=divmode, device=device)
                 m = res.msa
             sub_msas.append(m)
     runstat.stamp(len(sub_msas))      # subtrees aligned (prrn5.cc:1149)
@@ -259,7 +260,8 @@ def build_msa_denovo_large(records, params: AlnParams, molc: int,
     if not sub_msas:
         # no edges below threshold: all-by-all, as the JAX package has it
         return build_msa(records, params=params, molc=molc, maxitr=maxitr,
-                         randseed=randseed, refine=refine, device=device)
+                         randseed=randseed, refine=refine, group=group,
+                         device=device)
 
     msd = sub_msas[0]
     for other in sub_msas[1:]:
@@ -272,6 +274,7 @@ def build_msa_denovo_large(records, params: AlnParams, molc: int,
         msd.weight = None
         res = refine_msa(msd, mtx, u=params.u, v=params.v, sh=params.sh,
                          maxitr=maxitr, randseed=randseed, crand=crand,
-                         nbatch=nbatch, divmode=divmode, device=device)
+                         nbatch=nbatch, group=group, divmode=divmode,
+                         device=device)
         msd = res.msa
     return msd

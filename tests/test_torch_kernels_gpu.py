@@ -1078,3 +1078,68 @@ def test_spliced_s_wrapper_rejects_what_k5_does_not_take(cuda_device):
     plan = tss.sweep_s_plan(ins.rows, ins.mtx.shape[0], ins.lb + 2)
     with pytest.raises(RuntimeError, match="CUDA error"):
         tss._launch_sweep_s(ins, {**plan, "ctas": 17})
+
+
+def _frontier_sweep(Wl, device, rows=12, seed=0):
+    """A sweep of ``rows`` row steps on one rank's shard of ``Wl`` lanes
+    (the second shard: j0 = Wl), with random H, G, scores and received
+    values, u and v inexact in binary, the left column crossing lanes
+    5 .. 0 in rows 0 .. 5, and padding lanes past W in the shard."""
+    rng = np.random.default_rng(seed)
+    j0 = Wl
+    lw = -(j0 + 5)
+    kw = dict(j0=j0, lw=lw, W=j0 + max(1, Wl - 3), lb=j0 + lw + rows + Wl,
+              u=0.7111, v=3.3)
+
+    def f32(*shape, scale=20.0):
+        return torch.as_tensor(rng.normal(0, scale, shape).astype(np.float32),
+                               device=device)
+    H, G = f32(Wl), f32(Wl)
+    recv = [tuple(float(x) for x in rng.normal(0, 20, 4).astype(np.float32))
+            for _ in range(rows)]
+    return H, G, f32(rows, Wl, scale=3.0), recv, kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Wl", [1, 31, 32, 1024, 1025, 3000])
+def test_frontier_row_kernel_matches_plain(cuda_device, Wl):
+    """K6's three entry points against ``frontier_row_ref``, bit for bit,
+    row after row of a sweep."""
+    from prrn_aln_tpu_torch.ops import _build, frontier as tfr
+    H, G, s_rows, recv, kw = _frontier_sweep(Wl, cuda_device)
+    Hr, Gr = H.clone(), G.clone()
+    before = _build.LAUNCHES["frontier_row"]
+    for m in range(s_rows.shape[0]):
+        H, G = tfr.frontier_row(H, G, s_rows[m], recv[m], m=m, **kw)
+        Hr, Gr = tfr.frontier_row_ref(Hr, Gr, s_rows[m], recv[m], m=m, **kw)
+        assert torch.equal(H.view(torch.int32), Hr.view(torch.int32)), m
+        assert torch.equal(G.view(torch.int32), Gr.view(torch.int32)), m
+    assert _build.LAUNCHES["frontier_row"] - before == 3 * s_rows.shape[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("la, lb, lw, up, u, v", [
+    (96, 96, -40, 40, 2.0, 9.0), (300, 280, -150, 90, 0.7111, 3.3)])
+def test_frontier_score_on_card_equals_cpu(cuda_device, la, lb, lw, up, u, v):
+    """The whole score at world 1 (no exchange): K6 on the card, the plain
+    version on the CPU, the same bits."""
+    from prrn_aln_tpu_torch.ops import frontier as tfr
+    rng = np.random.default_rng(9)
+    a = rng.integers(0, 24, la).astype(np.int32)
+    b = rng.integers(0, 24, lb).astype(np.int32)
+    mtx = rng.normal(0, 2, (26, 26)).astype(np.float32)
+    got = tfr.frontier_pairwise_score(a, b, lw, up, u, v, mtx,
+                                      device=cuda_device)
+    want = tfr.frontier_pairwise_score(a, b, lw, up, u, v, mtx, device="cpu")
+    assert np.float32(got).view(np.int32) == np.float32(want).view(np.int32)
+
+
+@pytest.mark.gpu
+def test_frontier_wrapper_rejects_what_k6_does_not_take(cuda_device):
+    from prrn_aln_tpu_torch.ops import frontier as tfr
+    H = torch.zeros(64, dtype=torch.float64, device=cuda_device)
+    with pytest.raises(ValueError, match="dtype"):
+        tfr.row_edges(H, H, H, 0.0, 0.0, 1.0, 2.0)
+    X = torch.zeros(64, dtype=torch.float32, device=cuda_device)
+    with pytest.raises(ValueError, match="shape"):
+        tfr.row_close(X, X[:32], 0.0, 0, 0, -1, 64, 64, 1.0)

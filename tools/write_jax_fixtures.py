@@ -27,6 +27,11 @@ family of ``chip_smoke.refgs_family_inputs`` with ``splice.hapi.spliced_align_h`
 called with ``engine="device"``.  Both are wrapped for the run only;
 ``aln_main`` and ``refgs`` import them inside the function, so the wrap
 takes effect without touching the package.
+
+``jax_utils_cli.json`` holds the utility programs (``phyln``, ``iden``,
+``decomp``, ``makmdm``, ``makdbs``, ``rdn``, ``utn``, ``utp``) on the
+runs of ``chip_smoke.utils_cases``: each one's standard output and error
+and the files it writes (hex).
 """
 
 from __future__ import annotations
@@ -139,6 +144,21 @@ def refgs_jobs(tmp: Path) -> dict:
             "jax_refgs_cli.txt": cli}
 
 
+def utils_json() -> str:
+    """``jax_utils_cli.json``: every run of ``chip_smoke.utils_cases``
+    through the JAX package's program, its standard output and error and
+    the files it writes, on the inputs ``chip_smoke.write_utils_inputs``
+    lays out (the aligned ce13a17 is ``jax_prrn_ce13a17_clean_R0.txt``)."""
+    from chip_smoke import run_util, utils_cases, write_utils_inputs
+    from prrn_aln_tpu import cli
+
+    tmp = Path(tempfile.mkdtemp(prefix="jaxutils"))
+    write_utils_inputs(tmp, FIX / "jax_prrn_ce13a17_clean_R0.txt")
+    out = {name: run_util(getattr(cli, f"{prog}_main"), argv, tmp / name)
+           for name, (prog, argv) in utils_cases().items()}
+    return json.dumps(out, indent=1, sort_keys=True) + "\n"
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", nargs="*", default=None,
@@ -192,6 +212,7 @@ def main() -> int:
             lambda: stdout_of(aln_main, ["-R", "10", str(FIX / "idn_p.fa"),
                                          str(FIX / "idn_q.fa")]),
         **refgs_jobs(tmp),
+        "jax_utils_cli.json": utils_json,
     }
 
     def aln_dna(argv):
