@@ -141,20 +141,23 @@ Phases (each raises on failure, so the script exits non-zero):
    ``group_align_batch`` (K2, K3) bit-equal to the run with no group,
    each rank's block of the batch; ``build_msa`` on ce13a17 with ``-R
    0``'s settings byte-identical to ``jax_prrn_ce13a17_clean_R0.txt``;
-   ``frontier_pairwise_score`` (K6) on tests/test_frontier.py's 96 x 96
-   pair and on a seeded 4 kb DNA pair at band +-256, equal to the run
-   with no group and within 1e-3 relative of K1's score, three K6
-   launches a row, and K6 bit-equal to its plain version on each run's
-   recorded middle row; each run's ms a row and the share of it spent in
-   the exchanges; K6's time a row on the 4 kb pair's recorded row; then
-   the card line.
+   ``frontier_pairwise_score`` on tests/test_frontier.py's 96 x 96 pair
+   and on a seeded 4 kb DNA pair at band +-256, equal to the run with no
+   group and within 1e-3 relative of K1's score: at world 1 one K6s
+   launch a score, its last H and G bit-equal to the plain sweep on the
+   card; at world 2 one K6r launch and one read a row a rank on the
+   skewed ring, one message each way a row toward a neighbour, K6r
+   bit-equal to its plain version on each rank's recorded middle row;
+   each run's ms a row and the share of it spent in the ring's messages;
+   K6s's time on the 4 kb pair and K6r's a row; then the card line.
 
 Prints one JSON line per phase, then the card line, the kernels line
 (launches from the cold runs of phases 4 and 10, for K1f from the run
 under the switch in phase 6, for K3's range walk from the linear
 aligner's run in phase 12, each phase 13 mode's under ``cli_modes``,
-K5's from ``aln -G`` on gen2 in phase 14, and K6's from rank 0 of phase
-16's world-2 run on the 4 kb pair; times at the main paths'
+K5's from ``aln -G`` on gen2 in phase 14, K6s's from phase 16's run
+with no group and K6r's from rank 0 of its world-2 run, both on the 4 kb
+pair; times at the main paths'
 shapes, bounds from the same inputs) and, last, ``{"ok": true,
 "device": {...}}``.
 """
@@ -235,11 +238,9 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int, word: str):
-    """A kernel's own time a call on the card, without its wrapper's host
-    work: the device time of the kernels whose names hold ``word``
-    (``torch.profiler``), over ``reps`` warm calls; None where the
-    profiler records none."""
+def profiled(fn, reps: int, word: str) -> list:
+    """The ``torch.profiler`` averages of the kernels whose names hold
+    ``word`` over ``reps`` warm calls of ``fn``."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -247,13 +248,32 @@ def device_ms(fn, reps: int, word: str):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = sum(getattr(ev, "device_time_total", 0) or 0
-                for ev in prof.key_averages() if word in ev.key)
-    if not total:
+    evs = [ev for ev in prof.key_averages()
+           if word in ev.key and getattr(ev, "device_time_total", 0)]
+    if not evs:
         print(f"device_ms: no device time under {word!r} in "
               f"{[ev.key[:60] for ev in prof.key_averages()]}",
               file=sys.stderr, flush=True)
+    return evs
+
+
+def device_ms(fn, reps: int, word: str):
+    """A kernel's own time a call on the card, without its wrapper's host
+    work: the device time of the kernels whose names hold ``word``
+    (``torch.profiler``), over ``reps`` warm calls; None where the
+    profiler records none."""
+    total = sum(ev.device_time_total for ev in profiled(fn, reps, word))
     return total / reps / 1e3 if total else None
+
+
+def launch_ms(fn, reps: int, word: str):
+    """A kernel's own time a launch: ``device_ms``'s device time over the
+    launches the profiler recorded rather than the calls made (late in a
+    long run it drops some, which a mean a call would count as zero);
+    None where it records none."""
+    evs = profiled(fn, reps, word)
+    n = sum(ev.count for ev in evs)
+    return sum(ev.device_time_total for ev in evs) / n / 1e3 if n else None
 
 
 def queued_ms(launch, reps: int) -> float:
@@ -2426,63 +2446,104 @@ def sharding_inputs():
 
 @contextlib.contextmanager
 def frontier_probe(target: int):
-    """Wrap K6's entry points and the ring's exchanges while a frontier
-    score runs: record the inputs of row ``target`` (H, G, scores and
-    the four received values) and sum the seconds spent in exchanges."""
+    """Wrap K6r's entry point and the ring's messages while a frontier
+    score runs: record the inputs of row ``target`` (H, G, the band, the
+    four received values; no row at world 1, where K6s sweeps the band in
+    one launch) and sum the seconds spent waiting for and posting
+    messages."""
     from prrn_aln_tpu_torch.ops import frontier as F
     rec = {"rows": 0, "exchange_s": 0.0, "row": None}
-    edges, scan, close, shift = (F.row_edges, F.row_scan, F.row_close,
-                                 F._Ring.shift)
+    row, ring_recv, ring_send = F.frontier_row, F._Ring.recv, F._Ring.send
 
-    def row_edges(H, G, s_row, hedge, gedge, u, v):
-        if rec["rows"] == target:
-            rec["row"] = {"H": H.clone(), "G": G.clone(),
-                          "s_row": s_row.clone(), "recv": [hedge, gedge]}
+    def frontier_row(H, G, a, b, mtx, recv, **kw):
+        if kw["m"] == target:
+            rec["row"] = {"H": H.clone(), "G": G.clone(), "a": a, "b": b,
+                          "mtx": mtx, "recv": recv, **kw}
         rec["rows"] += 1
-        return edges(H, G, s_row, hedge, gedge, u, v)
+        return row(H, G, a, b, mtx, recv, **kw)
 
-    def row_scan(X, xin, m, j0, lw, u, v):
-        if m == target:
-            rec["row"]["recv"].append(xin)
-            rec["row"].update(m=m, j0=j0, lw=lw, u=u, v=v)
-        return scan(X, xin, m, j0, lw, u, v)
+    def timed(fn):
+        def wrapped(self, *args):
+            t0 = time.perf_counter()
+            got = fn(self, *args)
+            rec["exchange_s"] += time.perf_counter() - t0
+            return got
+        return wrapped
 
-    def row_close(X, M, carry, m, j0, lw, W, lb, u):
-        if m == target:
-            rec["row"]["recv"].append(carry)
-            rec["row"].update(W=W, lb=lb)
-        return close(X, M, carry, m, j0, lw, W, lb, u)
-
-    def ring_shift(self, vals, step, fill):
-        t0 = time.perf_counter()
-        got = shift(self, vals, step, fill)
-        rec["exchange_s"] += time.perf_counter() - t0
-        return got
-
-    F.row_edges, F.row_scan, F.row_close = row_edges, row_scan, row_close
-    F._Ring.shift = ring_shift
+    F.frontier_row = frontier_row
+    F._Ring.recv, F._Ring.send = timed(ring_recv), timed(ring_send)
     try:
         yield rec
     finally:
-        F.row_edges, F.row_scan, F.row_close = edges, scan, close
-        F._Ring.shift = shift
+        F.frontier_row = row
+        F._Ring.recv, F._Ring.send = ring_recv, ring_send
 
 
-def k6_row_check(row: dict) -> dict:
-    """K6 on a recorded row against ``frontier_row_ref`` on the card:
-    H0 and G0 bit for bit."""
+def k6r_row_args(row: dict, dev) -> tuple:
+    """A recorded row's K6r arguments on ``dev``, and its scores as
+    ``band_rows`` packs them for the plain version."""
     from prrn_aln_tpu_torch.ops import frontier as F
-    kw = {k: row[k] for k in ("m", "j0", "lw", "W", "lb", "u", "v")}
-    args = (row["H"], row["G"], row["s_row"], tuple(row["recv"]))
+    kw = {k: row[k] for k in ("m", "j0", "lw", "W", "u", "v")}
+    a, b, mtx = (row[k].to(dev) for k in ("a", "b", "mtx"))
+    s_row = torch.as_tensor(F.band_rows(
+        row["a"][kw["m"]:kw["m"] + 1].cpu(), row["b"].cpu(),
+        kw["lw"] + kw["m"], row["mtx"].cpu(), row["H"].shape[0],
+        kw["j0"])[0], device=dev)
+    return (row["H"].to(dev), row["G"].to(dev), a, b, mtx,
+            tuple(row["recv"])), s_row, kw
+
+
+def k6r_row_check(row: dict, dev) -> dict:
+    """K6r on a recorded row against ``frontier_row_ref`` on the card:
+    H0, G0 and the four values the row sends, bit for bit."""
+    from prrn_aln_tpu_torch.ops import frontier as F
+    args, s_row, kw = k6r_row_args(row, dev)
     got = F.frontier_row(*args, **kw)
-    want = F.frontier_row_ref(*args, **kw)
+    H, G, a, b, mtx, recv = args
+    want = F.frontier_row_ref(H, G, s_row, recv, lb=b.shape[0], **kw)
     for x, y in zip(got, want):
         if not torch.equal(x.view(torch.int32), y.view(torch.int32)):
-            raise AssertionError(f"K6 != frontier_row_ref on row {row['m']} "
-                                 f"(j0 {row['j0']})")
-    return {"lanes": row["H"].shape[0], "m": row["m"], "j0": row["j0"],
+            raise AssertionError(f"K6r != frontier_row_ref on row {kw['m']} "
+                                 f"(j0 {kw['j0']})")
+    return {"lanes": H.shape[0], "m": kw["m"], "j0": kw["j0"],
             "max_abs_err": max(float((x - y).abs().max())
                                for x, y in zip(got, want))}
+
+
+def k6s_inputs(name: str, dev) -> tuple:
+    """K6s's arguments for a frontier pair of world 1, as
+    ``frontier_pairwise_score`` builds them on ``dev``."""
+    from prrn_aln_tpu_torch.ops import frontier as F
+    a, b, lw, up, u, v, fmtx = frontier_pairs()[name]
+    W = up - lw + 1
+    Wl = -(-W // F.LANE_QUANTUM) * F.LANE_QUANTUM
+    H, G = F.row_init(0, Wl, lw, up, u, v, dev)
+    band = tuple(torch.as_tensor(x, device=dev) for x in (a, b, fmtx))
+    return (H, G, *band), {"lw": lw, "W": W, "u": u, "v": v}
+
+
+def k6s_check(dev) -> dict:
+    """K6s against the plain sweep on the card on each frontier pair: the
+    last row's H and G bit for bit (the plain sweep of the 4 kb pair,
+    ~4,000 rows of small torch ops, is timed once here)."""
+    from prrn_aln_tpu_torch.ops import frontier as F
+    out = {}
+    for name in frontier_pairs():
+        args, kw = k6s_inputs(name, dev)
+        got = F.frontier_sweep(*args, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = F.frontier_sweep_ref(*args, **kw)
+        torch.cuda.synchronize()
+        for x, y in zip(got, want):
+            if not torch.equal(x.view(torch.int32), y.view(torch.int32)):
+                raise AssertionError(f"K6s != the plain sweep on {name}")
+        out[name] = {"lanes": args[0].shape[0], "rows": args[2].shape[0],
+                     "plan": F.sweep_plan(args[0].shape[0]),
+                     "plain_ms": 1e3 * (time.perf_counter() - t0),
+                     "max_abs_err": max(float((x - y).abs().max())
+                                        for x, y in zip(got, want))}
+    return out
 
 
 def multi_device_cases(group, dev) -> dict:
@@ -2490,9 +2551,10 @@ def multi_device_cases(group, dev) -> dict:
     group), each with the launch counts set to 0 just before it:
     the distance pass (K1, then K1f under ``PRRN_PW_FUSED=1``),
     ``group_align_batch`` (K2, K3), ``build_msa`` with ``prrn -R 0``'s
-    settings on ce13a17, and the frontier score of each pair, whose
-    middle row is recorded and held to the plain version after the run
-    (K6's launches there are not the run's)."""
+    settings on ce13a17, and the frontier score of each pair, with the
+    ring's message counts; where K6r runs (a ring), the middle row is
+    recorded and held to the plain version after the run (K6r's launches
+    there are not the run's)."""
     from prrn_aln_tpu_torch.ops import frontier as F
     mtx, seqs, pairs = sharding_inputs()
     out = {}
@@ -2537,9 +2599,11 @@ def multi_device_cases(group, dev) -> dict:
             run(name, lambda: F.frontier_pairwise_score(
                 a, b, lw, up, u, v, fmtx, group, device=dev))
         out[name].update(rows=rec["rows"], exchange_s=rec["exchange_s"],
-                         row_check=k6_row_check(rec["row"]))
-        out[name]["row"] = {k: (x.cpu() if torch.is_tensor(x) else x)
-                            for k, x in rec["row"].items()}
+                         ring=dict(F.LAST_RING))
+        if rec["row"] is not None:
+            out[name]["row_check"] = k6r_row_check(rec["row"], dev)
+            out[name]["row"] = {k: (x.cpu() if torch.is_tensor(x) else x)
+                                for k, x in rec["row"].items()}
     return out
 
 
@@ -2581,25 +2645,45 @@ def spawn_ranks(world: int, tmp: Path, dev) -> list[dict]:
             for r in range(world)]
 
 
-def k6_entry(alone: dict, dev) -> dict:
-    """K6 on the 4 kb pair's recorded middle row (world 1: one shard of
-    the whole band): its time a row (the three entry points through
-    their wrappers, CUDA events; and the three kernels' own device time,
-    ``torch.profiler``: queued launches would time the wrappers' host
-    work), the plain version's on the card, and the bound: a row's lanes
-    of H, G and scores read and of H0 and G0 written over the memory
-    rate (about 14 float operations a lane)."""
+def k6_entries(alone: dict, ranks2: list, dev) -> tuple[dict, dict]:
+    """K6s and K6r timed on the 4 kb pair (one NVIDIA card's CUDA events
+    around calls through the wrappers, and the kernels' own time: for
+    K6s, CUDA events around launches queued back to back, as
+    ``torch.profiler`` loses events late in a long run; for K6r, whose
+    launch costs more than its work, ``torch.profiler`` over the
+    launches it recorded), each against
+    its plain version and its bound:
+    K6s sweeping the band of world 1 (520 lanes, 4,000 rows: a, b, the
+    matrix and the first and last rows of H and G moved once, about 14
+    float operations a lane and row), K6r on rank 0's recorded middle row
+    of world 2 (its lanes of H and G read, H0 and G0 written, a[m], the
+    row's codes and the matrix row read, four values sent)."""
     from prrn_aln_tpu_torch.ops import frontier as F
-    row = alone["dna4k"]["row"]
-    kw = {k: row[k] for k in ("m", "j0", "lw", "W", "lb", "u", "v")}
-    args = (row["H"].to(dev), row["G"].to(dev), row["s_row"].to(dev),
-            tuple(row["recv"]))
-    Wl = row["H"].shape[0]
-    ms = time_ms(lambda: F.frontier_row(*args, **kw), 20)
-    return {"ms": ms, "device_ms": device_ms(
-                lambda: F.frontier_row(*args, **kw), 50, "frontier_"),
-            "plain_ms": time_ms(lambda: F.frontier_row_ref(*args, **kw), 5),
-            **bound(5 * 4 * Wl, 14 * Wl), "lanes": Wl}
+    checks = k6s_check(dev)
+    args, kw = k6s_inputs("dna4k", dev)
+    H, a, b, mtx = args[0], args[2], args[3], args[4]
+    la, Wl, K = a.shape[0], H.shape[0], mtx.shape[0]
+    ms = time_ms(lambda: F.frontier_sweep(*args, **kw), 20)
+    qms = queued_ms(lambda: F.frontier_sweep(*args, **kw), 20)
+    k6s = {"ms": ms, "queued_ms": qms, "ms_a_row": ms / la,
+           "queued_us_a_row": 1e3 * qms / la,
+           "plan": checks["dna4k"]["plan"], "lanes": Wl, "rows": la,
+           "plain_ms": checks["dna4k"]["plain_ms"],
+           "max_abs_err": max(c["max_abs_err"] for c in checks.values()),
+           **bound(4 * (la + b.shape[0] + K * K) + 4 * 4 * Wl,
+                   14 * Wl * la),
+           "world1_s": alone["dna4k"]["seconds"], "checks": checks}
+    rargs, s_row, rkw = k6r_row_args(ranks2[0]["dna4k"]["row"], dev)
+    H, G, a, b, mtx, recv = rargs
+    Wl = H.shape[0]
+    k6r = {"ms": time_ms(lambda: F.frontier_row(*rargs, **rkw), 50),
+           "device_ms": launch_ms(lambda: F.frontier_row(*rargs, **rkw), 50,
+                                  "frontier_row"),
+           "plain_ms": time_ms(lambda: F.frontier_row_ref(
+               H, G, s_row, recv, lb=b.shape[0], **rkw), 5),
+           **bound(4 * (1 + (Wl + 1) + K) + 4 * 4 * Wl + 4 * 4, 14 * Wl),
+           "lanes": Wl}
+    return k6s, k6r
 
 
 def phase_multi_device(dev) -> dict:
@@ -2608,10 +2692,14 @@ def phase_multi_device(dev) -> dict:
     each case equal to the run with no group (scores bit for bit, SKLs,
     the shard each rank took), ``build_msa`` on ce13a17 byte-identical to
     ``jax_prrn_ce13a17_clean_R0.txt``, each frontier score within 1e-3
-    relative of K1's on the pair, and K6 bit-equal to its plain version
-    on each rank's recorded middle row.  Prints each frontier run's ms a
-    row, K6 launches and the share of the wall spent in the exchanges.
-    The kernels are built before any rank starts."""
+    relative of K1's on the pair; at world 1 one K6s launch a score, its
+    last H and G bit-equal to the plain sweep; at world 2 one K6r launch
+    and one read of the four values it sends a row a rank, one message
+    each way a row toward a neighbour, and K6r bit-equal to its plain
+    version on each rank's recorded middle row.  Prints each frontier
+    run's ms a row, K6 launches and the share of the wall spent in the
+    ring's messages, then K6s's and K6r's times.  The kernels are built
+    before any rank starts."""
     import torch.distributed as dist
     _build.load()
     want_msa = (FIX / "jax_prrn_ce13a17_clean_R0.txt").read_text()
@@ -2639,7 +2727,23 @@ def phase_multi_device(dev) -> dict:
     def bits(x):
         return np.asarray(x, np.float32).view(np.int32).tolist()
 
-    out = {"alone": alone, "k1": k1, "k6": k6_entry(alone, dev)}
+    out = {"alone": alone, "k1": k1}
+    for name, (a, *_) in frontier_pairs().items():
+        for world, res in ((0, alone), (1, runs[1][0])):
+            if res[name]["launches"] != {"frontier_sweep": 1}:
+                raise AssertionError(f"{name} at world {world or 1}: "
+                                     f"{res[name]['launches']}")
+        for rank, res in enumerate(runs[2]):
+            la, ring = len(a), res[name]["ring"]
+            want = {"sent_left": la - 1 if rank else 0,
+                    "sent_right": 0 if rank else la,
+                    "recv_left": la if rank else 0,
+                    "recv_right": 0 if rank else la - 1,
+                    "rows": la, "reads": la}
+            if res[name]["launches"] != {"frontier_row": la} or \
+                    ring != want:
+                raise AssertionError(f"{name} at world 2, rank {rank}: "
+                                     f"{res[name]['launches']}, {ring}")
     for world, ranks in runs.items():
         for rank, res in enumerate(ranks):
             for key in ("scores", "scores_fused"):
@@ -2668,9 +2772,6 @@ def phase_multi_device(dev) -> dict:
                 if abs(got - k1[name]) > 1e-3 * max(1.0, abs(k1[name])):
                     raise AssertionError(f"{name}: frontier {got} against "
                                          f"K1's {k1[name]}")
-                if res[name]["launches"].get("frontier_row") != 3 * len(
-                        frontier_pairs()[name][0]):
-                    raise AssertionError(f"{name}: {res[name]['launches']}")
             emit({"phase": f"multi_device_w{world}_r{rank}",
                   "launches": {k: res[k]["launches"] for k in
                                ("scores", "scores_fused", "batch", "msa")},
@@ -2678,16 +2779,29 @@ def phase_multi_device(dev) -> dict:
                               ("scores", "scores_fused", "batch", "msa")},
                   "shard": res["batch"]["shard"], "frontier": {
                       name: {"score": res[name]["result"], "k1": k1[name],
-                             "rows": res[name]["rows"],
+                             "rows": len(frontier_pairs()[name][0]),
                              "seconds": res[name]["seconds"],
                              "ms_a_row": 1e3 * res[name]["seconds"]
-                             / res[name]["rows"],
+                             / len(frontier_pairs()[name][0]),
                              "exchange_share": res[name]["exchange_s"]
                              / res[name]["seconds"],
                              "launches": res[name]["launches"],
-                             "row_check": res[name]["row_check"]}
+                             "ring": res[name]["ring"],
+                             "row_check": res[name].get("row_check")}
                       for name in k1}})
         out[world] = ranks
+    out["k6s"], out["k6r"] = k6_entries(alone, runs[2], dev)
+    w2 = runs[2][0]["dna4k"]
+    emit({"phase": "multi_device_k6", "k6s": {
+              k: out["k6s"][k] for k in ("ms", "queued_ms", "ms_a_row",
+                                         "queued_us_a_row", "plain_ms",
+                                         "bound_ms", "plan", "checks")},
+          "k6r": out["k6r"], "dna4k_world1_s": alone["dna4k"]["seconds"],
+          "dna4k_world1_gloo_s": runs[1][0]["dna4k"]["seconds"],
+          "dna4k_world2_s": w2["seconds"],
+          "dna4k_world2_ms_a_row": 1e3 * w2["seconds"] / w2["rows"] if
+          w2["rows"] else None,
+          "dna4k_world2_exchange_share": w2["exchange_s"] / w2["seconds"]})
     print(card_line(), flush=True)
     return out
 
@@ -2780,14 +2894,18 @@ def main() -> int:
          "medium": aln_G["k5_medium"], "realistic": aln_G["realistic_k5"],
          "refgs": {"ok": aln_G["refgs_ok"],
                    "perturbed": aln_G["refgs_perturbed"]}},
+        {"name": "frontier_sweep", "route": "cuda",
+         "source": "prrn_aln_tpu_torch/csrc/frontier_sweep.cu",
+         "replaces": "prrn_aln_tpu/ops/frontier.py:51",
+         "launches": multi["alone"]["dna4k"]["launches"]["frontier_sweep"],
+         **{k: x for k, x in multi["k6s"].items() if k != "checks"}},
         {"name": "frontier_row", "route": "cuda",
-         "source": "prrn_aln_tpu_torch/csrc/frontier_row.cu",
+         "source": "prrn_aln_tpu_torch/csrc/frontier_sweep.cu",
          "replaces": "prrn_aln_tpu/ops/frontier.py:51",
          "launches": multi[2][0]["dna4k"]["launches"]["frontier_row"],
          "max_abs_err": max(r[name]["row_check"]["max_abs_err"]
-                            for ranks in (multi[1], multi[2]) for r in ranks
-                            for name in ("pair96", "dna4k")),
-         **multi["k6"],
+                            for r in multi[2] for name in ("pair96", "dna4k")),
+         **multi["k6r"],
          "world2_ms_a_row": 1e3 * multi[2][0]["dna4k"]["seconds"]
          / multi[2][0]["dna4k"]["rows"],
          "world2_exchange_share": multi[2][0]["dna4k"]["exchange_s"]

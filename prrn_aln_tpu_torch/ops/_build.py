@@ -49,9 +49,8 @@ _SIGNATURES = {
     "spliced_s_wave_scratch_words": [_int, _int],
     "spliced_s_wave_attrs": [_int, _vp],
     "spliced_s_wave_max_clusters": [_int] * 3 + [_vp],
-    "frontier_edges_launch": [_vp] * 5 + [_int] * 2 + [_flt] * 4 + [_vp],
-    "frontier_scan_launch": [_vp] * 2 + [_int] * 5 + [_flt] * 3 + [_vp],
-    "frontier_close_launch": [_vp] * 3 + [_int] * 7 + [_flt] * 2 + [_vp],
+    "frontier_sweep_launch": [_vp] * 7 + [_int] * 8 + [_flt] * 2 + [_vp],
+    "frontier_row_launch": [_vp] * 8 + [_int] * 8 + [_flt] * 6 + [_vp],
 }
 
 _lib = None

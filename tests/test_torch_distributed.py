@@ -100,8 +100,11 @@ def _cases(group) -> dict:
     msa = pipeline.build_msa(recs, randseed=0, nbatch=4, group=group,
                              device="cpu")
     out["msa"] = pio.write_native_block(msa)
-    out["frontier"] = {name: frontier.frontier_pairwise_score(
-        *_frontier_case(name), group, device="cpu") for name in FRONTIER}
+    out["frontier"], out["ring"] = {}, {}
+    for name in FRONTIER:
+        out["frontier"][name] = frontier.frontier_pairwise_score(
+            *_frontier_case(name), group, device="cpu")
+        out["ring"][name] = dict(frontier.LAST_RING)
     return out
 
 
@@ -222,6 +225,25 @@ def test_frontier_pairwise_score(world, name, alone, tmp_path_factory):
         torch.as_tensor(mtx), u, v, lw=np.array([lw]), up=np.array([up]),
         fused=False)[0])
     assert abs(got[0] - single) <= 1e-3 * max(1.0, abs(single))
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_frontier_ring_messages(world, alone, tmp_path_factory):
+    """The skewed ring: a rank receives each row's two values from the
+    left and each row's but the last from the right, sends as many the
+    other way, and reads the four values its row sends once a row; an
+    end rank sends nothing past the end.  With no group, no ring."""
+    for name in FRONTIER:
+        la = len(_frontier_case(name)[0])
+        assert alone["ring"][name] == {}
+        for rank, res in enumerate(_ranks(world, tmp_path_factory)):
+            left, right = rank > 0, rank < world - 1
+            assert res["ring"][name] == {
+                "sent_left": la - 1 if left else 0,
+                "sent_right": la if right else 0,
+                "recv_left": la if left else 0,
+                "recv_right": la - 1 if right else 0,
+                "rows": la, "reads": la}, (name, rank)
 
 
 def test_maybe_init_distributed(monkeypatch):

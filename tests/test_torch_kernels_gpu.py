@@ -1080,56 +1080,133 @@ def test_spliced_s_wrapper_rejects_what_k5_does_not_take(cuda_device):
         tss._launch_sweep_s(ins, {**plan, "ctas": 17})
 
 
-def _frontier_sweep(Wl, device, rows=12, seed=0):
+def _frontier_row_case(Wl, device, rows=12, seed=0):
     """A sweep of ``rows`` row steps on one rank's shard of ``Wl`` lanes
-    (the second shard: j0 = Wl), with random H, G, scores and received
-    values, u and v inexact in binary, the left column crossing lanes
-    5 .. 0 in rows 0 .. 5, and padding lanes past W in the shard."""
+    (the second shard: j0 = Wl), with random H, G, codes, matrix and
+    received values, u and v inexact in binary, the left column crossing
+    lanes 5 .. 0 in rows 0 .. 5, columns past the pair's end, and padding
+    lanes past W in the shard."""
     rng = np.random.default_rng(seed)
     j0 = Wl
     lw = -(j0 + 5)
-    kw = dict(j0=j0, lw=lw, W=j0 + max(1, Wl - 3), lb=j0 + lw + rows + Wl,
-              u=0.7111, v=3.3)
+    lb = j0 + lw + rows + Wl
+    kw = dict(j0=j0, lw=lw, W=j0 + max(1, Wl - 3), u=0.7111, v=3.3)
 
-    def f32(*shape, scale=20.0):
-        return torch.as_tensor(rng.normal(0, scale, shape).astype(np.float32),
-                               device=device)
-    H, G = f32(Wl), f32(Wl)
+    def t(x):
+        return torch.as_tensor(x, device=device)
+    H, G = (t(rng.normal(0, 20, Wl).astype(np.float32)) for _ in range(2))
+    band = (t(rng.integers(0, 24, rows).astype(np.int32)),
+            t(rng.integers(0, 24, lb).astype(np.int32)),
+            t(rng.normal(0, 2, (26, 26)).astype(np.float32)))
     recv = [tuple(float(x) for x in rng.normal(0, 20, 4).astype(np.float32))
             for _ in range(rows)]
-    return H, G, f32(rows, Wl, scale=3.0), recv, kw
+    return H, G, band, recv, kw
+
+
+def _same_bits(x, y):
+    return torch.equal(x.view(torch.int32), y.view(torch.int32))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("Wl", [1, 31, 32, 1024, 1025, 3000])
 def test_frontier_row_kernel_matches_plain(cuda_device, Wl):
-    """K6's three entry points against ``frontier_row_ref``, bit for bit,
-    row after row of a sweep."""
+    """K6r against ``frontier_row_ref`` on ``band_rows``' scores, bit for
+    bit (H0, G0 and the four values the row sends), row after row of a
+    sweep: one launch a row."""
     from prrn_aln_tpu_torch.ops import _build, frontier as tfr
-    H, G, s_rows, recv, kw = _frontier_sweep(Wl, cuda_device)
+    H, G, band, recv, kw = _frontier_row_case(Wl, cuda_device)
+    a, b, mtx = band
+    s_rows = torch.as_tensor(tfr.band_rows(a.cpu(), b.cpu(), kw["lw"],
+                                           mtx.cpu(), Wl, kw["j0"]),
+                             device=cuda_device)
     Hr, Gr = H.clone(), G.clone()
     before = _build.LAUNCHES["frontier_row"]
-    for m in range(s_rows.shape[0]):
-        H, G = tfr.frontier_row(H, G, s_rows[m], recv[m], m=m, **kw)
-        Hr, Gr = tfr.frontier_row_ref(Hr, Gr, s_rows[m], recv[m], m=m, **kw)
-        assert torch.equal(H.view(torch.int32), Hr.view(torch.int32)), m
-        assert torch.equal(G.view(torch.int32), Gr.view(torch.int32)), m
-    assert _build.LAUNCHES["frontier_row"] - before == 3 * s_rows.shape[0]
+    for m in range(a.shape[0]):
+        H, G, sends = tfr.frontier_row(H, G, a, b, mtx, recv[m], m=m, **kw)
+        Hr, Gr, want = tfr.frontier_row_ref(Hr, Gr, s_rows[m], recv[m], m=m,
+                                            lb=b.shape[0], **kw)
+        assert _same_bits(H, Hr), m
+        assert _same_bits(G, Gr), m
+        assert _same_bits(sends, want), m
+    assert _build.LAUNCHES["frontier_row"] - before == a.shape[0]
+
+
+# (u, v, matrix shift) of tests/test_torch_distributed.py's frontier pairs
+K6S_PAIRS = {"test_frontier": (2.0, 9.0, 0.0), "inexact": (0.7111, 3.3, 0.0),
+             "negative": (0.377, 5.123, -60.0)}
+
+
+def _k6s_case(Wl, name, device, la=48, seed=3):
+    """One rank's band of ``Wl`` lanes (W = Wl - 3: padding lanes past
+    W) on a seeded pair of ``la`` rows whose left column crosses the band
+    and whose right end leaves it; the virtual row's H and G, the codes
+    and the matrix on ``device``."""
+    u, v, shift = K6S_PAIRS[name]
+    rng = np.random.default_rng(seed)
+    lb = la + Wl // 2 + 5
+    W = max(1, Wl - 3)
+    lw = -min(la // 2, Wl // 2 + 2)
+    kw = dict(lw=lw, W=W, u=u, v=v)
+
+    def t(x):
+        return torch.as_tensor(x, device=device)
+    band = (t(rng.integers(0, 24, la).astype(np.int32)),
+            t(rng.integers(0, 24, lb).astype(np.int32)),
+            t((rng.normal(0, 2, (26, 26)) + shift).astype(np.float32)))
+    from prrn_aln_tpu_torch.ops import frontier as tfr
+    H, G = tfr.row_init(0, Wl, lw, lw + W - 1, u, v, device)
+    return H, G, band, kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(K6S_PAIRS))
+@pytest.mark.parametrize("Wl", [1, 31, 32, 257, 520, 1025, 3000, 8192])
+def test_frontier_sweep_kernel_matches_plain(cuda_device, Wl, name):
+    """K6s against ``frontier_sweep_ref`` on the card: the last row's H
+    and G bit for bit, in one launch (1, 2, 4 and 8 lanes a thread, up to
+    the widest band K6s takes)."""
+    from prrn_aln_tpu_torch.ops import _build, frontier as tfr
+    H, G, band, kw = _k6s_case(Wl, name, cuda_device)
+    before = _build.LAUNCHES["frontier_sweep"]
+    got = tfr.frontier_sweep(H, G, *band, **kw)
+    assert _build.LAUNCHES["frontier_sweep"] - before == 1
+    want = tfr.frontier_sweep_ref(H, G, *band, **kw)
+    assert _same_bits(got[0], want[0]) and _same_bits(got[1], want[1])
+    assert tfr.sweep_plan(Wl)["kernel"] == "sweep"
+
+
+@pytest.mark.gpu
+def test_frontier_plan_takes_k6r_past_k6s(cuda_device):
+    """One lane past the widest band K6s holds, the plan takes K6r, one
+    launch a row, and the rows equal the plain sweep bit for bit."""
+    from prrn_aln_tpu_torch.ops import _build, frontier as tfr
+    Wl = tfr.K6S_MAX_LANES + 1
+    assert tfr.sweep_plan(Wl - 1)["kernel"] == "sweep"
+    assert tfr.sweep_plan(Wl)["kernel"] == "row"
+    H, G, band, kw = _k6s_case(Wl, "inexact", cuda_device, la=24)
+    up = kw["lw"] + kw["W"] - 1
+    _build.LAUNCHES.clear()
+    got = tfr._rows(H, G, *band, None, j0=0, up=up, **kw)
+    assert dict(_build.LAUNCHES) == {"frontier_row": band[0].shape[0]}
+    want = tfr.frontier_sweep_ref(H, G, *band, **kw)[0]
+    assert _same_bits(got, want)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("la, lb, lw, up, u, v", [
     (96, 96, -40, 40, 2.0, 9.0), (300, 280, -150, 90, 0.7111, 3.3)])
 def test_frontier_score_on_card_equals_cpu(cuda_device, la, lb, lw, up, u, v):
-    """The whole score at world 1 (no exchange): K6 on the card, the plain
-    version on the CPU, the same bits."""
-    from prrn_aln_tpu_torch.ops import frontier as tfr
+    """The whole score at world 1 (no exchange): K6s on the card, in one
+    launch, the plain version on the CPU, the same bits."""
+    from prrn_aln_tpu_torch.ops import _build, frontier as tfr
     rng = np.random.default_rng(9)
     a = rng.integers(0, 24, la).astype(np.int32)
     b = rng.integers(0, 24, lb).astype(np.int32)
     mtx = rng.normal(0, 2, (26, 26)).astype(np.float32)
+    _build.LAUNCHES.clear()
     got = tfr.frontier_pairwise_score(a, b, lw, up, u, v, mtx,
                                       device=cuda_device)
+    assert dict(_build.LAUNCHES) == {"frontier_sweep": 1}
     want = tfr.frontier_pairwise_score(a, b, lw, up, u, v, mtx, device="cpu")
     assert np.float32(got).view(np.int32) == np.float32(want).view(np.int32)
 
@@ -1137,9 +1214,24 @@ def test_frontier_score_on_card_equals_cpu(cuda_device, la, lb, lw, up, u, v):
 @pytest.mark.gpu
 def test_frontier_wrapper_rejects_what_k6_does_not_take(cuda_device):
     from prrn_aln_tpu_torch.ops import frontier as tfr
-    H = torch.zeros(64, dtype=torch.float64, device=cuda_device)
+    H, G, (a, b, mtx), kw = _k6s_case(64, "inexact", cuda_device)
     with pytest.raises(ValueError, match="dtype"):
-        tfr.row_edges(H, H, H, 0.0, 0.0, 1.0, 2.0)
-    X = torch.zeros(64, dtype=torch.float32, device=cuda_device)
+        tfr.frontier_sweep(H.double(), G, a, b, mtx, **kw)
+    with pytest.raises(ValueError, match="dtype"):
+        tfr.frontier_row(H, G, a.long(), b, mtx, (0.0,) * 4, m=0, j0=0, **kw)
     with pytest.raises(ValueError, match="shape"):
-        tfr.row_close(X, X[:32], 0.0, 0, 0, -1, 64, 64, 1.0)
+        tfr.frontier_row(H, G[:32].contiguous(), a, b, mtx, (0.0,) * 4, m=0,
+                         j0=0, **kw)
+    with pytest.raises(ValueError, match="row"):
+        tfr.frontier_row(H, G, a, b, mtx, (0.0,) * 4, m=a.shape[0], j0=0,
+                         **kw)
+    with pytest.raises(ValueError, match="K6s holds"):
+        tfr.frontier_sweep(H, G, a, b, mtx, plan=tfr.sweep_plan(64, 2), **kw)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tfr.frontier_sweep(H, G, a, b, mtx,
+                           plan={"kernel": "sweep", "k": 1, "threads": 32},
+                           **kw)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tfr.frontier_sweep(H, G, a, b, mtx,
+                           plan={"kernel": "sweep", "k": 3, "threads": 64},
+                           **kw)
