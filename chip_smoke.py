@@ -112,17 +112,26 @@ Phases (each raises on failure, so the script exits non-zero):
    and the score and knots lastS and the traceback make of them), the
    plan the wrapper picks (the cluster variant) and the global variant,
    on the inputs gen1, gen2 and a medium gene (~600 nt x 3.3 kb, two
-   introns past 825 nt) give it (the plain sweep on the card for gen2,
+   introns past 825 nt) give it, and on the medium gene the chained
+   variant forced onto 5 clusters of 2 CTAs of 64 rows, in one launch
+   and in passes of 2 clusters (the plain sweep on the card for gen2,
    timed, on a CPU copy of the inputs for the others); each variant's
-   time, launch plan (variant, CTAs, rows a CTA, threads, rows a thread,
-   what sits in shared memory), microseconds a wave, registers and
-   spilled bytes;
+   time, launch plan (variant, clusters, CTAs a cluster, rows a CTA,
+   threads, rows a thread, clusters a launch, launches, what sits in
+   shared memory), microseconds a wave, registers and spilled bytes;
    (c) the realistic gene (``GENES``: 8 exons, 7 introns of 300-4,000
    nt, ~2.2 kb against ~18 kb): the ``aln -G`` wall cold and warm, the
    host traceback's seconds, peak device memory, the cluster variant's
    planes and final band against the global variant's on the card, bit
    for bit, and both variants' times, plans and microseconds a wave;
-   (d) ``refgs`` on the in-repo family (as annotated, and with ce13a1's
+   (d) the long gene (``GENES``: 12 exons, introns of 300-3,000 nt, a
+   ~6.2 kb cDNA against ~27 kb, past what one cluster holds): ``aln -G
+   -O 4`` cold and warm on the chained variant the wrapper picks (two or
+   more clusters, asserted), peak device memory, its planes, final band,
+   score and knots bit-equal to the global variant's and its output
+   equal to the run under the global plan, both variants' times, plans
+   and microseconds a wave, and the bound;
+   (e) ``refgs`` on the in-repo family (as annotated, and with ce13a1's
    second exon perturbed and the MSA rebuilt) and ``refgs_main``,
    against the fixtures ``jax_refgs_*.txt``, with the launches of K4,
    K4w, K1, K2 and K3; then the card line;
@@ -1926,7 +1935,11 @@ def phase_cli_modes() -> dict:
 ALN_G_MODES = {"O0": ["-O", "0"], "O2": ["-O", "2"], "O3": ["-O", "3"],
                "O4": ["-O", "4"], "O5": ["-O", "5"], "default": []}
 GENES = {"medium": (1, 3, (180, 220), (900, 1100), 300, 0.01),
-         "realistic": (0, 8, (150, 401), (300, 4001), 1000, 0.01)}
+         "realistic": (0, 8, (150, 401), (300, 4001), 1000, 0.01),
+         "long": (2, 12, (400, 601), (300, 3001), 1000, 0.01)}
+# phase 14's forced plans of K5's chained variant on the medium gene
+K5_CHAINED = {"clusters5": dict(ctas=2, clusters=5),
+              "passes2": dict(ctas=2, clusters=5, per_pass=2)}
 
 
 # fwd2h's long-intron gene: introns of lengths at which a penalty tail
@@ -2089,10 +2102,13 @@ def k5_plans(ins: SS.SweepInputsS) -> tuple[dict, dict]:
 
 
 def k5_launch(plan: dict, ins: SS.SweepInputsS, ms: float) -> dict:
-    """A K5 plan (variant, CTAs, rows a CTA, threads, rows a thread, what
-    sits in shared memory), microseconds a wave, and the kernel's
-    registers and spilled bytes."""
-    return {"variant": plan["variant"], "ctas": plan["ctas"],
+    """A K5 plan (variant, clusters, CTAs a cluster, rows a CTA, threads,
+    rows a thread, clusters a launch, launches, what sits in shared
+    memory), microseconds a wave, and the kernel's registers and spilled
+    bytes."""
+    return {"variant": plan["variant"], "clusters": plan["clusters"],
+            "ctas": plan["ctas"], "per_pass": plan["per_pass"],
+            "passes": plan["passes"],
             "rows_a_cta": plan["rows"], "threads": plan["threads"],
             "rows_a_thread": plan["rpt"],
             "rings_in_smem": plan["ring_smem"],
@@ -2109,15 +2125,91 @@ def k5_same(a: SS.SweepS, b: SS.SweepS) -> bool:
                for x, y in zip(a, b))
 
 
+def phase_aln_G_long(paths: tuple, introns: list) -> dict:
+    """Phase 14 (d): ``aln -G -O 4`` on the long gene (a cDNA past what one
+    cluster holds) cold and warm with the plan K5's wrapper picks, which
+    must chain two or more clusters; its planes, final band, score and
+    knots bit-equal to the global variant's, and its output equal to the
+    run under the global plan.  The planes (16 bytes a cell) sit on the
+    card one copy at a time: the chained variant's go to the host before
+    the global variant runs."""
+    walls = {}
+    calls = None
+    for run in ("cold", "warm"):
+        calls = None
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        calls, text, secs, counts = capture_aln_G(["-G", "-O", "4", *paths])
+        walls[run] = {"seconds": secs, "launches": counts,
+                      "traceback_s": calls["traceback_s"],
+                      "peak_mb": torch.cuda.max_memory_allocated() / 1e6}
+    (ins, sw), = calls["sweep"]
+    del calls
+    plan, gplan = k5_plans(ins)
+    if plan["variant"] != "chained" or plan["clusters"] < 2:
+        raise AssertionError(f"K5's plan on the long gene is {plan}")
+    if walls["warm"]["launches"].get("spliced_s_wave") != plan["passes"]:
+        raise AssertionError(f"aln -G on the long gene: {walls['warm']}")
+    bnd = k5_bound(ins, sw)
+    planes_mb = tensor_bytes(sw.ev, sw.jdon) / 1e6
+    host = SS.SweepS(*(x.cpu() for x in sw))
+    del sw
+    ms = time_ms(lambda: SS._launch_sweep_s(ins), 5)
+    gsw = SS._launch_sweep_s(ins, gplan)
+    if not k5_same(host, SS.SweepS(*(x.cpu() for x in gsw))):
+        raise AssertionError("K5's chained variant != its global variant on "
+                             "the long gene")
+    knots = SS.finish_s(ins, gsw)
+    del gsw
+    if SS.finish_s(ins, host) != knots:
+        raise AssertionError("K5's chained variant's score or knots != the "
+                             "global variant's on the long gene")
+    del host
+    gms = time_ms(lambda: SS._launch_sweep_s(ins, gplan), 3)
+    real = SS.launch_plan
+    SS.launch_plan = lambda rows, K, npen: SS.sweep_s_plan(
+        rows, K, npen, variant="global")
+    try:
+        gcalls, gtext, gsecs, gcounts = capture_aln_G(["-G", "-O", "4",
+                                                       *paths])
+    finally:
+        SS.launch_plan = real
+    del gcalls
+    if gtext != text:
+        raise AssertionError("aln -G on the long gene differs under the "
+                             "global plan")
+    rec = {"phase": "aln_G_long", "rows": ins.rows, "W": ins.W,
+           "genome": ins.lb, "waves": ins.waves,
+           "band_cells": ins.band_cells, "planes_mb": planes_mb,
+           "introns": introns, "output_lines": len(text.splitlines()),
+           "output_bytes": len(text), "walls": walls,
+           "global_plan_wall": {"seconds": gsecs, "launches": gcounts},
+           "global_equal": True, "knots": len(knots[1]),
+           "output_equal": True, "k5_ms": ms,
+           "k5_us_per_wave": ms * 1e3 / ins.waves,
+           "gcups": ins.band_cells / (ms * 1e6), "k5_bound": bnd,
+           "k5_launch": k5_launch(plan, ins, ms),
+           "k5_global": k5_launch(gplan, ins, gms)}
+    emit(rec)
+    return {"ms": ms, "us_per_wave": ms * 1e3 / ins.waves, "global_ms": gms,
+            "global_us_per_wave": gms * 1e3 / ins.waves, **bnd,
+            "waves": ins.waves, "rows": ins.rows,
+            "launches": walls["warm"]["launches"]["spliced_s_wave"],
+            "plan": {k: plan[k] for k in ("variant", "clusters", "ctas",
+                                          "rows", "passes")}}
+
+
 def phase_aln_G() -> dict:
     """Phase 14: ``aln -G`` (a cDNA against genomic DNA) on the card, and
     ``refgs``.  (a) gen1 and gen2 in every mode against the JAX f32
     engine's fixtures, K5 launched; (b) K5 against its plain version on
     gen1, gen2 and the medium gene (planes, final band, score and
-    knots); (c) the realistic gene, timed
-    only: the wall cold and warm, K5's time and microseconds a wave, the
-    host traceback's, peak device memory; (d) refgs on the in-repo family
-    against its fixtures, with the launches of K4, K4w, K1, K2 and K3."""
+    knots), the medium gene also on chained clusters forced small; (c)
+    the realistic gene, timed only: the wall cold and warm, K5's time and
+    microseconds a wave, the host traceback's, peak device memory; (d)
+    the long gene on chained clusters (``phase_aln_G_long``); (e) refgs
+    on the in-repo family against its fixtures, with the launches of K4,
+    K4w, K1, K2 and K3."""
     out = {"modes": {}}
     for case in (1, 2):
         for mode, flags in ALN_G_MODES.items():
@@ -2159,7 +2251,17 @@ def phase_aln_G() -> dict:
             else:
                 ins, sw = out[name]
             plan, gplan = k5_plans(ins)
-            chk = k5_check(name, ins, [sw, SS._launch_sweep_s(ins, gplan)],
+            # the medium gene also under chained plans forced small: 5
+            # clusters of 2 CTAs of 64 rows, in one launch and in passes
+            cplans = {}
+            if name == "medium":
+                cplans = {k: SS.sweep_s_plan(ins.rows, ins.mtx.shape[0],
+                                             ins.lb + 2, variant="chained",
+                                             **kw)
+                          for k, kw in K5_CHAINED.items()}
+            chk = k5_check(name, ins, [sw, SS._launch_sweep_s(ins, gplan),
+                                       *(SS._launch_sweep_s(ins, cp)
+                                         for cp in cplans.values())],
                            on_card=name == "gen2")
             ms = time_ms(lambda: SS._launch_sweep_s(ins), 5)
             gms = time_ms(lambda: SS._launch_sweep_s(ins, gplan), 5)
@@ -2168,6 +2270,9 @@ def phase_aln_G() -> dict:
                      "global_ms": gms}
             if "plain_cpu_ms" in chk:
                 entry["plain_cpu_ms"] = chk["plain_cpu_ms"]
+            for k, cp in cplans.items():
+                cms = time_ms(lambda c=cp: SS._launch_sweep_s(ins, c), 5)
+                entry[f"chained_{k}"] = k5_launch(cp, ins, cms)
             emit({"phase": f"k5_{name}", "rows": ins.rows, "W": ins.W,
                   "genome": ins.lb, "waves": ins.waves,
                   "band_cells": ins.band_cells, "planes_equal": True,
@@ -2216,7 +2321,9 @@ def phase_aln_G() -> dict:
                                    k: plan[k] for k in
                                    ("variant", "ctas", "rows")}}
         del calls, sw, ins
-        # (d) refgs on the in-repo family
+        # (d) the long gene on chained clusters
+        out["long_k5"] = phase_aln_G_long(out["long"], introns["long"])
+        # (e) refgs on the in-repo family
         from prrn_aln_tpu_torch import refgs as rg
         from prrn_aln_tpu_torch.cli import refgs_main
         from prrn_aln_tpu_torch.io import SeqRecord
@@ -2892,6 +2999,7 @@ def main() -> int:
          "launches": aln_G["modes"]["gen2_default"]["spliced_s_wave"],
          **{k: x for k, x in aln_G["k5_gen2"].items()},
          "medium": aln_G["k5_medium"], "realistic": aln_G["realistic_k5"],
+         "long": aln_G["long_k5"],
          "refgs": {"ok": aln_G["refgs_ok"],
                    "perturbed": aln_G["refgs_perturbed"]}},
         {"name": "frontier_sweep", "route": "cuda",

@@ -23,7 +23,7 @@
 // above that.
 //
 // What bounds it on the H100: the latency of one wave, times the waves.
-// Two variants, chosen by size (ops/spliced_s.py::sweep_s_plan):
+// Three variants, chosen by size (ops/spliced_s.py::sweep_s_plan):
 // - The cluster variant, up to 16 CTAs of up to 256 rows (4,096 rows):
 //   one row a thread, a slab of consecutive rows a CTA, the CTAs one
 //   thread-block cluster, so a wave's rows run on up to 16 SMs.  A row's
@@ -44,18 +44,40 @@
 //   and, where it fits, the penalty table by length.  The barrier's
 //   acquire empties L1: past what shared memory takes (a genome past
 //   ~54 kb), the penalty table is read from device memory.
-// - The global variant, past what a cluster holds: one block, rows
-//   spread over at most 1,024 threads (rows i, i + blockDim, ...), one
-//   __syncthreads a wave; a row keeps its horizontal carry in registers
-//   when its thread has one row, and in a global scratch (field by field,
-//   the row fastest) otherwise; each row keeps a ring of its last three
-//   waves' H (V, D, GA, GB, J) and G (V, GA, GB, J) records, in shared
-//   memory where they fit, else in the global scratch (a slot is
-//   overwritten three waves after its write, one barrier after its last
-//   read); the match score is gathered from the DNA matrix in shared
-//   memory, with pair53 beside it and the penalty table where it fits;
-//   the genome-position tables are read through the read-only cache.
-// Both write ev (rows, W), jdon (rows, W, 3) and the last row's H
+// - The chained variant, past what one cluster holds (a matrix of at
+//   most 256 codes): clusters of the cluster variant's shape over
+//   consecutive slabs of rows, each running one cluster's schedule from
+//   the wave its first row starts at, so the warps' skew carries on from
+//   cluster to cluster.  A cluster's first row reads the last row of the
+//   cluster before through a column in device memory, an entry a wave,
+//   behind a progress counter (release and acquire at gpu scope; see
+//   column_stage).  The clusters of a launch wait on each other, so a
+//   launch holds at most what cudaOccupancyMaxActiveClusters finds room
+//   for; past that the slabs run in passes, one launch each, a pass's
+//   first cluster reading the column the last pass finished.  A reader
+//   that waited for 0 to 128 waves more than it needs timed within
+//   0.4 % on the long, realistic and medium genes (512: ~1 % slower), so
+//   it waits for what it needs and no more; a cluster stalled for
+//   kStall cycles traps.  Fewer rows a CTA take a step sooner, so the
+//   plan spreads the rows to 64 a CTA over as many clusters as the card
+//   holds at once (the long gene: 57.3 ms as 7 x 14 CTAs x 64 rows, 58.1
+//   as 5 x 13 x 96, 59.4 as 4 x 13 x 128, 71.2 as 2 x 14 x 224; one pass
+//   more costs a pass's waves: 2 passes of 7 and 3 clusters 93.5 ms;
+//   tools/k5_bench.py, PERF.md §6).  Built apart (kChain) so that the
+//   one-cluster kernel carries no column code.
+// - The global variant, for a matrix past 256 codes (and the bench and
+//   the tests): one block, rows spread over at most 1,024 threads (rows
+//   i, i + blockDim, ...), one __syncthreads a wave; a row keeps its
+//   horizontal carry in registers when its thread has one row, and in a
+//   global scratch (field by field, the row fastest) otherwise; each row
+//   keeps a ring of its last three waves' H (V, D, GA, GB, J) and G (V,
+//   GA, GB, J) records, in shared memory where they fit, else in the
+//   global scratch (a slot is overwritten three waves after its write,
+//   one barrier after its last read); the match score is gathered from
+//   the DNA matrix in shared memory, with pair53 beside it and the
+//   penalty table where it fits; the genome-position tables are read
+//   through the read-only cache.
+// All write ev (rows, W), jdon (rows, W, 3) and the last row's H
 // records, which the host's lastS and traceback read.  Built with
 // -DK5_PROFILE, each thread sums clock64() cycles by section of a step
 // (tools/k5_bench.py --profile).
@@ -141,12 +163,16 @@ struct Params {
   const float* g0v;
   const int* g0i;
   const float* fprm;     // gop, gep
-  int* scratch;          // rings (unless in shared memory), then carries
+  int* scratch;          // rings (unless in shared memory), then carries;
+                         // chained: the boundaries' counters, then columns
   int* ev;               // (rows, W)
   int* jdon;             // (rows, W, 3)
   float* HV;             // (W + 2,): the last row's H, slots 1..W
   int* Hi;               // (4, W + 2)
   int la, lb, lw, up, a_exgl, a_exgr, K, rows, W, ring_smem, pen_smem;
+  // the cluster variant: CTAs a cluster, clusters in all, this launch's
+  // first cluster
+  int ctas, nclus, c0;
 };
 
 // the row's horizontal carry
@@ -677,6 +703,95 @@ __device__ __forceinline__ void ring_write(int* w, const Rec9& r) {
   *(int4*)(w + 8) = make_int4(r.gJ, 0, 0, 0);
 }
 
+// Chained clusters: a cluster's first row reads the previous cluster's
+// last row through device memory.  That row's records go into a column,
+// one entry of kBWords words a wave (every wave, not a ring), and its
+// progress counter, the last wave written, is stored with release at gpu
+// scope every kEvery steps.  The next cluster's first warp acquires the
+// counter at the start of a period, once the column's entries it holds
+// run short, until it shows what the warp needs.  Lanes 0 .. kEvery - 1 load
+// the next period's entries with ld.global.cg (the L2, never a stale L1
+// line), a period ahead of their use, and put them into a stage ring in
+// shared memory at the period's start; lane 0 then reads that ring as a
+// warp reads the ring of the warp above.
+constexpr int kCntStride = 32;  // a counter a 128-byte line
+constexpr int kDone = 0x7fffffff;
+constexpr long long kStall = 1LL << 35;  // cycles, ~17 s at 2 GHz
+
+__device__ __forceinline__ int ld_acquire(const int* q) {
+  int v;
+  asm volatile("ld.acquire.gpu.b32 %0, [%1];" : "=r"(v) : "l"(q) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* q, int v) {
+  asm volatile("st.release.gpu.b32 [%0], %1;" ::"l"(q), "r"(v) : "memory");
+}
+
+// Wait until the counter shows ``need``.  A reader whose writer makes no
+// progress for kStall cycles traps, so that a cluster the card does not
+// run (a card shared with another program) fails the launch instead of
+// hanging it.  Out of line: inlined, the spin made the long gene's
+// chained sweep ~1.7 % slower (tools/k5_bench.py; PERF.md §6).
+__device__ __noinline__ int column_spin(const int* cnt, int need, int avail) {
+  int seen = avail;
+  long long since = clock64();
+  do {
+    __nanosleep(64);
+    avail = ld_acquire(cnt);
+    if (avail != seen) {
+      seen = avail;
+      since = clock64();
+    } else if (clock64() - since > kStall) {
+      __trap();
+    }
+  } while (avail < need);
+  return avail;
+}
+
+struct Ent {
+  int4 a, b, c;
+};
+
+__device__ __forceinline__ Ent column_load(const int* col, int w, int T) {
+  const int* e = col + (size_t)min(max(w, 0), T) * kBWords;
+  return Ent{__ldcg((const int4*)e), __ldcg((const int4*)(e + 4)),
+             __ldcg((const int4*)(e + 8))};
+}
+
+__device__ __forceinline__ void stage_write(int* w, const Ent& x) {
+  *(int4*)w = x.a;
+  *(int4*)(w + 4) = x.b;
+  *(int4*)(w + 8) = x.c;
+}
+
+// The first warp of a cluster after the first, at the start of the period
+// whose first wave is t: the entries of waves t - 1 .. t + kEvery - 2 into
+// the stage ring, and those of the next period's into ``pre`` (lane l
+// holds wave t + kEvery - 1 + l).  The row above's cells end at wave
+// ``lastw``; ``avail`` is the counter's last value read.
+__device__ __forceinline__ void column_stage(const int* col, const int* cnt,
+                                             int* stage, int t, int T,
+                                             int lastw, bool first,
+                                             int& avail, Ent& pre) {
+  const int lane = threadIdx.x & 31;
+  if (!first && lane < kEvery)
+    stage_write(stage + ((t - 1 + lane) & (kRingD - 1)) * kBWords, pre);
+  if (lane == 0) {
+    const int need = min(t + 2 * kEvery - 2, lastw);
+    if (avail < need) avail = ld_acquire(cnt);
+    if (avail < need) avail = column_spin(cnt, need, avail);
+  }
+  __syncwarp();
+  if (lane < kEvery) {
+    if (first)
+      stage_write(stage + ((t - 1 + lane) & (kRingD - 1)) * kBWords,
+                  column_load(col, t - 1 + lane, T));
+    pre = column_load(col, t + kEvery - 1 + lane, T);
+  }
+  __syncwarp();
+}
+
 // what the rows read at genome position q, packed into the ring
 __device__ __forceinline__ void load_position(const Params& p, int* pr,
                                               int q) {
@@ -911,20 +1026,29 @@ __device__ __forceinline__ Rec9 cell_c(const Params& p, CarryC& c, int i,
 }
 
 // The cluster variant: one row a thread, a slab of consecutive rows a
-// CTA (blockDim.x, whole warps), the CTAs one cluster.  Shared memory: the
-// warps' boundary rings, the position ring, the matrix, pair53 and, if
-// pen_smem, the penalty table by length.
+// CTA (blockDim.x, whole warps), p.ctas CTAs a cluster; chained, the
+// clusters hold consecutive slabs of p.ctas * blockDim.x rows, cluster
+// p.c0 + blockIdx.x / p.ctas of this launch.  Each cluster runs the
+// schedule of one cluster from the wave its first row starts at, so the
+// warps' skew carries on from cluster to cluster.  Shared memory: the
+// warps' boundary rings (and, chained, the stage ring of the column),
+// the position ring, the matrix, pair53 and, if pen_smem, the penalty
+// table by length.  kChain: the chained variant (several clusters);
+// without it the kernel is one cluster's, with no column code.
+template <bool kChain>
 __global__ void __launch_bounds__(kRowsMaxC, 1)
     spliced_s_wave_cluster(Params p) {
   extern __shared__ __align__(16) int smc[];
   const int R = blockDim.x, nw = R >> 5;
   const int rank = (int)cg::this_cluster().block_rank();
   const int lane = threadIdx.x & 31, wl = threadIdx.x >> 5;
-  const int i = rank * R + threadIdx.x;
-  const int g = i >> 5;
+  const int kc = kChain ? p.c0 + (int)blockIdx.x / p.ctas : 0;
+  const int i0 = kc * p.ctas * R;
+  const int i = i0 + rank * R + threadIdx.x;
+  const int g = (rank * R + threadIdx.x) >> 5;
   const int RT = p.rows, W = p.W, K = p.K;
   int* const br = smc;
-  int* const pr = br + nw * kRingD * kBWords;
+  int* const pr = br + (nw + (kChain ? 1 : 0)) * kRingD * kBWords;
   float* const mtx = (float*)(pr + 3 * kPosRing);
   float* const p53 = mtx + K * K;
   float* const pen_s = p53 + 256;
@@ -942,16 +1066,38 @@ __global__ void __launch_bounds__(kRowsMaxC, 1)
   else if (rank > 0)
     above = cg::this_cluster().map_shared_rank(br, rank - 1) +
             (nw - 1) * kRingD * kBWords;
+  else if (kChain && kc > 0)
+    above = br + nw * kRingD * kBWords;
+  const int T = 2 * (RT - 1) + W;
+  // chained: the column this cluster's first warp reads, and the one its
+  // last warp's last row writes
+  const size_t colw = (size_t)(T + 1) * kBWords;
+  int* const col = p.scratch + (size_t)(p.nclus - 1) * kCntStride;
+  const bool reader = kChain && kc > 0 && rank == 0 && wl == 0;
+  const bool writer =
+      kChain && kc < p.nclus - 1 && rank == p.ctas - 1 && wl == nw - 1;
+  const int* const col_in = reader ? col + (kc - 1) * colw : nullptr;
+  const int* const cnt_in = reader ? p.scratch + (kc - 1) * kCntStride
+                                   : nullptr;
+  int* const col_out = writer ? col + kc * colw : nullptr;
+  int* const cnt_out = writer ? p.scratch + kc * kCntStride : nullptr;
+  // the cluster's step s takes wave s + tbase in its first warp: its first
+  // row's first cell at s = 3 (s = 1 in the first cluster), two steps
+  // after the first read of the column
+  const int tbase = kc > 0 ? 2 * i0 - 2 : 0;
+  const int lastw = 2 * i0 + W - 2;
+  int avail = 0;
+  Ent pre{};
   // row i at wave t reads genome position n = t - i + lw - 1 + m_start;
   // the slab's highest at step s is head(s) = s + hoff (its first row)
   const int m0 = p.a_exgl ? 1 : 0;
-  const int hoff = p.lw - 1 + m0 - rank * nw * kSkew - rank * R;
+  const int hoff = tbase + p.lw - 1 + m0 - i0 - rank * nw * kSkew - rank * R;
   for (int q = 1 + hoff + kEvery - (kPosRing - kLoad) + (int)threadIdx.x;
        q < 1 + hoff + kEvery; q += R)
     load_position(p, pr, q);
 
-  const int T = 2 * (RT - 1) + W;
-  const int s_last = T + ((int)gridDim.x * nw - 1) * kSkew;
+  const int t_end = min(T, 2 * (min(i0 + p.ctas * R, RT) - 1) + W);
+  const int s_last = t_end - tbase + (p.ctas * nw - 1) * kSkew;
   const float gop = p.fprm[0], gep = p.fprm[1];
   const int m = i + m0;
   const float* const mrow =
@@ -988,12 +1134,15 @@ __global__ void __launch_bounds__(kRowsMaxC, 1)
 
   for (int s = 1; s <= s_last; ++s) {
     const int ph = (s - 1) % kEvery;
-    const int t = s - g * kSkew;
+    const int t = s + tbase - g * kSkew;
     __syncwarp();
     if (ph == 0 && s > 1) cluster_wait();
     pf.mark(kSecWait);
     if (wl == 0 && (s - 1) % kLoad == 0)
       load_position(p, pr, s + hoff + kEvery + lane);
+    if (reader && ph == 0)
+      column_stage(col_in, cnt_in, br + nw * kRingD * kBWords, t, T, lastw,
+                   s == 1, avail, pre);
     if (t >= 1 && t <= T) {
       // the row above's records: wave t - 2 kept from the last step,
       // wave t - 1 from lane l - 1 or the ring above
@@ -1013,7 +1162,10 @@ __global__ void __launch_bounds__(kRowsMaxC, 1)
         pf.mark(kSecRead);
         mine = cell_c(p, c, i, sl, n, d, u, pw, sj, s3, mrow, p53, pen, gop,
                       gep, pf);
-        if (lane == 31) ring_write(own + (t & (kRingD - 1)) * kBWords, mine);
+        if (lane == 31) {
+          ring_write(own + (t & (kRingD - 1)) * kBWords, mine);
+          if (writer) ring_write(col_out + (size_t)t * kBWords, mine);
+        }
         pf.mark(kSecRing);
       }
       pf.mark(kSecIdle);
@@ -1022,8 +1174,12 @@ __global__ void __launch_bounds__(kRowsMaxC, 1)
         i0u = init_rec(p, min(t + 2, W + 1));
       }
     }
-    if (ph == kEvery - 1) cluster_arrive();
+    if (ph == kEvery - 1) {
+      cluster_arrive();
+      if (writer && lane == 31 && t >= 1) st_release(cnt_out, t);
+    }
   }
+  if (writer && lane == 31) st_release(cnt_out, kDone);
   // no CTA leaves while the next one may still read its ring
   if ((s_last - 1) % kEvery != kEvery - 1) cluster_arrive();
   cluster_wait();
@@ -1047,17 +1203,19 @@ extern "C" int k5_profile_read(void* out, int clear) {
 
 namespace {
 
-size_t cluster_smem(int threads, int K, int lb, int pen_smem) {
-  return ((size_t)(threads / 32) * kRingD * kBWords + 3 * kPosRing +
-          (size_t)K * K + 256 + (pen_smem ? (size_t)lb + 2 : 0)) *
+size_t cluster_smem(int threads, int K, int lb, int pen_smem, int chain) {
+  return ((size_t)(threads / 32 + (chain ? 1 : 0)) * kRingD * kBWords +
+          3 * kPosRing + (size_t)K * K + 256 +
+          (pen_smem ? (size_t)lb + 2 : 0)) *
          sizeof(int);
 }
 
-cudaLaunchConfig_t cluster_config(int ctas, int threads, int smem,
-                                  cudaLaunchAttribute* attr,
+// a launch of ``clusters`` clusters of ``ctas`` CTAs
+cudaLaunchConfig_t cluster_config(int clusters, int ctas, int threads,
+                                  int smem, cudaLaunchAttribute* attr,
                                   cudaStream_t s) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(ctas, 1, 1);
+  cfg.gridDim = dim3(clusters * ctas, 1, 1);
   cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
@@ -1070,12 +1228,18 @@ cudaLaunchConfig_t cluster_config(int ctas, int threads, int smem,
   return cfg;
 }
 
-cudaError_t cluster_attributes(int smem) {
+// the cluster variant's kernel, or the chained variant's
+const void* cluster_kernel(int chain) {
+  return chain ? (const void*)spliced_s_wave_cluster<true>
+               : (const void*)spliced_s_wave_cluster<false>;
+}
+
+cudaError_t cluster_attributes(int chain, int smem) {
   cudaError_t err = cudaFuncSetAttribute(
-      spliced_s_wave_cluster, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      cluster_kernel(chain), cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(spliced_s_wave_cluster,
+  return cudaFuncSetAttribute(cluster_kernel(chain),
                               cudaFuncAttributeNonPortableClusterSizeAllowed,
                               1);
 }
@@ -1083,20 +1247,21 @@ cudaError_t cluster_attributes(int smem) {
 }  // namespace
 
 // How many clusters of ``ctas`` CTAs of ``threads`` threads and ``smem``
-// bytes the card can hold at once (cudaOccupancyMaxActiveClusters) into
-// out[0]: 0 where it cannot hold one.
+// bytes of the cluster variant's kernel (the chained variant's if
+// ``chain``) the card can hold at once (cudaOccupancyMaxActiveClusters)
+// into out[0]: 0 where it cannot hold one.
 extern "C" int spliced_s_wave_max_clusters(int ctas, int threads, int smem,
-                                           void* out) {
+                                           int chain, void* out) {
   if (ctas < 1 || ctas > kClusterMax || threads < 32 ||
       threads > kRowsMaxC || smem > kSmemMax)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cluster_attributes(smem);
+  cudaError_t err = cluster_attributes(chain, smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
-      cluster_config(ctas, threads, smem, &attr, nullptr);
-  return (int)cudaOccupancyMaxActiveClusters(
-      (int*)out, (const void*)spliced_s_wave_cluster, &cfg);
+      cluster_config(1, ctas, threads, smem, &attr, nullptr);
+  return (int)cudaOccupancyMaxActiveClusters((int*)out, cluster_kernel(chain),
+                                             &cfg);
 }
 
 // words of global scratch a row: its rings unless they sit in shared
@@ -1105,14 +1270,29 @@ extern "C" int spliced_s_wave_scratch_words(int ring_smem, int multi) {
   return (ring_smem ? 0 : kRingWords) + (multi ? kStateWords : 0);
 }
 
-// The plan of ops/spliced_s.py::sweep_s_plan.  ``cluster``: ``ctas``
-// CTAs of ``threads`` rows in one cluster, ``smem`` bytes of shared memory a CTA (the rings, the position ring,
-// the matrix, pair53 and, if ``pen_smem``, the penalty table).  Else the
-// global variant: one block of ``threads`` threads of ``rpt`` rows each,
-// ``smem`` bytes of shared memory (the matrix and pair53, then the rings
-// if ``ring_smem`` and the penalty table if ``pen_smem``).  A launch
-// either variant refuses returns its error; neither stands in for the
-// other.
+// words of global scratch of ``clusters`` chained clusters over ``rows``
+// rows and ``W`` slots: a counter (a 128-byte line) and a column of an
+// entry a wave for each boundary; -1 past 2**31 words.  The counters must
+// be zero at the launch.
+extern "C" int spliced_s_wave_chain_words(int clusters, int rows, int W) {
+  if (clusters <= 1) return 0;
+  const long long n = (long long)(clusters - 1) *
+                      (kCntStride + (2LL * (rows - 1) + W + 1) * kBWords);
+  return n < (1LL << 31) ? (int)n : -1;
+}
+
+// The plan of ops/spliced_s.py::sweep_s_plan.  ``cluster``: ``clusters``
+// clusters of ``ctas`` CTAs of ``threads`` rows, run ``per_pass``
+// clusters a launch (each pass's clusters at once on the card: at most
+// what cudaOccupancyMaxActiveClusters finds room for, or the launch is
+// refused), ``smem`` bytes of shared memory a CTA (the rings, the stage
+// ring if chained, the position ring, the matrix, pair53 and, if
+// ``pen_smem``, the penalty table); ``scratch`` holds
+// spliced_s_wave_chain_words words, counters zero.  Else the global variant: one block of ``threads`` threads of
+// ``rpt`` rows each, ``smem`` bytes of shared memory (the matrix and
+// pair53, then the rings if ``ring_smem`` and the penalty table if
+// ``pen_smem``).  A launch either variant refuses returns its error;
+// neither stands in for the other.
 extern "C" int spliced_s_wave_launch(
     const void* a, const void* b, const void* mtx, const void* cano3,
     const void* cano5, const void* sig5, const void* dinc5,
@@ -1121,7 +1301,7 @@ extern "C" int spliced_s_wave_launch(
     const void* fprm, void* scratch, void* ev, void* jdon, void* HV,
     void* Hi, int la, int lb, int lw, int up, int a_exgl, int a_exgr, int K,
     int cluster, int ctas, int threads, int rpt, int ring_smem, int pen_smem,
-    int smem, void* stream) {
+    int smem, int clusters, int per_pass, void* stream) {
   Params p;
   p.a = (const int*)a;
   p.b = (const int*)b;
@@ -1156,23 +1336,52 @@ extern "C" int spliced_s_wave_launch(
   p.ring_smem = ring_smem;
   p.pen_smem = pen_smem;
   cudaStream_t s = (cudaStream_t)stream;
+  p.ctas = ctas;
+  p.nclus = clusters;
   if (cluster) {
+    const size_t rows_c = (size_t)ctas * threads;
     if (p.rows < 1 || p.W < 1 || lb < 1 || K > 256 ||
         ring_smem || ctas < 1 || ctas > kClusterMax || threads < 32 ||
-        threads > kRowsMaxC || threads % 32 != 0 ||
-        (size_t)ctas * threads < (size_t)p.rows ||
-        cluster_smem(threads, K, lb, pen_smem) != (size_t)smem ||
-        smem > kSmemMax)
+        threads > kRowsMaxC || threads % 32 != 0 || clusters < 1 ||
+        per_pass < 1 || rows_c * clusters < (size_t)p.rows ||
+        rows_c * (clusters - 1) >= (size_t)p.rows ||
+        cluster_smem(threads, K, lb, pen_smem, clusters > 1) !=
+            (size_t)smem ||
+        smem > kSmemMax || (clusters > 1 && scratch == nullptr))
       return (int)cudaErrorInvalidValue;
-    cudaError_t err = cluster_attributes(smem);
+    const int chain = clusters > 1;
+    cudaError_t err = cluster_attributes(chain, smem);
     if (err != cudaSuccess) return (int)err;
-    cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg =
-        cluster_config(ctas, threads, smem, &attr, s);
-    err = cudaLaunchKernelEx(&cfg, spliced_s_wave_cluster, p);
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaGetLastError();
+    // a cluster waits on the one before it: every cluster of a launch must
+    // be on the card at once
+    const int most = per_pass < clusters ? per_pass : clusters;
+    if (most > 1) {
+      int held = 0;
+      cudaLaunchAttribute attr;
+      const cudaLaunchConfig_t cfg =
+          cluster_config(1, ctas, threads, smem, &attr, s);
+      err = cudaOccupancyMaxActiveClusters(&held, cluster_kernel(chain),
+                                           &cfg);
+      if (err != cudaSuccess) return (int)err;
+      if (held < most) return (int)cudaErrorCooperativeLaunchTooLarge;
+    }
+    // the passes: a pass's first cluster reads a column the last pass
+    // finished
+    for (int c0 = 0; c0 < clusters; c0 += per_pass) {
+      p.c0 = c0;
+      const int n = clusters - c0 < per_pass ? clusters - c0 : per_pass;
+      cudaLaunchAttribute attr;
+      const cudaLaunchConfig_t cfg =
+          cluster_config(n, ctas, threads, smem, &attr, s);
+      err = chain ? cudaLaunchKernelEx(&cfg, spliced_s_wave_cluster<true>, p)
+                  : cudaLaunchKernelEx(&cfg, spliced_s_wave_cluster<false>, p);
+      if (err != cudaSuccess) return (int)err;
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+    return 0;
   }
+  p.c0 = 0;
   const size_t need =
       ((size_t)K * K + 256 + (ring_smem ? (size_t)kRingWords * p.rows : 0) +
        (pen_smem ? (size_t)lb + 2 : 0)) *
@@ -1180,7 +1389,7 @@ extern "C" int spliced_s_wave_launch(
   if (p.rows < 1 || p.W < 1 || lb < 1 || threads < 1 ||
       threads > kThreadsMax || rpt < 1 || (size_t)threads * rpt < (size_t)p.rows ||
       (rpt == 1) != (threads >= p.rows) || need != (size_t)smem ||
-      smem > kSmemMax || ctas != 1)
+      smem > kSmemMax || ctas != 1 || clusters != 1 || per_pass != 1)
     return (int)cudaErrorInvalidValue;
   if (rpt == 1) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -1200,11 +1409,11 @@ extern "C" int spliced_s_wave_launch(
 
 // registers a thread and local (spilled) bytes of a kernel: the global
 // variant's one-row (variant 0) or several-rows (1) kernel, or the
-// cluster variant's (2)
+// cluster variant's (2) or the chained variant's (3)
 extern "C" int spliced_s_wave_attrs(int variant, void* out) {
   cudaFuncAttributes at;
   const cudaError_t err =
-      variant == 2   ? cudaFuncGetAttributes(&at, spliced_s_wave_cluster)
+      variant >= 2   ? cudaFuncGetAttributes(&at, cluster_kernel(variant == 3))
       : variant == 1 ? cudaFuncGetAttributes(&at, spliced_s_wave_kernel<false>)
                      : cudaFuncGetAttributes(&at, spliced_s_wave_kernel<true>);
   if (err != cudaSuccess) return (int)err;

@@ -45,10 +45,11 @@ _SIGNATURES = {
     "spliced_h_wave_scratch_words": [],
     "spliced_h_walk_launch": [_vp] * 3 + [_int] * 10 + [_vp],
     "spliced_h_walk_attrs": [_vp],
-    "spliced_s_wave_launch": [_vp] * 21 + [_int] * 14 + [_vp],
+    "spliced_s_wave_launch": [_vp] * 21 + [_int] * 16 + [_vp],
     "spliced_s_wave_scratch_words": [_int, _int],
+    "spliced_s_wave_chain_words": [_int] * 3,
     "spliced_s_wave_attrs": [_int, _vp],
-    "spliced_s_wave_max_clusters": [_int] * 3 + [_vp],
+    "spliced_s_wave_max_clusters": [_int] * 4 + [_vp],
     "frontier_sweep_launch": [_vp] * 7 + [_int] * 8 + [_flt] * 2 + [_vp],
     "frontier_row_launch": [_vp] * 8 + [_int] * 8 + [_flt] * 6 + [_vp],
 }

@@ -478,11 +478,16 @@ def sweep_s(ins: SweepInputsS) -> SweepS:
 # (the non-portable most); shared memory a CTA holds a ring of
 # K5_RING_DEPTH waves of K5_BOUNDARY_WORDS words a warp, K5_POS_WORDS
 # words of genome-position tables, the matrix, pair53 and, where it fits,
-# the penalty table.  The global variant: one block of at most
-# K5_THREADS threads, rows spread over them (rows i, i + threads, ...);
-# the matrix and pair53 in shared memory, then the rows' H and G rings
-# (K5_RING_WORDS words a row) and the penalty table where they fit.  At
-# most K5_SMEM_MAX bytes a CTA.
+# the penalty table.  The chained variant: the cluster variant over
+# several clusters of consecutive rows, each cluster's first row reading
+# the last row of the one before through a column in device memory (one
+# more ring a CTA stages it), its rows spread over as many clusters as
+# the card holds at once, down to K5_CHAIN_ROWS rows a CTA (fewer warps
+# an SM take a step sooner: tools/k5_bench.py; PERF.md §6).  The global
+# variant: one block of at most K5_THREADS threads, rows spread
+# over them (rows i, i + threads, ...); the matrix and pair53 in shared
+# memory, then the rows' H and G rings (K5_RING_WORDS words a row) and
+# the penalty table where they fit.  At most K5_SMEM_MAX bytes a CTA.
 K5_ROWS_MAX = 256
 K5_CLUSTER_MAX = 16
 K5_RING_DEPTH = 16
@@ -491,48 +496,82 @@ K5_POS_WORDS = 3 * 512
 K5_THREADS = 1024
 K5_RING_WORDS = 27
 K5_SMEM_MAX = 232448
+K5_CHAIN_ROWS = 64
 
 
 def sweep_s_plan(rows: int, K: int, npen: int, *, variant: str | None = None,
                  ctas: int | None = None, pen_smem: bool | None = None,
-                 cluster_max: int = K5_CLUSTER_MAX) -> dict:
+                 cluster_max: int = K5_CLUSTER_MAX,
+                 clusters: int | None = None, held: int | None = None,
+                 per_pass: int | None = None) -> dict:
     """K5's launch for ``rows`` cDNA rows, a K x K matrix and a penalty
-    table of ``npen`` lengths: the variant, CTAs, rows a CTA (its
-    threads), rows a thread, which of the rings and the penalty table sit
-    in shared memory, and shared bytes a CTA.
+    table of ``npen`` lengths: the variant, clusters, CTAs a cluster, rows
+    a CTA (its threads), rows a thread, clusters a launch and launches
+    (passes), which of the rings and the penalty table sit in
+    shared memory, and shared bytes a CTA.
 
     Up to ``cluster_max`` * K5_ROWS_MAX rows (the most CTAs a cluster the
     card holds, K5_CLUSTER_MAX at most) the cluster variant takes them,
     one row a thread, in slabs of whole warps: by default the smallest
     slab that ``cluster_max`` CTAs hold, over as few CTAs as that slab
     needs, and the penalty table in shared memory where it fits.  Past
-    that the global variant takes them in one block (``threads`` threads
-    of ``rpt`` rows; its ``rows`` is all the rows).  ``variant``,
-    ``ctas`` and ``pen_smem`` ask for a plan, as the bench and the tests
-    do; a plan the kernels cannot take raises."""
+    that (a matrix of at most 256 codes) the chained variant takes them
+    on clusters of ``cluster_max`` CTAs: enough for K5_CHAIN_ROWS rows a
+    CTA, but no more than ``held`` (what the card holds at once, unbounded
+    if None) unless fewer cannot hold the rows; the rows spread evenly
+    over the clusters' CTAs in whole warps, at most ``held`` clusters a
+    launch.  The global variant takes the rows of a
+    larger matrix in one block (``threads`` threads of ``rpt`` rows; its
+    ``rows`` is all the rows).  ``variant``, ``ctas``, ``clusters``,
+    ``per_pass`` and ``pen_smem`` ask for a plan, as the bench
+    and the tests do; a plan the kernels cannot take raises."""
     cluster_max = min(cluster_max, K5_CLUSTER_MAX)
     if variant is None:
-        variant = ("cluster" if rows <= cluster_max * K5_ROWS_MAX
-                   and K <= 256 else "global")
+        variant = ("global" if K > 256 else "cluster"
+                   if rows <= cluster_max * K5_ROWS_MAX else "chained")
     base = 4 * (K * K + 256)
-    if variant == "cluster":
+    if variant in ("cluster", "chained"):
+        chained = variant == "chained"
+        if clusters is None and chained:
+            least = max(-(-rows // (cluster_max * K5_ROWS_MAX)), 2)
+            clusters = max(-(-rows // (cluster_max * K5_CHAIN_ROWS)), 2)
+            if held is not None:
+                clusters = max(min(clusters, held), least)
+        elif clusters is None:
+            clusters = 1
         if ctas is None:
             ctas = cluster_max
-        rows_cta = (-(-rows // max(ctas, 1)) + 31) // 32 * 32
-        if (not 1 <= ctas <= cluster_max or rows_cta > K5_ROWS_MAX
-                or rows < 1 or K > 256):
-            raise ValueError(f"K5's cluster variant cannot take {rows} rows "
-                             f"over {ctas} CTAs")
-        smem = base + 4 * (rows_cta // 32 * K5_RING_DEPTH
+        if (not 1 <= ctas <= cluster_max or rows < 1 or K > 256
+                or clusters < 1):
+            raise ValueError(f"K5's {variant} variant cannot take {rows} "
+                             f"rows over {clusters} x {ctas} CTAs")
+        # the smallest slab in whole warps that the clusters' CTAs hold,
+        # over as few CTAs and clusters as it needs: every cluster has rows
+        rows_cta = (-(-rows // (clusters * ctas)) + 31) // 32 * 32
+        cpc = -(-rows // (clusters * rows_cta))
+        nclus = -(-rows // (cpc * rows_cta))
+        if rows_cta > K5_ROWS_MAX or (nclus > 1) != chained:
+            raise ValueError(f"K5's {variant} variant cannot take {rows} "
+                             f"rows over {clusters} x {ctas} CTAs")
+        if held is not None and held < 1:
+            raise ValueError("the card holds no cluster of K5's plan")
+        per = nclus if per_pass is None else per_pass
+        if held is not None:
+            per = min(per, held)
+        if per < 1:
+            raise ValueError(f"K5 cannot run {per_pass} clusters a launch")
+        per = min(per, nclus)
+        smem = base + 4 * ((rows_cta // 32 + chained) * K5_RING_DEPTH
                            * K5_BOUNDARY_WORDS + K5_POS_WORDS)
         if pen_smem is None:
             pen_smem = smem + 4 * npen <= K5_SMEM_MAX
-        plan = {"variant": "cluster", "ctas": -(-rows // rows_cta),
+        plan = {"variant": variant, "clusters": nclus, "ctas": cpc,
                 "rows": rows_cta, "threads": rows_cta, "rpt": 1,
+                "per_pass": per, "passes": -(-nclus // per),
                 "ring_smem": False, "pen_smem": bool(pen_smem),
                 "smem": smem + (4 * npen if pen_smem else 0)}
     elif variant == "global":
-        if ctas not in (None, 1):
+        if ctas not in (None, 1) or clusters not in (None, 1):
             raise ValueError("K5's global variant runs one block")
         rpt = max(-(-rows // K5_THREADS), 1)
         threads = (-(-rows // rpt) + 31) // 32 * 32
@@ -544,9 +583,10 @@ def sweep_s_plan(rows: int, K: int, npen: int, *, variant: str | None = None,
             pen_smem = smem + 4 * npen <= K5_SMEM_MAX
         if pen_smem:
             smem += 4 * npen
-        plan = {"variant": "global", "ctas": 1, "rows": rows,
-                "threads": threads, "rpt": rpt, "ring_smem": ring_smem,
-                "pen_smem": bool(pen_smem), "smem": smem}
+        plan = {"variant": "global", "clusters": 1, "ctas": 1, "rows": rows,
+                "threads": threads, "rpt": rpt, "per_pass": 1, "passes": 1,
+                "ring_smem": ring_smem, "pen_smem": bool(pen_smem),
+                "smem": smem}
     else:
         raise ValueError(f"unknown K5 variant {variant!r}")
     if plan["smem"] > K5_SMEM_MAX:
@@ -555,25 +595,41 @@ def sweep_s_plan(rows: int, K: int, npen: int, *, variant: str | None = None,
 
 
 @functools.lru_cache(maxsize=None)
-def _clusters_held(ctas: int, threads: int, smem: int) -> int:
-    """Clusters of this shape the card holds at once."""
+def _clusters_held(ctas: int, threads: int, smem: int, chain: bool) -> int:
+    """Clusters of this shape (of the chained variant's kernel if
+    ``chain``) the card holds at once."""
     out = (ctypes.c_int * 1)()
     _build.check(_build.load().spliced_s_wave_max_clusters(
-        ctas, threads, smem, ctypes.addressof(out)),
+        ctas, threads, smem, int(chain), ctypes.addressof(out)),
         "spliced_s_wave_max_clusters")
     return out[0]
+
+
+def clusters_held(plan: dict) -> int:
+    """Clusters of a cluster or chained plan's shape the card holds at
+    once."""
+    return _clusters_held(plan["ctas"], plan["threads"], plan["smem"],
+                          plan["variant"] == "chained")
 
 
 def launch_plan(rows: int, K: int, npen: int) -> dict:
     """``sweep_s_plan`` within what the card holds: the cluster size is
     cut until ``cudaOccupancyMaxActiveClusters`` finds room for one
-    cluster of the plan (the global variant takes the rows the smaller
-    cluster cannot); raises if the card holds no cluster at all."""
+    cluster of the plan (the chained variant takes the rows the smaller
+    cluster cannot), and the chained variant runs at most as many
+    clusters a launch as the card holds at once; raises if the card holds
+    no cluster at all."""
     cmax = K5_CLUSTER_MAX
     while True:
         plan = sweep_s_plan(rows, K, npen, cluster_max=cmax)
-        if plan["variant"] != "cluster" or _clusters_held(
-                plan["ctas"], plan["threads"], plan["smem"]) >= 1:
+        if plan["variant"] == "global":
+            return plan
+        held = clusters_held(plan)
+        if held >= 1 and plan["variant"] == "chained":
+            # a cap on clusters changes the CTAs' shape: hold that shape
+            plan = sweep_s_plan(rows, K, npen, cluster_max=cmax, held=held)
+            held = clusters_held(plan)
+        if held >= plan["per_pass"]:
             return plan
         cmax = plan["ctas"] - 1
         if cmax < 1:
@@ -614,12 +670,20 @@ def _launch_sweep_s(ins: SweepInputsS, plan: dict | None = None) -> SweepS:
     if plan is None:
         plan = launch_plan(R, K, lb + 2)
     lib = _build.load()
-    cluster = plan["variant"] == "cluster"
+    cluster = plan["variant"] != "global"
+    clusters = plan.get("clusters", 1)
+    per_pass = plan.get("per_pass", clusters)
     scratch = None
     if not cluster:
         scratch = torch.empty((lib.spliced_s_wave_scratch_words(
             int(plan["ring_smem"]), int(plan["rpt"] > 1)) * R,),
             dtype=I32, device=dev)
+    elif clusters > 1:
+        words = lib.spliced_s_wave_chain_words(clusters, R, W)
+        if words < 0:
+            raise ValueError(f"sweep_s: {clusters} clusters' columns over "
+                             f"{R} x {W} do not index in 32 bits")
+        scratch = torch.zeros((words,), dtype=I32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.spliced_s_wave_launch(
         ins.a.data_ptr(), ins.b.data_ptr(), ins.mtx.data_ptr(),
@@ -631,18 +695,18 @@ def _launch_sweep_s(ins: SweepInputsS, plan: dict | None = None) -> SweepS:
         ev.data_ptr(), jdon.data_ptr(), HV.data_ptr(), Hi.data_ptr(), la, lb,
         ins.lw, ins.up, int(ins.a_exgl), int(ins.a_exgr), K, int(cluster),
         plan["ctas"], plan["threads"], plan["rpt"], int(plan["ring_smem"]),
-        int(plan["pen_smem"]), plan["smem"], stream)
+        int(plan["pen_smem"]), plan["smem"], clusters, per_pass, stream)
     _build.check(err, "spliced_s_wave_launch")
-    _build.LAUNCHES["spliced_s_wave"] += 1
+    _build.LAUNCHES["spliced_s_wave"] += -(-clusters // per_pass)
     return SweepS(ev, jdon, HV, Hi)
 
 
 def spliced_s_wave_attrs(variant: str, multi: bool = False) -> dict:
     """Registers a thread and local (spilled) bytes of one of K5's
     kernels, as the card's loader reports them: the cluster variant's,
-    or the global variant's one-row (``multi`` False) or several-rows
-    kernel."""
-    which = 2 if variant == "cluster" else int(multi)
+    the chained variant's, or the global variant's one-row (``multi``
+    False) or several-rows kernel."""
+    which = {"cluster": 2, "chained": 3}.get(variant, int(multi))
     out = (ctypes.c_int * 2)()
     _build.check(_build.load().spliced_s_wave_attrs(
         which, ctypes.addressof(out)), "spliced_s_wave_attrs")

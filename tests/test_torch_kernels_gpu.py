@@ -884,8 +884,9 @@ def _k5_sized_gene(rows, seed, rich=0.0):
 def _k5_gene(case):
     """K5's cases: tests/test_torch_spliced_s.py's (seeds 0-3, global
     ends, mismatches, gen1, gen2, introns past 825 nt), a cDNA of 1,100
-    nt (1,105 rows), cDNAs of 1, 255, 256, 257, 512 and 4,096 nt, and a
-    genome rich in GT and AG (many donor pushes and acceptor merges)."""
+    nt (1,105 rows), cDNAs of 1, 255, 256, 257, 512, 4,096, 4,097 and
+    6,000 nt, a genome rich in GT and AG (many donor pushes and acceptor
+    merges), and ``chip_smoke.GENES``' medium gene (621 rows)."""
     if case.startswith("seed"):
         return (*_mk_gene(np.random.default_rng(int(case[4:]))), *_ENDS)
     if case == "global_ends":
@@ -908,6 +909,9 @@ def _k5_gene(case):
                           intron=(900, 1300)), *_ENDS)
     if case == "rich":
         return _k5_sized_gene(300, 17, rich=0.35)
+    if case == "medium":
+        from chip_smoke import spliced_gene
+        return (*spliced_gene("medium")[:2], *_ENDS)
     if case.startswith("rows") and case != "rows1100":
         return _k5_sized_gene(int(case[4:]), int(case[4:]))
     return (*_mk_gene(np.random.default_rng(13), nexon=4, exon=(270, 290),
@@ -1028,7 +1032,7 @@ def test_spliced_s_cluster_plans(cuda_device, case, kw, want):
 def test_spliced_s_cluster_most_rows(cuda_device):
     """4,096 rows, 16 CTAs of 256 (the most the cluster variant takes),
     against the global variant on the card (held to the plain version in
-    the tests above), and 4,097 rows planned onto the global variant."""
+    the tests above), and 4,097 rows planned onto the chained variant."""
     from prrn_aln_tpu_torch.ops import spliced_s as tss
     (_, _), ((ins, sw),) = _k5_run("rows4096", cuda_device)
     K = ins.mtx.shape[0]
@@ -1038,7 +1042,62 @@ def test_spliced_s_cluster_most_rows(cuda_device):
     glob = tss._launch_sweep_s(ins, tss.sweep_s_plan(
         ins.rows, K, ins.lb + 2, variant="global"))
     _k5_same(sw, glob)
-    assert tss.sweep_s_plan(4097, K, ins.lb + 2)["variant"] == "global"
+    assert tss.sweep_s_plan(4097, K, ins.lb + 2)["variant"] == "chained"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case, want", [
+    ("rows4097", (5, 13, 64)), ("rows6000", (6, 16, 64))])
+def test_spliced_s_chained_default_plan(cuda_device, case, want):
+    """Past 4,096 rows the wrapper's plan is the chained variant (clusters,
+    CTAs a cluster, rows a CTA asserted: 64 rows a CTA, every cluster
+    in one launch); its planes and final band equal the global variant's on
+    the card bit for bit, and the aligner's score and knots equal the
+    global variant's.  The plain version would take minutes here on the
+    card; the chained variant is held to it on the medium gene below."""
+    from prrn_aln_tpu_torch.ops import _build
+    from prrn_aln_tpu_torch.ops import spliced_s as tss
+    _build.LAUNCHES.clear()
+    (score, skl), ((ins, sw),) = _k5_run(case, cuda_device)
+    assert _build.LAUNCHES["spliced_s_wave"] == 1
+    K = ins.mtx.shape[0]
+    plan = tss.launch_plan(ins.rows, K, ins.lb + 2)
+    assert plan["variant"] == "chained"
+    assert (plan["clusters"], plan["ctas"], plan["rows"]) == want
+    assert plan["passes"] == 1 and plan["pen_smem"]
+    glob = tss._launch_sweep_s(ins, tss.sweep_s_plan(
+        ins.rows, K, ins.lb + 2, variant="global"))
+    _k5_same(sw, glob)
+    assert tss.finish_s(ins, glob) == (score, skl)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case, kw, want", [
+    ("medium", dict(ctas=2, clusters=5), (5, 2, 64, 1)),
+    ("medium", dict(ctas=2, clusters=5, per_pass=2), (5, 2, 64, 3)),
+    ("medium", dict(ctas=1, clusters=3), (3, 1, 224, 1)),
+    ("medium", dict(ctas=3, clusters=2, pen_smem=False), (2, 3, 128, 1)),
+    ("gen1", dict(ctas=1, clusters=11, per_pass=1), (11, 1, 32, 11)),
+    ("rich", dict(ctas=2, clusters=3), (3, 2, 64, 1)),
+    ("long_introns", dict(ctas=4, clusters=2), (2, 4, 32, 1))])
+def test_spliced_s_chained_plans(cuda_device, case, kw, want):
+    """K5's chained variant under forced small plans (clusters, CTAs a
+    cluster, rows a CTA, launches): the medium gene's 621 rows as 5
+    clusters of 2 CTAs of 64 rows in one launch and in passes of 2, other
+    splits, one cluster a launch, the penalty
+    table in device memory; each against the plain version, bit for
+    bit."""
+    from prrn_aln_tpu_torch.ops import _build
+    from prrn_aln_tpu_torch.ops import spliced_s as tss
+    ins, ref = _k5_case(case, cuda_device)
+    plan = tss.sweep_s_plan(ins.rows, ins.mtx.shape[0], ins.lb + 2,
+                            variant="chained", **kw)
+    assert (plan["clusters"], plan["ctas"], plan["rows"],
+            plan["passes"]) == want
+    _build.LAUNCHES.clear()
+    sw = tss._launch_sweep_s(ins, plan)
+    assert _build.LAUNCHES["spliced_s_wave"] == plan["passes"]
+    _k5_same(sw, ref)
 
 
 @pytest.mark.gpu
@@ -1070,11 +1129,17 @@ def test_spliced_s_wrapper_rejects_what_k5_does_not_take(cuda_device):
     bad = dataclasses.replace(ins, pen=ins.pen[:-1].contiguous())
     with pytest.raises(ValueError, match="shape"):
         tss._launch_sweep_s(bad)
-    for variant in ("cluster", "global"):
+    for variant, kw in (("cluster", {}), ("global", {}),
+                        ("chained", dict(ctas=1, clusters=2))):
         plan = tss.sweep_s_plan(ins.rows, ins.mtx.shape[0], ins.lb + 2,
-                                variant=variant)
+                                variant=variant, **kw)
         with pytest.raises(RuntimeError, match="CUDA error"):
             tss._launch_sweep_s(ins, {**plan, "smem": plan["smem"] + 4})
+    # a chained plan with an empty cluster
+    plan = tss.sweep_s_plan(ins.rows, ins.mtx.shape[0], ins.lb + 2,
+                            variant="chained", ctas=1, clusters=2)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tss._launch_sweep_s(ins, {**plan, "clusters": plan["clusters"] + 1})
     plan = tss.sweep_s_plan(ins.rows, ins.mtx.shape[0], ins.lb + 2)
     with pytest.raises(RuntimeError, match="CUDA error"):
         tss._launch_sweep_s(ins, {**plan, "ctas": 17})

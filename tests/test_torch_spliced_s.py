@@ -260,9 +260,9 @@ CLUSTER_PLANS = [
     (512, 19002, {}, ("cluster", 16, 32, True)),
     (513, 19002, {}, ("cluster", 9, 64, True)),
     (4096, 19002, {}, ("cluster", 16, 256, True)),
-    (4097, 19002, {}, ("global", 1, 4097, True)),
+    (4097, 19002, {}, ("chained", 13, 64, True)),
     (3840, 19002, dict(cluster_max=15), ("cluster", 15, 256, True)),
-    (3841, 19002, dict(cluster_max=15), ("global", 1, 3841, True)),
+    (3841, 19002, dict(cluster_max=15), ("chained", 13, 64, True)),
     (4096, (SS.K5_SMEM_MAX - _cluster_base(256)) // 4, {},
      ("cluster", 16, 256, True)),
     (4096, (SS.K5_SMEM_MAX - _cluster_base(256)) // 4 + 1, {},
@@ -276,7 +276,7 @@ def test_sweep_plan_cluster(rows, npen, kw, want):
     """One row a thread in whole warps over at most 16 CTAs (the
     non-portable cluster) up to 4,096 rows, every row covered, the slab
     the smallest the cluster holds; the penalty table in shared memory
-    while it fits; past that the global variant."""
+    while it fits; past that the chained variant (CTAs a cluster)."""
     plan = SS.sweep_s_plan(rows, 17, npen, **kw)
     assert (plan["variant"], plan["ctas"], plan["rows"],
             plan["pen_smem"]) == want
@@ -298,11 +298,97 @@ def test_sweep_plan_cluster(rows, npen, kw, want):
     (100, 60000, 17, dict(variant="cluster", pen_smem=True)),
     (100, 19002, 17, dict(variant="global", ctas=2)),
     (100, 19002, 17, dict(variant="shared")),
-    (100, 60000, 17, dict(variant="global", pen_smem=True))])
+    (100, 60000, 17, dict(variant="global", pen_smem=True)),
+    (4097, 19002, 257, dict(variant="chained")),
+    (6000, 19002, 17, dict(variant="chained", ctas=17)),
+    (6000, 19002, 17, dict(variant="chained", ctas=0)),
+    (4096, 19002, 17, dict(variant="chained", clusters=1)),
+    (20000, 19002, 17, dict(variant="chained", clusters=4)),
+    (20000, 19002, 17, dict(variant="chained", clusters=0)),
+    (20, 19002, 17, dict(variant="chained", clusters=2)),
+    (6000, 19002, 17, dict(variant="chained", per_pass=0)),
+    (6000, 19002, 17, dict(held=0)),
+    (100, 19002, 17, dict(variant="cluster", ctas=1, clusters=4)),
+    (100, 19002, 17, dict(variant="global", clusters=2)),
+    (6000, 60000, 17, dict(variant="chained", pen_smem=True))])
 def test_sweep_plan_refuses_what_the_kernels_cannot_take(rows, npen, K, kw):
     """More than 256 rows a CTA or 16 CTAs, a matrix past 256 codes in
-    the cluster variant, more than one block of the global variant, an
-    unknown variant, more than 227 KB of shared memory: the plan raises,
-    and nothing falls back to another plan."""
+    the cluster or chained variant, more than one block of the global
+    variant, one cluster asked of the chained variant (or rows that fill
+    only one) or several of the cluster variant, no cluster a launch, an unknown
+    variant, more than 227 KB of shared memory: the plan raises, and
+    nothing falls back to another plan."""
     with pytest.raises(ValueError):
         SS.sweep_s_plan(rows, K, npen, **kw)
+
+
+# (rows, keywords) -> (clusters, CTAs a cluster, rows a CTA, clusters a
+# launch, launches): the chained variant's default plan past 4,096 rows
+# (64 rows a CTA while the card holds the clusters at once), under a cap
+# of clusters the card holds at once, and on a cluster cut to 15 CTAs
+CHAINED_PLANS = [
+    (4097, {}, (5, 13, 64, 5, 1)),
+    (6000, {}, (6, 16, 64, 6, 1)),
+    (20000, {}, (20, 16, 64, 20, 1)),
+    (20000, dict(held=7), (7, 15, 192, 7, 1)),
+    (20000, dict(held=2), (5, 16, 256, 2, 3)),
+    (6000, dict(held=1), (2, 16, 192, 1, 2)),
+    (6000, dict(cluster_max=15), (7, 14, 64, 7, 1)),
+    (65536, dict(held=7), (16, 16, 256, 7, 3)),
+]
+
+
+@pytest.mark.parametrize("rows, kw, want", CHAINED_PLANS)
+def test_sweep_plan_chained(rows, kw, want):
+    """Past what one cluster holds the plan chains clusters of the
+    cluster variant's shape (K = 5, the DNA matrix): enough for 64 rows a
+    CTA, no more than the card holds at once unless fewer cannot hold
+    the rows, the rows spread evenly over their CTAs in whole warps,
+    every cluster with rows, at most ``held`` clusters a launch, the
+    stage ring of the column one more ring a CTA."""
+    npen = 26000
+    plan = SS.sweep_s_plan(rows, 5, npen, **kw)
+    assert plan["variant"] == "chained"
+    assert (plan["clusters"], plan["ctas"], plan["rows"], plan["per_pass"],
+            plan["passes"]) == want
+    per = plan["ctas"] * plan["rows"]
+    assert plan["rows"] % 32 == 0 and plan["rows"] <= SS.K5_ROWS_MAX
+    assert plan["threads"] == plan["rows"] and plan["rpt"] == 1
+    assert plan["clusters"] * per >= rows > (plan["clusters"] - 1) * per
+    assert plan["per_pass"] <= kw.get("held", plan["clusters"])
+    assert plan["passes"] == -(-plan["clusters"] // plan["per_pass"])
+    assert plan["pen_smem"]
+    assert plan["smem"] == _cluster_base(plan["rows"], K=5) + 4 * (
+        SS.K5_RING_DEPTH * SS.K5_BOUNDARY_WORDS + npen)
+    assert plan["smem"] <= SS.K5_SMEM_MAX
+
+
+@pytest.mark.parametrize("rows", [1, 31, 4095, 4096, 4097, 5000, 8192,
+                                  8193, 12345, 40000, 100000])
+@pytest.mark.parametrize("K", [5, 17, 64])
+def test_sweep_plan_never_global_by_default(rows, K):
+    """No default plan picks the global variant for a matrix of at most
+    256 codes whose shared bytes fit: one cluster up to 4,096 rows,
+    chained clusters past it."""
+    plan = SS.sweep_s_plan(rows, K, 19002)
+    assert plan["variant"] == ("cluster" if rows <= 4096 else "chained")
+    assert plan["clusters"] * plan["ctas"] * plan["rows"] >= rows
+
+
+@pytest.mark.parametrize("rows, held, want", [
+    (3000, {16: 0, 14: 0}, ("cluster", 1, 12, 1)),
+    (6000, {16: 1}, ("chained", 2, 16, 1)),
+    (20000, {16: 3}, ("chained", 5, 16, 3)),
+    (6000, {16: 0, 15: 0, 14: 2}, ("chained", 2, 14, 2))])
+def test_launch_plan_within_what_the_card_holds(monkeypatch, rows, held,
+                                                 want):
+    """``launch_plan`` cuts the cluster until the card holds one of it
+    (cudaOccupancyMaxActiveClusters, stubbed here by CTAs a cluster), so
+    the chained variant takes the rows a smaller cluster cannot, and runs
+    no more clusters a launch than the card holds at once."""
+    monkeypatch.setattr(SS, "clusters_held",
+                        lambda plan: held.get(plan["ctas"], 7))
+    plan = SS.launch_plan(rows, 5, 26000)
+    assert (plan["variant"], plan["clusters"], plan["ctas"],
+            plan["per_pass"]) == want
+    assert held.get(plan["ctas"], 7) >= plan["per_pass"]

@@ -6,6 +6,8 @@ Run from the repository root:
 
     python3 tools/k5_bench.py                      # every variant, held to each other
     python3 tools/k5_bench.py --ctas 1,4,9,16      # cluster sizes besides the default
+    python3 tools/k5_bench.py --chained "clusters=3;clusters=5,ctas=13;per_pass=1"
+                                                   # chained plans besides the default
     python3 tools/k5_bench.py --root DIR --digests FILE
                                                    # another checkout's K5, held to FILE
     python3 tools/k5_bench.py --sass FILE          # the kernels' SASS into FILE
@@ -18,10 +20,16 @@ Shapes (inputs as ``aln -G`` packs them, through the port's own path):
   350 rows x 1,389 waves and 313 rows x 1,652 waves;
 - ``medium``: ``chip_smoke.GENES["medium"]``, 621 rows x 4,549 waves;
 - ``realistic``: ``chip_smoke.GENES["realistic"]``, a 2.3 kb cDNA
-  against its 18.5 kb locus, 2,275 rows x 22,998 waves.
+  against its 18.5 kb locus, 2,275 rows x 22,998 waves;
+- ``long``: ``chip_smoke.GENES["long"]``, a 6 kb cDNA against its 26 kb
+  locus, past what one cluster holds (the chained variant by default).
 
 In this checkout each shape runs the plan the wrapper picks, the
-cluster sizes ``--ctas`` asks for, the penalty table out of shared
+cluster sizes ``--ctas`` asks for, the chained plans ``--chained`` asks
+for (``;`` between plans, each ``key=value`` keywords of
+``sweep_s_plan``'s chained variant joined by ``,``: ``clusters``,
+``ctas``, ``per_pass``; on a shape one cluster holds, the same
+rows over chained clusters), the penalty table out of shared
 memory, and the global variant; every timed call's
 planes and final band equal the global variant's bit for bit, or the
 script raises (the GPU tests and ``chip_smoke.py`` hold both variants to
@@ -42,8 +50,9 @@ outputs wrong and not checked).
 
 Prints the card and its power limit, then one JSON line a timed call:
 the median of warm calls (CUDA events), microseconds a wave, the plan
-(variant, CTAs, rows a CTA, penalty table in shared memory),
-registers and spilled bytes.
+(variant, clusters, CTAs a cluster, rows a CTA, clusters a launch,
+launches, penalty table in shared memory), registers and spilled
+bytes.
 """
 
 from __future__ import annotations
@@ -64,7 +73,7 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 FIX = REPO / "tests" / "fixtures"
-SHAPES = ("gen1", "gen2", "medium", "realistic")
+SHAPES = ("gen1", "gen2", "medium", "realistic", "long")
 # parts of the cluster variant an ablation changes in a copy of the
 # sources (ABLATIONS_WRONG: its outputs are then wrong and not checked;
 # the time says what the part costs): the plane stores, never taken; the
@@ -230,18 +239,31 @@ def attrs_of(SS, plan) -> dict:
     return SS.spliced_s_wave_attrs(plan["variant"], multi=plan["rpt"] > 1)
 
 
-def plans_of(SS, ins, ctas, pen_out: bool) -> list:
-    """The default plan, then the cluster sizes asked for, the penalty
+def chained_asks(spec: str) -> list:
+    """``--chained``'s plans: keyword dicts of the chained variant."""
+    return [{k: int(v) for k, v in (kv.split("=") for kv in
+                                     filter(None, plan.split(",")))}
+            for plan in filter(None, spec.split(";"))]
+
+
+def plans_of(SS, ins, ctas, chained, pen_out: bool) -> list:
+    """The default plan, then the cluster sizes asked for, the chained
+    plans asked for (within what the card holds at once), the penalty
     table out of shared memory (if ``pen_out``), and the global
     variant."""
     K, npen = ins.mtx.shape[0], ins.lb + 2
     plans = [SS.launch_plan(ins.rows, K, npen)]
-    asks = [dict(ctas=c) for c in ctas]
+    asks = [("cluster", dict(ctas=c)) for c in ctas]
+    asks += [("chained", kw) for kw in chained]
     if pen_out:
-        asks.append(dict(pen_smem=False))
-    for kw in asks:
+        asks.append((plans[0]["variant"], dict(pen_smem=False)))
+    for variant, kw in asks:
         try:
-            plan = SS.sweep_s_plan(ins.rows, K, npen, variant="cluster", **kw)
+            plan = SS.sweep_s_plan(ins.rows, K, npen, variant=variant, **kw)
+            if variant == "chained":
+                held = SS.clusters_held(plan)
+                plan = SS.sweep_s_plan(ins.rows, K, npen, variant=variant,
+                                       held=held, **kw)
         except ValueError:
             continue
         if plan not in plans:
@@ -256,6 +278,8 @@ def main(argv=None) -> int:
     ap.add_argument("--shapes", default=",".join(SHAPES))
     ap.add_argument("--ctas", default="",
                     help="cluster sizes to time besides the default plan")
+    ap.add_argument("--chained", default="",
+                    help="chained plans to time besides the default plan")
     ap.add_argument("--digests", type=Path,
                     help="JSON lines of an earlier run to hold outputs to")
     ap.add_argument("--out", type=Path)
@@ -307,7 +331,8 @@ def main(argv=None) -> int:
     for name in args.shapes.split(","):
         ins = capture_inputs(name, SS, aln_main)
         if this:
-            plans = plans_of(SS, ins, ctas, not args.profile)
+            plans = plans_of(SS, ins, ctas, chained_asks(args.chained),
+                             not args.profile)
             outs = [SS._launch_sweep_s(ins, plan) for plan in plans]
             glob = outs[-1]
         else:
@@ -330,9 +355,12 @@ def main(argv=None) -> int:
                 fn = (lambda: SS._launch_sweep_s(ins))
             rec = {"shape": name, "root": str(root), "rows": ins.rows,
                    "W": ins.W, "genome": ins.lb, "waves": ins.waves,
-                   "variant": plan["variant"], "ctas": plan.get("ctas"),
+                   "variant": plan["variant"],
+                   "clusters": plan.get("clusters"), "ctas": plan.get("ctas"),
                    "rows_a_cta": plan.get("rows"),
                    "threads": plan.get("threads"), "rpt": plan.get("rpt"),
+                   "per_pass": plan.get("per_pass"),
+                   "passes": plan.get("passes"),
                    "pen_smem": plan.get("pen_smem"),
                    "smem": plan.get("smem"),
                    **(attrs_of(SS, plan) if this else {}), "digest": d,
@@ -349,7 +377,7 @@ def main(argv=None) -> int:
                 rec["profiled_ms"] = ms
             else:
                 ms = time_ms(fn, 3 if ins.waves > 20000 and
-                             plan["variant"] != "cluster" else args.reps)
+                             plan["variant"] == "global" else args.reps)
             rec.update(ms=ms, us_per_wave=ms * 1e3 / ins.waves)
             emit(rec)
     if out:
