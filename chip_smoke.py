@@ -67,14 +67,23 @@ Phases (each raises on failure, so the script exits non-zero):
    takes over a minute there; the output of (b) is still held to its
    fixture in phase 10).  Then the long-intron gene (``long_intron_gene``:
    introns of 879 and 1,187 nt, where the intron penalty comes from its
-   log tail): both K4 variants against the plain version, bit for bit;
+   log tail): K4's three variants against the plain version, bit for
+   bit (the chained one forced onto 2 clusters of 3 CTAs);
 10. the gene-prediction path: ``aln -yl2`` on (a), (b) and (c) through
    the kernels, cold and warm, byte-identical to the JAX package's
    output fixtures (and mini's ``-O 5``/``-O 1`` to the reference's),
    both kernels launched;
 11. the flagship's shape, timing only: a 34.9 kb genome (the window at
    31,400 in seeded random flanks) x ce13a.msa, with K4's and K4w's
-   plans as in 9;
+   plans as in 9; then ``aln -yl2`` with proteins past what one cluster
+   of K4 holds (``aln_yl2_long_protein``: ``LONG_PROTEINS`` lp2100,
+   2,101 rows x 8.5 kb, and lp3500, 3,501 rows x 36 kb) cold and warm on
+   K4's default plan, chained clusters: lp2100's output byte-identical to
+   ``jax_aln_yl2_long_protein.txt``, K4's planes and band bit-equal to the
+   global variant's and K4w's knots to the plain walk's on both, lp3500's
+   output the same bytes under the global plan; K4's time, µs a wave,
+   plan, registers and bound beside the global variant's, then the card
+   line;
 12. long pairs (``long_pair``): a 20 kb random DNA sequence and a mutant
    (3 % substitutions, two short indels) at the default window, 24,064
    slots (K2's wide variant).  (a) K2 resumed from carries against its
@@ -1269,9 +1278,10 @@ def k4w_launch(wargs: tuple, wk, ms: float, dms) -> dict:
 def k4_launch(ins: SH.SweepInputs, ms: float) -> dict:
     """K4's launch plan for these inputs, microseconds a wave, and the
     chosen variant's registers and spilled bytes."""
-    plan = SH.sweep_plan(ins.M + 1, ins.rlmt - ins.llmt + 1)
-    return {"variant": plan["variant"], "ctas": plan["ctas"],
-            "rows_a_cta": plan["rows"], "us_per_wave": ms * 1e3 / ins.waves,
+    plan = SH.launch_plan(ins.M + 1, ins.rlmt - ins.llmt + 1)
+    return {"variant": plan["variant"], "clusters": plan["clusters"],
+            "ctas": plan["ctas"], "rows_a_cta": plan["rows"],
+            "us_per_wave": ms * 1e3 / ins.waves,
             **SH.spliced_h_wave_attrs(plan["variant"])}
 
 
@@ -1321,12 +1331,43 @@ def phase_k4() -> dict:
     return out
 
 
+# the plans phase_k4_long_introns holds to the plain version: the
+# default (the cluster variant), the global variant and the chained
+# variant forced onto 2 clusters of 3 CTAs
+K4_LONG_INTRON_PLANS = {"cluster": {}, "global": {},
+                        "chained": dict(clusters=2, ctas=3)}
+
+
+def k4_chained_entry(lp: dict, long_introns: dict) -> dict:
+    """The kernels line's entry of K4's chained variant: its launches in
+    ``aln -yl2`` on lp3500 (warm), its time and bound there; held to the
+    global variant on both long proteins and to the plain version on the
+    long-intron gene under a forced plan (whose plain time, on a CPU copy
+    of the inputs, is its plain_ms)."""
+    big = lp["lp3500"]
+    return {"name": "spliced_h_wave_chained", "route": "cuda",
+            "source": "prrn_aln_tpu_torch/csrc/spliced_h_wave.cu",
+            "replaces": "prrn_aln_tpu/ops/pallas_spliced_h.py:201",
+            "launches": big["walls"]["warm"]["launches"]["spliced_h_wave"],
+            "max_abs_err": max(long_introns["chained"]["max_abs_err"],
+                               *(r["max_abs_err"] for r in lp.values())),
+            "ms": big["k4_ms"],
+            "plain_ms": long_introns["plain_cpu_ms"],
+            "plain_ms_on": "long_intron_gene, CPU",
+            **big["k4_bound"], "us_per_wave": big["k4_us_per_wave"],
+            "global_ms": big["k4_global_ms"], "plan": big["k4_launch"],
+            "long_introns_forced": long_introns["chained"],
+            "lp2100": {k: lp["lp2100"][k] for k in (
+                "k4_ms", "k4_us_per_wave", "k4_global_ms", "k4_launch")}}
+
+
 def phase_k4_long_introns() -> dict:
     """The penalty tail's recheck: fwd2h on the long-intron gene
     (``long_intron_gene``: introns of 879 and 1,187 nt, lengths at which
-    a correctly rounded log tail differs from the scan engine's), both K4
-    variants against the plain version, bit for bit (on a CPU copy of the
-    inputs: the penalty table by length is one of them)."""
+    a correctly rounded log tail differs from the scan engine's), K4's
+    three variants (``K4_LONG_INTRON_PLANS``) against the plain version,
+    bit for bit (on a CPU copy of the inputs: the penalty table by length
+    is one of them)."""
     from prrn_aln_tpu_torch.splice.hapi import spliced_align_h
     got = []
     real = SH._launch_sweep
@@ -1351,16 +1392,19 @@ def phase_k4_long_introns() -> dict:
     out = {"rows": MR, "waves": ins.waves, "genome": ins.N,
            "introns": list(LONG_INTRONS), "plain_cpu_ms": plain_cpu_ms,
            "default_plan": SH.sweep_plan(MR, npen)["variant"]}
-    for variant in ("cluster", "global"):
-        plan = SH.sweep_plan(MR, npen, variant=variant)
+    for variant, kw in K4_LONG_INTRON_PLANS.items():
+        plan = SH.sweep_plan(MR, npen, variant=variant, **kw)
         got_v = SH._launch_sweep(ins, plan)
+        err = k4_err(SH.Sweep(*(x.cpu() for x in got_v)), ref)
         for field in SH.Sweep._fields:
             if not torch.equal(getattr(got_v, field).cpu(),
                                getattr(ref, field)):
                 raise AssertionError(f"K4 {variant} {field} != plain on the "
                                      "long-intron gene")
-        out[variant] = {"planes_equal": True, "ms": time_ms(
-            lambda p_=plan: SH._launch_sweep(ins, p_), 5),
+        ms = time_ms(lambda p_=plan: SH._launch_sweep(ins, p_), 5)
+        out[variant] = {
+            "planes_equal": True, "max_abs_err": err, "ms": ms,
+            "plan": {k: plan[k] for k in ("clusters", "ctas", "rows")},
             **SH.spliced_h_wave_attrs(variant)}
     emit({"phase": "k4_long_introns", **out})
     return out
@@ -1404,6 +1448,115 @@ def phase_flagship() -> None:
           "gcups": ins.band_cells / (ms * 1e6), "k4_bound_ms": b4["bound_ms"],
           "k4w_bound_ms": b4w["bound_ms"], "k4_launch": k4_launch(ins, ms),
           "exons": exons})
+
+
+def k4_same(a: SH.Sweep, b: SH.Sweep) -> bool:
+    return all(torch.equal(getattr(a, f), getattr(b, f))
+               for f in SH.Sweep._fields)
+
+
+def k4_err(a: SH.Sweep, b: SH.Sweep) -> float:
+    """The largest difference of two sweeps' V planes and final bands."""
+    return max(float((a.V - b.V).abs().max()),
+               float((a.bandV - b.bandV).abs().max()))
+
+
+def long_protein_paths(tmp: Path, name: str) -> list[str]:
+    """The genome and protein of ``LONG_PROTEINS[name]``: lp2100 from its
+    fixtures (written once from ``long_protein_gene``), the others written
+    into ``tmp``."""
+    if name == "lp2100":
+        return [str(FIX / "long_protein_gen.fa"),
+                str(FIX / "long_protein_pro.fa")]
+    g, p = long_protein_gene(*LONG_PROTEINS[name])
+    return [write_fasta(tmp / f"{name}_gen.fa", f"{name}_gen", g),
+            write_fasta(tmp / f"{name}_pro.fa", f"{name}_pro", p)]
+
+
+def phase_aln_yl2_long_protein() -> dict:
+    """``aln -yl2`` with a protein past what one cluster of K4 holds
+    (2,048 rows), on ``LONG_PROTEINS``, cold and warm with the plan K4's
+    wrapper picks, which must be the chained variant: lp2100's output
+    byte-identical to the JAX scan engine's
+    (``jax_aln_yl2_long_protein.txt``); on both genes K4's planes and
+    final band bit-equal to the global variant's on the same inputs, K4w's
+    knots equal to the plain walk's, and (lp3500) the output the same
+    bytes under the global plan.  Two copies of the planes (28 bytes a
+    wave-row) sit on the card at once."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in LONG_PROTEINS:
+            argv = ["-yl2", *long_protein_paths(Path(tmp), name)]
+            walls = {}
+            for run in ("cold", "warm"):
+                calls = None
+                torch.cuda.empty_cache()
+                calls, text, secs = capture_aln(argv)
+                walls[run] = {"seconds": secs,
+                              "launches": dict(_build.LAUNCHES)}
+            if name == "lp2100" and text != (
+                    FIX / "jax_aln_yl2_long_protein.txt").read_text():
+                raise AssertionError("aln -yl2 on lp2100 differs from "
+                                     "jax_aln_yl2_long_protein.txt")
+            (ins,), sw = calls["sweep"][0]
+            wargs, wk = calls["walk"][0]
+            del calls
+            MR, npen = ins.M + 1, ins.rlmt - ins.llmt + 1
+            plan = SH.launch_plan(MR, npen)
+            if plan["variant"] != "chained":
+                raise AssertionError(f"K4's plan on {name} is {plan}")
+            if walls["warm"]["launches"].get("spliced_h_wave") != 1:
+                raise AssertionError(f"aln -yl2 on {name}: {walls['warm']}")
+            gplan = SH.sweep_plan(MR, npen, variant="global")
+            got = []
+            gms = time_once_ms(
+                lambda: got.append(SH._launch_sweep(ins, gplan)))
+            gsw = got.pop()
+            err = k4_err(sw, gsw)
+            if not k4_same(sw, gsw):
+                raise AssertionError(f"K4's chained variant != its global "
+                                     f"variant on {name}")
+            del gsw
+            if SH.walk_h_ref(*wargs) != wk:
+                raise AssertionError(f"K4w knots != plain on {name}")
+            b4, b4w = k4_bounds(ins, sw, wk)
+            planes_mb = tensor_bytes(sw.ev, sw.jd, sw.V, sw.D) / 1e6
+            del sw
+            ms = time_ms(lambda: SH._launch_sweep(ins), 3)
+            rec = {"genome": ins.N, "rows": MR, "waves": ins.waves,
+                   "band_cells": ins.band_cells, "planes_mb": planes_mb,
+                   "walls": walls, "knots": len(wk.knots),
+                   "global_equal": True, "max_abs_err": err,
+                   "knots_equal": True,
+                   "k4_ms": ms, "k4_us_per_wave": ms * 1e3 / ins.waves,
+                   "gcups": ins.band_cells / (ms * 1e6),
+                   "k4_global_ms": gms,
+                   "k4_global_us_per_wave": gms * 1e3 / ins.waves,
+                   "k4_bound": b4, "k4w_bound_ms": b4w["bound_ms"],
+                   "k4_launch": k4_launch(ins, ms),
+                   "clusters_held": SH.clusters_held(plan, npen),
+                   "global_launch": {**gplan, **SH.spliced_h_wave_attrs(
+                       "global")}}
+            if name != "lp2100":
+                real = SH.launch_plan
+                SH.launch_plan = lambda MR_, npen_: SH.sweep_plan(
+                    MR_, npen_, variant="global")
+                try:
+                    gcalls, gtext, gsecs = capture_aln(argv)
+                finally:
+                    SH.launch_plan = real
+                del gcalls
+                if gtext != text:
+                    raise AssertionError(f"aln -yl2 on {name} differs under "
+                                         "the global plan")
+                rec["global_plan_wall_s"] = gsecs
+                rec["output_equal"] = True
+            else:
+                rec["fixture_equal"] = True
+            emit({"phase": f"aln_yl2_long_protein_{name}", **rec})
+            out[name] = rec
+    print(card_line(), flush=True)
+    return out
 
 
 def mutate(rng, base, sub=0.03, indels=2):
@@ -1973,6 +2126,43 @@ def long_intron_gene(seed: int = 0) -> tuple[str, str]:
     genome = (rand(300) + exons[0] + introns[0] + exons[1] + introns[1]
               + exons[2] + rand(300))
     return genome, prot
+
+
+# fwd2h past what one cluster of K4 holds (2,048 rows): seed, residues,
+# exons, intron lengths (half-open) and flank of ``long_protein_gene``.
+# lp2100 (~8 kb, ~14,300 waves) is held byte for byte to the JAX scan
+# engine's output; lp3500 (~37 kb, ~47,500 waves) is a large gene of a
+# proteome (a twitchin- or BRCA2-sized protein) for the timing
+LONG_PROTEINS = {"lp2100": (21, 2100, 10, (60, 301), 200),
+                 "lp3500": (35, 3500, 25, (60, 2001), 1000)}
+
+
+def long_protein_gene(seed: int, residues: int, nexon: int,
+                      intron: tuple, flank: int) -> tuple[str, str]:
+    """A seeded gene (genome, protein): ``residues`` random residues
+    back-translated into ``nexon`` exons of about equal length joined by
+    GTAAGT...TTTCAG introns of lengths drawn from ``intron``, in random
+    flanks of ``flank`` nt."""
+    rng = np.random.default_rng(seed)
+    aas = sorted(a for a in _CODONS if a != "*")
+    prot = "".join(aas[k] for k in rng.integers(0, len(aas), residues))
+    cds = "".join(_CODONS[a][rng.integers(0, len(_CODONS[a]))]
+                  for a in prot)
+
+    def rand(k):
+        return "".join("ACGT"[x] for x in rng.integers(0, 4, k))
+
+    step = len(cds) // nexon
+    cuts = [0] + [k * step + int(rng.integers(-step // 4, step // 4 + 1))
+                  for k in range(1, nexon)] + [len(cds)]
+    parts = [rand(flank)]
+    for k in range(nexon):
+        parts.append(cds[cuts[k]:cuts[k + 1]])
+        if k < nexon - 1:
+            n = int(rng.integers(*intron))
+            parts.append("GTAAGT" + rand(n - 12) + "TTTCAG")
+    parts.append(rand(flank))
+    return "".join(parts), prot
 
 
 def spliced_gene(name: str) -> tuple[str, str, list]:
@@ -2942,6 +3132,7 @@ def main() -> int:
     k4, k4w = phase_k4()["win_msa"]
     k4_long = phase_k4_long_introns()
     phase_flagship()
+    k4_chained = phase_aln_yl2_long_protein()
     k2_long, walk_entry = phase_long_pair(dev)
     cli = phase_cli_modes()
     aln_G = phase_aln_G()
@@ -2988,7 +3179,8 @@ def main() -> int:
          "source": "prrn_aln_tpu_torch/csrc/spliced_h_wave.cu",
          "replaces": "prrn_aln_tpu/ops/pallas_spliced_h.py:201",
          "launches": aln_launches["spliced_h_wave"], **k4,
-         "long_introns": {v: k4_long[v] for v in ("cluster", "global")}},
+         "long_introns": {v: k4_long[v] for v in K4_LONG_INTRON_PLANS}},
+        k4_chained_entry(k4_chained, k4_long),
         {"name": "spliced_h_walk", "route": "cuda",
          "source": "prrn_aln_tpu_torch/csrc/spliced_h_walk.cu",
          "replaces": "prrn_aln_tpu/ops/pallas_spliced_h.py:1016",

@@ -49,10 +49,30 @@
 //   its own.  The barrier's acquire empties L1, which is why nothing the
 //   steps read stays in global memory but the penalty tail and the
 //   left-column and top-row records.
-// - The global variant, past what 8 CTAs hold: one block, one thread a
-//   row (rows m, m + blockDim, ... past 512 rows), every record a row
-//   keeps across waves in a global scratch, field by field with the row
-//   fastest, and one barrier a wave.
+// - The chained variant, past what one cluster holds: clusters of the
+//   cluster variant's shape (up to 16 CTAs, a non-portable size) over
+//   consecutive slabs of rows, all in one launch, each running one
+//   cluster's schedule from wave t_min (the planes hold every wave of
+//   every row, in the band or not, so no row may skip a wave), the
+//   warps' skew starting anew in each cluster.  What crosses from a
+//   cluster to the next is what row m reads of row m - 1: its H and G
+//   records of wave t - 3 and its sj record of t - 6, 13 words a wave.
+//   The last row of a cluster stores them into a column in device
+//   memory, an entry a wave, and releases a progress counter every
+//   kEvery steps; the first warp of the next cluster fetches each
+//   period's entries a period ahead (see column_stage) into a stage laid
+//   out as one row's rings, which its first row reads as it would read
+//   the row above's.  A cluster waits on the one before it, so every
+//   cluster of a launch must be on the card at once: the launch is
+//   refused past what cudaOccupancyMaxActiveClusters finds room for, and
+//   a reader whose writer makes no progress for kStall cycles traps.
+//   Built apart (kChain), so that the one-cluster kernel carries no
+//   column code.
+// - The global variant, on request (and the yardstick of the chained
+//   variant): one block, one thread a row (rows m, m + blockDim, ... past
+//   512 rows), every record a row keeps across waves in a global
+//   scratch, field by field with the row fastest, and one barrier a
+//   wave.
 // The TPU layout devices (the (8, 128) row tile, flipped stride-3
 // tables, lane rolls, pre-shifted ring copies, the select tree over
 // profile columns) have no reason here.  The planes stay in device
@@ -96,6 +116,25 @@ constexpr int kRingWords = 9 * kHD + 4 * kSD, kRowWords = kRingWords + 26;
 // a barrier and every position a step reads is in the ring.
 constexpr int kPosRing = 1024, kPosWords = 6, kLoad = 32;
 constexpr int kSmemMax = 232448;
+// The chained variant's column: an entry of kColWords words a wave (H:
+// V, D, GA, GB, J; G: V, D, GB, J; sj: V, D, J, K; 3 unused), a counter a
+// 128-byte line.  The reader's first warp fetches kEvery entries a
+// period into a landing ring of kLand entries, and puts them into the
+// stage, one row's rings (kRingWords words, slot stride 1).  The period
+// whose first wave is t reads the H and G entries t - 3 ... t + kEvery -
+// 4, put into the stage at its start, and the sj entries t - 6 ... t +
+// kEvery - 7, put there at its start or the last period's; a stage slot
+// is overwritten at a period start after its last read as long as kHD >=
+// kEvery and kSD >= kEvery + 3, and a landing slot is fetched into again
+// only after it was put as long as kLand >= 2 kEvery.
+constexpr int kChainCtasMax = 16, kColWords = 16, kLand = 2 * kEvery;
+constexpr int kCntStride = 32, kDone = 0x7fffffff;
+constexpr int kChainWords = kLand * kColWords + kRingWords;
+constexpr long long kStall = 1LL << 35;  // cycles, ~17 s at 2 GHz
+static_assert(kHD >= kEvery && kSD >= kEvery + 3 && kEvery >= 3 &&
+                  kEvery <= 32 && (kLand & (kLand - 1)) == 0 &&
+                  kChainWords % 4 == 0,
+              "a stage or landing slot must outlive its reads");
 constexpr int EVH_SJ = 1 << 2, EVH_JXH = 1 << 7, EVH_JXF = 1 << 8,
               EVH_JXG = 1 << 9, EVH_CSH = 1 << 10;
 // table columns (ops/spliced_h.py TAB_FILL)
@@ -123,12 +162,13 @@ struct Params {
   const int* h0i;        // (4, W + 6): D, GA, GB, J
   const int* e1i;        // (4,)
   const float* fprm;     // FPRM order
-  int* ring;
+  int* ring;             // global: the rows' records; chained: the columns
   int* ev;
   int* jd;
   float* Vp;
   int* Dp;
   int M, N, lw, up, a_exgr, e1pre_t, llmt, rlmt, npen, trm, trm2, amb;
+  int ctas, nclus;       // CTAs a cluster, clusters
 };
 
 __device__ __forceinline__ float tfill(int col) {
@@ -652,20 +692,128 @@ __device__ void load_position(const Params& p, int* pr, int q) {
   pr[5 * kPosRing + i] = __float_as_int(v[C_SSS3]);
 }
 
+// Chained clusters: the column between a cluster and the next (see the
+// top of the file and kColWords).
+__device__ __forceinline__ int ld_acquire(const int* q) {
+  int v;
+  asm volatile("ld.acquire.gpu.b32 %0, [%1];" : "=r"(v) : "l"(q) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* q, int v) {
+  asm volatile("st.release.gpu.b32 [%0], %1;" ::"l"(q), "r"(v) : "memory");
+}
+
+// 16 bytes from device memory into shared memory through L2 (.cg: never
+// a stale L1 line), asynchronously, and the wait for this thread's copies
+__device__ __forceinline__ void cp_async16(int* dst, const int* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// Wait until the counter shows ``need``.  A reader whose writer makes no
+// progress for kStall cycles traps, so that a cluster the card does not
+// run fails the launch instead of hanging it.  Out of line, as K5's
+// (csrc/spliced_s_wave.cu): inlined, it slowed K5's chained sweep.
+__device__ __noinline__ int column_spin(const int* cnt, int need, int avail) {
+  int seen = avail;
+  long long since = clock64();
+  do {
+    __nanosleep(64);
+    avail = ld_acquire(cnt);
+    if (avail != seen) {
+      seen = avail;
+      since = clock64();
+    } else if (clock64() - since > kStall) {
+      __trap();
+    }
+  } while (avail < need);
+  return avail;
+}
+
+// entry w (a wave in [t_min, t_max]) of the column into its landing slot
+__device__ __forceinline__ void column_fetch(const int* col, int* land, int w,
+                                             int t_min, int t_max) {
+  if (w < t_min || w > t_max) return;
+  const int* e = col + (size_t)(w - t_min) * kColWords;
+  int* d = land + (w & (kLand - 1)) * kColWords;
+#pragma unroll
+  for (int k = 0; k < kColWords; k += 4) cp_async16(d + k, e + k);
+}
+
+// entry w from its landing slot into the stage, where the first row
+// reads it as the rings of the row above
+__device__ __forceinline__ void column_put(const int* land, int* stage, int w,
+                                           int t_min, int t_max) {
+  if (w < t_min || w > t_max) return;
+  const int* e = land + (w & (kLand - 1)) * kColWords;
+  const int h = w & (kHD - 1), j = w & (kSD - 1);
+#pragma unroll
+  for (int f = 0; f < 9; ++f) stage[f * kHD + h] = e[f];
+#pragma unroll
+  for (int f = 0; f < 4; ++f) stage[9 * kHD + f * kSD + j] = e[9 + f];
+}
+
+__device__ __forceinline__ void column_need(const int* cnt, int need,
+                                            int& avail) {
+  if (avail < need) avail = ld_acquire(cnt);
+  if (avail < need) avail = column_spin(cnt, need, avail);
+}
+
+// The first warp of a cluster after the first, at the start of the period
+// whose first wave is t (its own): lanes 0 .. kEvery - 1 put the entries
+// t - 3 ... t + kEvery - 4, fetched a period ago (now, in the first
+// period), into the stage; lane 0 acquires the counter until it shows
+// the next period's entries, which the lanes then fetch.  ``avail`` is
+// the counter's last value read.
+__device__ __forceinline__ void column_stage(const int* col, const int* cnt,
+                                             int* land, int* stage, int t,
+                                             int t_min, int t_max, bool first,
+                                             int& avail) {
+  const int lane = threadIdx.x & 31;
+  if (first) {
+    if (lane == 0) column_need(cnt, min(t, t_max), avail);
+    __syncwarp();
+    if (lane < kEvery) column_fetch(col, land, t - 3 + lane, t_min, t_max);
+  }
+  if (lane < kEvery) {
+    cp_async_wait();
+    column_put(land, stage, t - 3 + lane, t_min, t_max);
+  }
+  if (lane == 0) column_need(cnt, min(t + 2 * kEvery - 4, t_max), avail);
+  __syncwarp();
+  if (lane < kEvery)
+    column_fetch(col, land, t + kEvery - 3 + lane, t_min, t_max);
+}
+
 // The cluster variant: one row a thread, a slab of consecutive rows a
 // CTA, up to kClusterMax CTAs in one thread-block cluster.  The records
 // row m + 1 reads live in the CTA's shared memory (row m = the last row
 // of a slab is read by the next CTA through distributed shared memory);
 // the records only row m reads, and its donor candidate lists, live in
 // registers.  Every float operation is the global variant's, in its
-// order, so the planes are equal bit for bit.
+// order, so the planes are equal bit for bit.  kChain: the chained
+// variant, p.nclus clusters of p.ctas CTAs (up to kChainCtasMax), cluster
+// blockIdx.x / p.ctas holding the rows from i0 = its index * p.ctas *
+// blockDim.x, its first row reading the last row of the cluster before
+// through the column (column_stage); without it the kernel is one
+// cluster's, with no column code.
+template <bool kChain>
 __global__ void __launch_bounds__(kRowsMax, 1)
 spliced_h_wave_cluster(Params p) {
-  extern __shared__ int sm[];
+  extern __shared__ __align__(16) int sm[];
   const int R = blockDim.x;
   const int rank = (int)cg::this_cluster().block_rank();
   const int lm = threadIdx.x;
-  const int m = rank * R + lm;
+  const int kc = kChain ? (int)blockIdx.x / p.ctas : 0;
+  const int i0 = kc * p.ctas * R;
+  const int m = i0 + rank * R + lm;
   const int M = p.M, N = p.N, lw = p.lw, up = p.up;
   const int off0 = 3 - lw, LL = off0, r0_max = min(up, N);
   const int t_min = 3 + max(3 + lw, 1);
@@ -675,30 +823,39 @@ spliced_h_wave_cluster(Params p) {
               gap_e2 = p.fprm[3], gap_w1 = p.fprm[4], gap_w2 = p.fprm[5],
               fO = p.fprm[6], e1V = p.fprm[7], gap_wi = p.fprm[8];
 
-  // shared words, field-major with the slab's row fastest: the H ring
-  // (V, D, GA, GB, J; kHD waves), the G ring (V, D, GB, J; kHD waves),
-  // the sj ring (V, D, J, K; kSD waves); then the profile rows of the
-  // slab and the next row, the position ring, the penalty table and
-  // pair53
-  int* const Hr = sm;
-  int* const Gr = sm + 5 * kHD * R;
-  int* const Sr = sm + 9 * kHD * R;
-  float* const qs = (float*)(sm + kRingWords * R);
+  // shared words (chained: first the column's landing ring and stage),
+  // field-major with the slab's row fastest: the H ring (V, D, GA, GB, J;
+  // kHD waves), the G ring (V, D, GB, J; kHD waves), the sj ring (V, D,
+  // J, K; kSD waves); then the profile rows of the slab and the next row,
+  // the position ring, the penalty table and pair53
+  int* const land = sm;
+  int* const stage = sm + kLand * kColWords;
+  int* const Hr = sm + (kChain ? kChainWords : 0);
+  int* const Gr = Hr + 5 * kHD * R;
+  int* const Sr = Hr + 9 * kHD * R;
+  float* const qs = (float*)(Hr + kRingWords * R);
   int* const pr = (int*)(qs + (R + 1) * TSIMD);
   float* const pen = (float*)(pr + kPosWords * kPosRing);
   float* const p53 = pen + p.npen;
-  // row m - 1's words: this slab's, or the last row of the previous
-  // CTA's slab (the same layout, through distributed shared memory)
-  const int* nb = sm;
-  if (lm > 0)
-    nb = sm + lm - 1;
-  else if (rank > 0)
-    nb = cg::this_cluster().map_shared_rank(sm, rank - 1) + R - 1;
+  // row m - 1's words, slot stride rs: this slab's, the last row of the
+  // previous CTA's slab (the same layout, through distributed shared
+  // memory) or, in the first row of a chained cluster after the first,
+  // the stage (one row's rings)
+  const int* nb = Hr;
+  int rs = R;
+  if (lm > 0) {
+    nb = Hr + lm - 1;
+  } else if (rank > 0) {
+    nb = cg::this_cluster().map_shared_rank(Hr, rank - 1) + R - 1;
+  } else if (kChain && kc > 0) {
+    nb = stage;
+    rs = 1;
+  }
 
   for (int i = lm; i < 256; i += R) p53[i] = p.pair53[i];
   for (int i = lm; i < p.npen; i += R) pen[i] = p.pen[i];
   {
-    const int m0 = rank * R;
+    const int m0 = i0 + rank * R;
     const int nq = min(R + 1, M + 2 - m0) * TSIMD;
     for (int i = lm; i < nq; i += R) qs[i] = p.qprof[m0 * TSIMD + i];
   }
@@ -712,14 +869,35 @@ spliced_h_wave_cluster(Params p) {
     Sr[s * R + lm] = __float_as_int(NEVSEL);
     for (int f = 1; f < 4; ++f) Sr[(f * kSD + s) * R + lm] = 0;
   }
-  // the positions a step reads: warp g's rows at step s lie in
-  // [s - g (kSkew + 96) - 95, s - g (kSkew + 96) + 1]; the CTA's first warp
-  // g0 runs ahead, and its head at step s is s - g0 (kSkew + 96) + 1
+  if (kChain)  // the stage as the rings start: V fields NEVSEL, others 0
+    for (int i = lm; i < kRingWords; i += R)
+      stage[i] = (i < kHD || (i >= 5 * kHD && i < 6 * kHD) ||
+                  (i >= 9 * kHD && i < 9 * kHD + kSD))
+                     ? __float_as_int(NEVSEL)
+                     : 0;
+  // the positions a step reads: the cluster's warp g (its local index)
+  // has rows i0 + 32 g ... i0 + 32 g + 31, which at step s lie in
+  // [s - g (kSkew + 96) - 3 i0 - 95, s - g (kSkew + 96) - 3 i0 + 1]; the
+  // CTA's first warp g0 runs ahead, and its head at step s is
+  // s - g0 (kSkew + 96) - 3 i0 + 1
   const int g0 = rank * R / 32;
-  const int head0 = t_min - g0 * (kSkew + 96) + 1;
+  const int head0 = t_min - g0 * (kSkew + 96) - 3 * i0 + 1;
   for (int q = head0 + kEvery - kPosRing + 2 * kLoad + 1 + lm;
        q <= head0 + kEvery; q += R)
     load_position(p, pr, q);
+  // chained: the column this cluster's first warp reads, and the one its
+  // last row writes (each a counter, then an entry a wave)
+  const bool reader = kChain && kc > 0 && rank == 0 && lm < 32;
+  const bool writer =
+      kChain && kc < p.nclus - 1 && rank == p.ctas - 1 && lm == R - 1;
+  const size_t colw = (size_t)(t_max - t_min + 1) * kColWords;
+  int* const cols = p.ring + (size_t)(p.nclus - 1) * kCntStride;
+  const int* const col_in = reader ? cols + (kc - 1) * colw : nullptr;
+  const int* const cnt_in = reader ? p.ring + (kc - 1) * kCntStride
+                                   : nullptr;
+  int* const col_out = writer ? cols + kc * colw : nullptr;
+  int* const cnt_out = writer ? p.ring + kc * kCntStride : nullptr;
+  int avail = 0;
   cluster_arrive();
   cluster_wait();
 
@@ -784,8 +962,8 @@ spliced_h_wave_cluster(Params p) {
   }
 
   // the skewed schedule: this warp's wave at step s is s - g * kSkew
-  const int g = m >> 5;
-  const int s_last = t_max + ((int)(gridDim.x * R) / 32 - 1) * kSkew;
+  const int g = (rank * R + lm) >> 5;
+  const int s_last = t_max + (p.ctas * R / 32 - 1) * kSkew;
   for (int s = t_min; s <= s_last; ++s) {
     const int ph = (s - t_min) % kEvery;
     const int t = s - g * kSkew;
@@ -793,6 +971,9 @@ spliced_h_wave_cluster(Params p) {
     if (ph == 0 && s > t_min) cluster_wait();
     if (g == g0 && (s - t_min) % kLoad == 0)
       load_position(p, pr, s - t_min + head0 + kEvery + 1 + (lm & 31));
+    if (reader && ph == 0)
+      column_stage(col_in, cnt_in, land, stage, t, t_min, t_max, s == t_min,
+                   avail);
     if (m > M || t < t_min || t > t_max) {
       if (ph == kEvery - 1) cluster_arrive();
       continue;
@@ -810,17 +991,17 @@ spliced_h_wave_cluster(Params p) {
     int gD_ = 0, gGB_ = 0, gJ_ = 0, sjD_ = 0, sjJ_n = 0, sjK_n = 0;
     {
       const int h = (t - 3) & (kHD - 1), j = (t - 6) & (kSD - 1);
-      q0 = Rec{__int_as_float(nb[h * R]), nb[(kHD + h) * R],
-               nb[(2 * kHD + h) * R], nb[(3 * kHD + h) * R],
-               nb[(4 * kHD + h) * R]};
-      gV_ = __int_as_float(nb[(5 * kHD + h) * R]);
-      gD_ = nb[(6 * kHD + h) * R];
-      gGB_ = nb[(7 * kHD + h) * R];
-      gJ_ = nb[(8 * kHD + h) * R];
-      sjV_ = __int_as_float(nb[(9 * kHD + j) * R]);
-      sjD_ = nb[(9 * kHD + kSD + j) * R];
-      sjJ_n = nb[(9 * kHD + 2 * kSD + j) * R];
-      sjK_n = nb[(9 * kHD + 3 * kSD + j) * R];
+      q0 = Rec{__int_as_float(nb[h * rs]), nb[(kHD + h) * rs],
+               nb[(2 * kHD + h) * rs], nb[(3 * kHD + h) * rs],
+               nb[(4 * kHD + h) * rs]};
+      gV_ = __int_as_float(nb[(5 * kHD + h) * rs]);
+      gD_ = nb[(6 * kHD + h) * rs];
+      gGB_ = nb[(7 * kHD + h) * rs];
+      gJ_ = nb[(8 * kHD + h) * rs];
+      sjV_ = __int_as_float(nb[(9 * kHD + j) * rs]);
+      sjD_ = nb[(9 * kHD + kSD + j) * rs];
+      sjJ_n = nb[(9 * kHD + 2 * kSD + j) * rs];
+      sjK_n = nb[(9 * kHD + 3 * kSD + j) * rs];
     }
 
     // ---- the row's own part
@@ -1185,7 +1366,18 @@ spliced_h_wave_cluster(Params p) {
       Sr[(2 * kSD + j) * R + lm] = sj_on ? sj_nJ : 0;
       Sr[(3 * kSD + j) * R + lm] = sj_on ? sj_nK : 0;
     }
-    if (ph == kEvery - 1) cluster_arrive();
+    if (writer) {
+      int4* const e = (int4*)(col_out + (size_t)(t - t_min) * kColWords);
+      e[0] = make_int4(__float_as_int(cVx), cDx, cGAx, cGBx);
+      e[1] = make_int4(cJx, __float_as_int(gV), gD, gGB);
+      e[2] = make_int4(gJ, __float_as_int(sj_on ? sj_nV : NEVSEL),
+                       sj_on ? NEWD : 0, sj_on ? sj_nJ : 0);
+      e[3] = make_int4(sj_on ? sj_nK : 0, 0, 0, 0);
+    }
+    if (ph == kEvery - 1) {
+      cluster_arrive();
+      if (writer) st_release(cnt_out, t);
+    }
     o3 = o2;
     o2 = o1;
     o1 = Rec{cVx, cDx, cGAx, cGBx, cJx};
@@ -1208,9 +1400,55 @@ spliced_h_wave_cluster(Params p) {
     p.jd[oj + 2 * MR] = jdon[2];
     p.jd[oj + 3 * MR] = sj_used ? sjK_ : 0;
   }
+  if (writer) st_release(cnt_out, kDone);
+  if (reader) cp_async_wait();
   // no CTA leaves while the next one may still read its rings
   if ((s_last - t_min) % kEvery != kEvery - 1) cluster_arrive();
   cluster_wait();
+}
+
+}  // namespace
+
+namespace {
+
+size_t cluster_smem(int threads, int npen, int chain) {
+  return ((chain ? (size_t)kChainWords : 0) + (size_t)kRowWords * threads +
+          TSIMD + kPosWords * kPosRing + npen + 256) *
+         sizeof(int);
+}
+
+// the cluster variant's kernel, or the chained variant's
+const void* cluster_kernel(int chain) {
+  return chain ? (const void*)spliced_h_wave_cluster<true>
+               : (const void*)spliced_h_wave_cluster<false>;
+}
+
+cudaError_t cluster_attributes(int chain, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      cluster_kernel(chain), cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess || !chain) return err;
+  return cudaFuncSetAttribute(cluster_kernel(chain),
+                              cudaFuncAttributeNonPortableClusterSizeAllowed,
+                              1);
+}
+
+// a launch of ``clusters`` clusters of ``ctas`` CTAs
+cudaLaunchConfig_t cluster_config(int clusters, int ctas, int threads,
+                                  size_t smem, cudaLaunchAttribute* attr,
+                                  cudaStream_t s) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * ctas, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = ctas;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 }  // namespace
@@ -1222,13 +1460,49 @@ extern "C" int spliced_h_wave_scratch_words() {
   return 8 * 5 + 4 * 4 + 4 * 4 + 8 * 4 + 5 * 3 * NSLOT + 3;
 }
 
-// ``cluster`` picks the variant, chosen by size by the wrapper
-// (ops/spliced_h.py::sweep_plan): 1, ``ctas`` CTAs of ``threads`` rows in
-// one cluster, reading ``tab`` and ``A1`` column-major from ``tabT``
-// and ``A1T``; 0, one block of ``threads`` threads, ``rpt`` rows each,
-// over the global scratch ``ring``.  Both read the penalty of a length
-// past the table from ``pext``, the wrapper's table by length.  A launch either variant refuses
-// returns its error; neither stands in for the other.
+// Words of scratch of ``clusters`` chained clusters over ``T`` waves: a
+// counter (a 128-byte line) and a column of an entry a wave for each
+// boundary; -1 past 2**31 words.  The counters must be zero at the
+// launch.
+extern "C" int spliced_h_wave_chain_words(int clusters, int T) {
+  if (clusters <= 1) return 0;
+  const long long n =
+      (long long)(clusters - 1) * (kCntStride + (long long)T * kColWords);
+  return n < (1LL << 31) ? (int)n : -1;
+}
+
+// How many clusters of ``ctas`` CTAs of ``threads`` rows with a penalty
+// table of ``npen`` entries the cluster variant's kernel (the chained
+// variant's if ``chain``) can hold on the card at once
+// (cudaOccupancyMaxActiveClusters) into out[0]: 0 where it cannot hold
+// one.
+extern "C" int spliced_h_wave_max_clusters(int ctas, int threads, int npen,
+                                           int chain, void* out) {
+  const size_t smem = cluster_smem(threads, npen, chain);
+  if (ctas < 1 || ctas > (chain ? kChainCtasMax : kClusterMax) ||
+      threads < 32 || threads > kRowsMax || threads % 32 != 0 ||
+      smem > (size_t)kSmemMax)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cluster_attributes(chain, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(1, ctas, threads, smem, &attr, nullptr);
+  return (int)cudaOccupancyMaxActiveClusters((int*)out, cluster_kernel(chain),
+                                             &cfg);
+}
+
+// The plan of ops/spliced_h.py::sweep_plan.  ``cluster`` 1: ``clusters``
+// clusters of ``ctas`` CTAs of ``threads`` rows, reading ``tab`` and
+// ``A1`` column-major from ``tabT`` and ``A1T``; chained (more than one
+// cluster), every cluster on the card at once (at most what
+// cudaOccupancyMaxActiveClusters finds room for, or the launch is
+// refused), ``ring`` holding spliced_h_wave_chain_words words, counters
+// zero.  ``cluster`` 0: the global variant, one block of ``threads``
+// threads, ``rpt`` rows each, over the global scratch ``ring``.  All
+// read the penalty of a length past the table from ``pext``, the
+// wrapper's table by length.  A launch a variant refuses returns its
+// error; none stands in for another.
 extern "C" int spliced_h_wave_launch(
     const void* tab, const void* dinc5, const void* r1idx, const void* A1,
     const void* pair53, const void* qprof, const void* api, const void* pen,
@@ -1237,7 +1511,7 @@ extern "C" int spliced_h_wave_launch(
     void* ev, void* jd, void* V, void* D,
     int M, int N, int lw, int up, int a_exgr, int e1pre_t, int llmt,
     int rlmt, int trm, int trm2, int amb, int cluster, int ctas,
-    int threads, int rpt, void* stream) {
+    int threads, int rpt, int clusters, void* stream) {
   Params p;
   p.tab = (const float*)tab;
   p.dinc5 = (const int*)dinc5;
@@ -1271,10 +1545,13 @@ extern "C" int spliced_h_wave_launch(
   p.trm = trm;
   p.trm2 = trm2;
   p.amb = amb;
+  p.ctas = ctas;
+  p.nclus = clusters;
   cudaStream_t s = (cudaStream_t)stream;
   const size_t tables = (size_t)(p.npen + 256) * sizeof(float);
   if (!cluster) {
-    if (tables > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
+    if (tables > (size_t)kSmemMax || clusters != 1)
+      return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(
         spliced_h_wave_global, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)tables);
@@ -1282,38 +1559,44 @@ extern "C" int spliced_h_wave_launch(
     spliced_h_wave_global<<<1, threads, tables, s>>>(p, rpt);
     return (int)cudaGetLastError();
   }
-  const size_t smem = ((size_t)kRowWords * threads + TSIMD +
-                       kPosWords * kPosRing + p.npen + 256) * sizeof(int);
-  if (ctas < 1 || ctas > kClusterMax || threads < 1 || threads > kRowsMax ||
-      (size_t)ctas * threads < (size_t)M + 1 || smem > (size_t)kSmemMax)
+  const int chain = clusters > 1;
+  const size_t smem = cluster_smem(threads, p.npen, chain);
+  const size_t rows_c = (size_t)ctas * threads;
+  if (ctas < 1 || ctas > (chain ? kChainCtasMax : kClusterMax) ||
+      threads < 1 || threads > kRowsMax || clusters < 1 ||
+      rows_c * clusters < (size_t)M + 1 ||
+      rows_c * (clusters - 1) >= (size_t)M + 1 || smem > (size_t)kSmemMax ||
+      (chain && (threads % 32 != 0 || ring == nullptr)))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      spliced_h_wave_cluster, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  cudaError_t err = cluster_attributes(chain, smem);
   if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(ctas, 1, 1);
-  cfg.blockDim = dim3(threads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = ctas;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, spliced_h_wave_cluster, p);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(clusters, ctas, threads, smem, &attr, s);
+  if (chain) {
+    // a cluster waits on the one before it: all must be on the card at once
+    int held = 0;
+    cudaLaunchAttribute one;
+    const cudaLaunchConfig_t c1 =
+        cluster_config(1, ctas, threads, smem, &one, s);
+    err = cudaOccupancyMaxActiveClusters(&held, cluster_kernel(1), &c1);
+    if (err != cudaSuccess) return (int)err;
+    if (held < clusters) return (int)cudaErrorCooperativeLaunchTooLarge;
+    err = cudaLaunchKernelEx(&cfg, spliced_h_wave_cluster<true>, p);
+  } else {
+    err = cudaLaunchKernelEx(&cfg, spliced_h_wave_cluster<false>, p);
+  }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// Registers a thread and local (spilled) bytes of a variant.
-extern "C" int spliced_h_wave_attrs(int cluster, void* out) {
+// Registers a thread and local (spilled) bytes of a variant: the global
+// (0), the cluster (1) or the chained (2).
+extern "C" int spliced_h_wave_attrs(int variant, void* out) {
   cudaFuncAttributes a;
   const cudaError_t err =
-      cluster ? cudaFuncGetAttributes(&a, spliced_h_wave_cluster)
-              : cudaFuncGetAttributes(&a, spliced_h_wave_global);
+      variant >= 1 ? cudaFuncGetAttributes(&a, cluster_kernel(variant == 2))
+                   : cudaFuncGetAttributes(&a, spliced_h_wave_global);
   if (err != cudaSuccess) return (int)err;
   int* o = (int*)out;
   o[0] = a.numRegs;

@@ -40,9 +40,11 @@ _SIGNATURES = {
     "pairwise_scores_attrs": [_int, _int, _int, _vp],
     "traceback_launch": [_vp] * 12 + [_int] * 9 + [_vp],
     "traceback_attrs": [_int, _vp],
-    "spliced_h_wave_launch": [_vp] * 20 + [_int] * 15 + [_vp],
+    "spliced_h_wave_launch": [_vp] * 20 + [_int] * 16 + [_vp],
     "spliced_h_wave_attrs": [_int, _vp],
     "spliced_h_wave_scratch_words": [],
+    "spliced_h_wave_chain_words": [_int] * 2,
+    "spliced_h_wave_max_clusters": [_int] * 4 + [_vp],
     "spliced_h_walk_launch": [_vp] * 3 + [_int] * 10 + [_vp],
     "spliced_h_walk_attrs": [_vp],
     "spliced_s_wave_launch": [_vp] * 21 + [_int] * 16 + [_vp],

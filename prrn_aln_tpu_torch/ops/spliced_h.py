@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -717,13 +718,24 @@ def sweep_h(ins: SweepInputs) -> Sweep:
 # a thread, at most K4_ROWS_MAX rows a CTA and K4_CLUSTER_MAX CTAs (the
 # portable cluster size), with K4_ROW_WORDS shared words a row (its rings
 # and profile row) beside one more profile row, K4_POS_WORDS words of
-# genome-position tables, the penalty table and pair53; the global
-# variant keeps the penalty table and pair53 in shared memory; at most
-# K4_SMEM_MAX bytes a CTA
+# genome-position tables, the penalty table and pair53.  The chained
+# variant runs clusters of that shape, up to K4_CHAIN_CLUSTER_MAX CTAs (a
+# non-portable size), with K4_CHAIN_WORDS shared words more a CTA (the
+# column's landing ring and stage); by default clusters of K4_CHAIN_CTAS
+# CTAs, the rows spread over as many as K4_CHAIN_ROWS rows a CTA needs
+# (tools/k4_bench.py --chained on the long proteins: 32 to 128 rows a CTA
+# within 2 % of each other, 96 the fastest, 224 ~14 % slower; clusters
+# of 11 to 16 CTAs no faster; PERF.md §6).  The global variant keeps the
+# penalty table and pair53 in shared memory.  At most K4_SMEM_MAX bytes a
+# CTA.
 K4_ROWS_MAX = 256
 K4_CLUSTER_MAX = 8
+K4_CHAIN_CLUSTER_MAX = 16
+K4_CHAIN_CTAS = 8
+K4_CHAIN_ROWS = 96
 K4_ROW_WORDS = 162
 K4_POS_WORDS = 6 * 1024
+K4_CHAIN_WORDS = 8 * 16 + 136     # 8 landing entries of 16, one row's rings
 K4_SMEM_MAX = 232448
 
 
@@ -737,42 +749,111 @@ def rows_per_thread(MR: int) -> tuple[int, int]:
 
 
 def sweep_plan(MR: int, npen: int, *, variant: str | None = None,
-               ctas: int | None = None) -> dict:
+               ctas: int | None = None, clusters: int | None = None,
+               held: int | None = None) -> dict:
     """K4's launch for M + 1 rows and an intron-penalty table of ``npen``
-    entries: the variant, CTAs, rows a CTA, rows a thread and shared
-    bytes a CTA.
+    entries: the variant, clusters, CTAs a cluster, rows a CTA, rows a
+    thread and shared bytes a CTA.
 
     Up to K4_CLUSTER_MAX * K4_ROWS_MAX rows the cluster variant takes
     them, one row a thread, in slabs of whole warps: by default the
     smallest slab that K4_CLUSTER_MAX CTAs hold, over as few CTAs as
-    that slab needs.  Past that the global variant takes them in one
-    block (``rows_per_thread``).  ``variant`` and ``ctas`` ask for a
-    variant and a cluster size, as the bench and the tests do; a plan
-    the kernel cannot take raises."""
+    that slab needs.  Past that the chained variant takes them on
+    clusters of K4_CHAIN_CTAS CTAs: enough for K4_CHAIN_ROWS rows a CTA,
+    but no more than ``held`` (what the card holds at once, unbounded if
+    None) unless fewer cannot hold the rows; the rows spread evenly over
+    the clusters' CTAs in whole warps.  The global variant (one block,
+    ``rows_per_thread``) runs only when asked for.  ``variant``, ``ctas``
+    and ``clusters`` ask for a plan, as the bench and the tests do; a
+    plan the kernel cannot take raises."""
     if variant is None:
         variant = ("cluster" if MR <= K4_CLUSTER_MAX * K4_ROWS_MAX
-                   else "global")
+                   else "chained")
     if variant == "global":
-        if ctas not in (None, 1):
+        if ctas not in (None, 1) or clusters not in (None, 1):
             raise ValueError("K4's global variant runs one block")
         rpt, threads = rows_per_thread(MR)
-        plan = {"variant": "global", "ctas": 1, "rows": threads,
-                "rpt": rpt, "smem": 4 * (npen + 256)}
+        plan = {"variant": "global", "clusters": 1, "ctas": 1,
+                "rows": threads, "rpt": rpt, "smem": 4 * (npen + 256)}
     elif variant == "cluster":
         if ctas is None:
             ctas = K4_CLUSTER_MAX
         rows = (-(-MR // max(ctas, 1)) + 31) // 32 * 32
-        if not 1 <= ctas <= K4_CLUSTER_MAX or rows > K4_ROWS_MAX:
+        if (not 1 <= ctas <= K4_CLUSTER_MAX or rows > K4_ROWS_MAX
+                or clusters not in (None, 1)):
             raise ValueError(f"K4's cluster variant cannot take {MR} rows "
-                             f"over {ctas} CTAs")
-        plan = {"variant": "cluster", "ctas": -(-MR // rows), "rows": rows,
-                "rpt": 1,
+                             f"over {ctas} CTAs (at most {K4_CLUSTER_MAX} "
+                             f"CTAs of {K4_ROWS_MAX} rows)")
+        plan = {"variant": "cluster", "clusters": 1, "ctas": -(-MR // rows),
+                "rows": rows, "rpt": 1,
                 "smem": 4 * (K4_ROW_WORDS * rows + tron.TSIMD + K4_POS_WORDS
                              + npen + 256)}
+    elif variant == "chained":
+        if ctas is None:
+            ctas = K4_CHAIN_CTAS
+        if not 1 <= ctas <= K4_CHAIN_CLUSTER_MAX:
+            raise ValueError(f"K4's chained variant takes clusters of 1 to "
+                             f"{K4_CHAIN_CLUSTER_MAX} CTAs, not {ctas}")
+        if held is not None and held < 1:
+            raise ValueError("the card holds no cluster of K4's plan")
+        if clusters is None:
+            least = max(-(-MR // (ctas * K4_ROWS_MAX)), 2)
+            clusters = max(-(-MR // (ctas * K4_CHAIN_ROWS)), 2)
+            if held is not None:
+                clusters = max(min(clusters, held), least)
+        # the smallest slab in whole warps that the clusters' CTAs hold,
+        # over as few CTAs and clusters as it needs: every cluster has rows
+        rows = (-(-MR // (max(clusters, 1) * ctas)) + 31) // 32 * 32
+        cpc = -(-MR // (max(clusters, 1) * rows))
+        nclus = -(-MR // (cpc * rows))
+        if clusters < 2 or rows > K4_ROWS_MAX or nclus < 2:
+            raise ValueError(f"K4's chained variant cannot take {MR} rows "
+                             f"over {clusters} clusters of {ctas} CTAs (two "
+                             f"clusters or more, at most {K4_ROWS_MAX} rows "
+                             f"a CTA)")
+        if held is not None and nclus > held:
+            raise ValueError(f"K4's chained variant needs {nclus} clusters "
+                             f"of {cpc} CTAs on the card at once for {MR} "
+                             f"rows; it holds {held} "
+                             f"(cudaOccupancyMaxActiveClusters)")
+        plan = {"variant": "chained", "clusters": nclus, "ctas": cpc,
+                "rows": rows, "rpt": 1,
+                "smem": 4 * (K4_CHAIN_WORDS + K4_ROW_WORDS * rows
+                             + tron.TSIMD + K4_POS_WORDS + npen + 256)}
     else:
         raise ValueError(f"unknown K4 variant {variant!r}")
     if plan["smem"] > K4_SMEM_MAX:
-        raise ValueError(f"K4 needs {plan['smem']} bytes of shared memory")
+        raise ValueError(f"K4 needs {plan['smem']} bytes of shared memory, "
+                         f"more than the {K4_SMEM_MAX} a CTA can have")
+    return plan
+
+
+@functools.lru_cache(maxsize=None)
+def _clusters_held(ctas: int, rows: int, npen: int, chain: bool) -> int:
+    out = (ctypes.c_int * 1)()
+    _build.check(_build.load().spliced_h_wave_max_clusters(
+        ctas, rows, npen, int(chain), ctypes.addressof(out)),
+        "spliced_h_wave_max_clusters")
+    return out[0]
+
+
+def clusters_held(plan: dict, npen: int) -> int:
+    """Clusters of a cluster or chained plan's shape (with a penalty
+    table of ``npen`` entries) the card holds at once
+    (cudaOccupancyMaxActiveClusters)."""
+    return _clusters_held(plan["ctas"], plan["rows"], npen,
+                          plan["variant"] == "chained")
+
+
+def launch_plan(MR: int, npen: int) -> dict:
+    """``sweep_plan`` within what the card holds: a chained plan of more
+    clusters than the card holds at once is made again with that cap
+    (more rows a CTA); raises ValueError if the card cannot hold it."""
+    plan = sweep_plan(MR, npen)
+    if plan["variant"] == "chained":
+        held = clusters_held(plan, npen)
+        if plan["clusters"] > held:
+            plan = sweep_plan(MR, npen, held=held)
     return plan
 
 
@@ -783,8 +864,9 @@ def _launch_sweep(ins: SweepInputs, plan: dict | None = None) -> Sweep:
     M, N = ins.M, ins.N
     MR = M + 1
     W = ins.up - ins.lw + 1
+    npen = ins.rlmt - ins.llmt + 1
     if plan is None:
-        plan = sweep_plan(MR, ins.rlmt - ins.llmt + 1)
+        plan = launch_plan(MR, npen)
     for t, name, dtype, shape in (
             (ins.tab, "tab", F32, (N + 2, len(TAB_FILL))),
             (ins.dinc5, "dinc5", I32, (N + 1,)),
@@ -793,7 +875,7 @@ def _launch_sweep(ins: SweepInputs, plan: dict | None = None) -> Sweep:
             (ins.pair53, "pair53", F32, (16, 16)),
             (ins.qprof, "qprof", F32, (M + 2, tron.TSIMD)),
             (ins.api, "api", F32, (3 * M + 4,)),
-            (ins.pen, "pen", F32, (ins.rlmt - ins.llmt + 1,)),
+            (ins.pen, "pen", F32, (npen,)),
             (ins.pext, "pext", F32, (N + 2,)),
             (ins.h0v, "h0v", F32, (W + 6,)),
             (ins.h0i, "h0i", I32, (4, W + 6)),
@@ -801,19 +883,32 @@ def _launch_sweep(ins: SweepInputs, plan: dict | None = None) -> Sweep:
             (ins.fprm, "fprm", F32, (len(FPRM),))):
         _build.require(t, name, dtype, shape, dev)
     T = ins.waves
+    lib = _build.load()
+    variant = plan["variant"]
+    clusters = plan["clusters"]
+    ring = tabT = A1T = None
+    if variant == "chained":
+        held = clusters_held(plan, npen)
+        if clusters > held:
+            raise ValueError(f"K4's chained plan needs {clusters} clusters "
+                             f"of {plan['ctas']} CTAs on the card at once; "
+                             f"it holds {held} "
+                             f"(cudaOccupancyMaxActiveClusters)")
+        words = lib.spliced_h_wave_chain_words(clusters, T)
+        if words < 0:
+            raise ValueError(f"sweep_h: {clusters} clusters' columns over "
+                             f"{T} waves do not index in 32 bits")
+        ring = torch.zeros((words,), dtype=I32, device=dev)
+    if variant == "global":
+        ring = torch.empty((lib.spliced_h_wave_scratch_words() * MR,),
+                           dtype=I32, device=dev)
+    else:
+        tabT = ins.tab.t().contiguous()
+        A1T = ins.A1.t().contiguous()
     ev = torch.empty((T, MR), dtype=I32, device=dev)
     jd = torch.empty((T, 4, MR), dtype=I32, device=dev)
     V = torch.empty((T, MR), dtype=F32, device=dev)
     D = torch.empty((T, MR), dtype=I32, device=dev)
-    lib = _build.load()
-    cluster = plan["variant"] == "cluster"
-    ring = tabT = A1T = None
-    if cluster:
-        tabT = ins.tab.t().contiguous()
-        A1T = ins.A1.t().contiguous()
-    else:
-        ring = torch.empty((lib.spliced_h_wave_scratch_words() * MR,),
-                           dtype=I32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.spliced_h_wave_launch(
         ins.tab.data_ptr(), ins.dinc5.data_ptr(), ins.r1idx.data_ptr(),
@@ -825,8 +920,8 @@ def _launch_sweep(ins: SweepInputs, plan: dict | None = None) -> Sweep:
         ev.data_ptr(),
         jd.data_ptr(), V.data_ptr(), D.data_ptr(), M, N, ins.lw, ins.up,
         int(ins.a_exgr), ins.e1pre_t, ins.llmt, ins.rlmt, tron.TRM,
-        tron.TRM2, ab.AMB, int(cluster), plan["ctas"], plan["rows"],
-        plan["rpt"], stream)
+        tron.TRM2, ab.AMB, int(variant != "global"), plan["ctas"],
+        plan["rows"], plan["rpt"], clusters, stream)
     _build.check(err, "spliced_h_wave_launch")
     _build.LAUNCHES["spliced_h_wave"] += 1
     bandV, bandD = _band(ins, V, D)
@@ -835,11 +930,12 @@ def _launch_sweep(ins: SweepInputs, plan: dict | None = None) -> Sweep:
 
 def spliced_h_wave_attrs(variant: str) -> dict:
     """Registers a thread and local (spilled) bytes of one of K4's
-    variants, as the card's loader reports them."""
+    variants (global, cluster, chained), as the card's loader reports
+    them."""
     out = (ctypes.c_int * 2)()
     _build.check(_build.load().spliced_h_wave_attrs(
-        int(variant == "cluster"), ctypes.addressof(out)),
-        "spliced_h_wave_attrs")
+        {"global": 0, "cluster": 1, "chained": 2}[variant],
+        ctypes.addressof(out)), "spliced_h_wave_attrs")
     return {"registers": out[0], "local_bytes": out[1]}
 
 

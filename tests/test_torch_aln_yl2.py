@@ -90,6 +90,35 @@ def test_unported_modes_exit(argv, what, tmp_path):
     assert outs[0][0]
 
 
+def _long_protein() -> list:
+    return [str(FIX / "long_protein_gen.fa"), str(FIX / "long_protein_pro.fa")]
+
+
+def test_long_protein_fixture_is_lp2100():
+    """The long-protein fixture is chip_smoke.long_protein_gene's lp2100
+    (2,100 residues in 10 exons, ~8.5 kb), as chip_smoke.py and
+    tools/k4_bench.py make it."""
+    import sys
+    from prrn_aln_tpu_torch import io as tio
+    sys.path.insert(0, str(FIX.parent.parent))
+    from chip_smoke import LONG_PROTEINS, long_protein_gene
+    g, p = long_protein_gene(*LONG_PROTEINS["lp2100"])
+    got = [tio.sniff_and_read(path)[0].seq for path in _long_protein()]
+    assert got == [g, p] and len(p) == 2100
+
+
+@pytest.mark.slow
+def test_aln_yl2_long_protein_matches_jax_scan_engine():
+    """A protein past 2,048 rows (lp2100: 2,101 rows, 14,774 waves, the
+    rows K4 takes on chained clusters on the card) against the JAX scan
+    engine's output (``jax_aln_yl2_long_protein.txt``, which the JAX
+    CLI's default CPU engine gives too).  Slow: the plain sweep takes
+    ~6 minutes on one core; chip_smoke.py holds the card's output to the
+    same bytes."""
+    got = _stdout(["-yl2", *_long_protein(), "--device", "cpu"])
+    assert got == (FIX / "jax_aln_yl2_long_protein.txt").read_text()
+
+
 def test_dna_query_matches_jax_f32_engine():
     g = str(FIX / "mini_gen.fa")
     got = _stdout(["-yl2", g, g, "--device", "cpu"])

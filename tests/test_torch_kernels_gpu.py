@@ -342,18 +342,23 @@ def _rich_pair(seed, L, P, share):
     return "".join(parts)[:L], prot
 
 
-# K4's cases, each with the plan (variant, CTAs) the wrapper picks or,
-# for the names ending in _one_cta and _global, the plan the test asks for
+# K4's cases, each with the plan (variant, CTAs, clusters) the wrapper
+# picks or, for the names ending in _one_cta, _global and _chained, the
+# plan the test asks for (the chained ones: every CTA has rows)
 _K4_CASES = {
-    "mini": ("cluster", 6),
-    "random": ("cluster", 4),
-    "random_one_cta": ("cluster", 1),
-    "random_global": ("global", 1),
-    "rich": ("cluster", 5),
-    "rows527": ("cluster", 6),
-    "rows1100": ("cluster", 7),
-    "long_introns": ("cluster", 6),
-    "long_introns_global": ("global", 1),
+    "mini": ("cluster", 6, 1),
+    "random": ("cluster", 4, 1),
+    "random_one_cta": ("cluster", 1, 1),
+    "random_global": ("global", 1, 1),
+    "random_chained": ("chained", 1, 2),
+    "rich": ("cluster", 5, 1),
+    "rich_chained": ("chained", 1, 3),
+    "rows527": ("cluster", 6, 1),
+    "rows527_chained": ("chained", 2, 3),
+    "rows1100": ("cluster", 7, 1),
+    "long_introns": ("cluster", 6, 1),
+    "long_introns_global": ("global", 1, 1),
+    "long_introns_chained": ("chained", 3, 2),
 }
 
 
@@ -390,25 +395,31 @@ def test_spliced_kernels_match_plain(cuda_device, case):
     121 rows (4 CTAs, and one CTA when asked), 151 rows of a genome rich
     in GT and AG, so that the donor candidate lists fill and evict
     (5 CTAs), 527 rows (6 CTAs of 96) and 1,101 rows (7 CTAs of 160); and
-    the global variant, asked for at 121 rows.  Each case's time is
+    the global variant, asked for at 121 rows; the chained variant, asked
+    for as 2 clusters of one CTA at 121 rows, 3 of one at 151, 3 of 2 at
+    527 and 2 of 3 on the long-intron gene.  Each case's time is
     mostly the plain sweep's, about 12 ms a wave on one H100 (PERF.md
     §6): some 12 s for the 957 waves of the random cases (the plain sweep
-    runs once for the three), 17 s for mini's 1,414, 16 s for rich's
+    runs once for the four), 17 s for mini's 1,414, 16 s for rich's
     1,347, 38 s for the 3,225 waves at 527 rows and 75 s for the 6,657 at
     1,101.  The long-intron gene (introns of 879 and 1,187 nt, 181 rows,
-    3,743 waves) holds both variants to the plain version where the
+    3,743 waves) holds the three variants to the plain version where the
     intron penalty comes from its table by length."""
-    calls = _spliced_calls(*_k4_pair(case), cuda_device)
     base = case.split("_")[0]
+    calls = _spliced_calls(*_k4_pair(base), cuda_device)
     ins, sw = calls["sweep"]
     MR, npen = ins.M + 1, ins.rlmt - ins.llmt + 1
-    variant, ctas = _K4_CASES[case]
-    if case.endswith(("_one_cta", "_global")):
-        plan = tsh.sweep_plan(MR, npen, variant=variant, ctas=ctas)
+    variant, ctas, clusters = _K4_CASES[case]
+    if case.endswith(("_one_cta", "_global", "_chained")):
+        kw = {"clusters": clusters} if variant == "chained" else {}
+        plan = tsh.sweep_plan(MR, npen, variant=variant, ctas=ctas, **kw)
         sw = tsh._launch_sweep(ins, plan)
     else:
         plan = tsh.sweep_plan(MR, npen)
-    assert (plan["variant"], plan["ctas"]) == (variant, ctas)
+    assert (plan["variant"], plan["ctas"], plan["clusters"]) == \
+        (variant, ctas, clusters)
+    if variant == "chained":       # every CTA has rows
+        assert (plan["clusters"] * plan["ctas"] - 1) * plan["rows"] < MR
     if base not in _K4_PLAIN:     # the same inputs: one plain sweep a base
         _K4_PLAIN[base] = tsh.sweep_h_ref(ins)
     ref = _K4_PLAIN[base]
@@ -416,6 +427,95 @@ def test_spliced_kernels_match_plain(cuda_device, case):
         assert torch.equal(getattr(sw, field), getattr(ref, field)), field
     wargs, wk = calls["walk"]
     assert tsh.walk_h_ref(*wargs) == wk
+
+
+def _long_protein():
+    return tuple(tio.sniff_and_read(FIX / f"long_protein_{k}.fa")[0].seq
+                 for k in ("gen", "pro"))
+
+
+@pytest.mark.gpu
+def test_spliced_k4_chained_default_plan(cuda_device):
+    """Past 2,048 rows K4's wrapper picks the chained variant: on lp2100
+    (``tests/fixtures/long_protein_*.fa``, 2,101 rows, ~14,800 waves) its
+    planes and final band equal the global variant's on the card bit for
+    bit, and K4w's knots the plain walk's.  The plain sweep would take
+    some 3 minutes here; the chained variant is held to it under forced
+    plans in test_spliced_kernels_match_plain."""
+    from prrn_aln_tpu_torch.ops import _build
+    _build.LAUNCHES.clear()
+    calls = _spliced_calls(*_long_protein(), cuda_device)
+    assert _build.LAUNCHES["spliced_h_wave"] == 1
+    ins, sw = calls["sweep"]
+    MR, npen = ins.M + 1, ins.rlmt - ins.llmt + 1
+    plan = tsh.launch_plan(MR, npen)
+    assert MR == 2101 and plan["variant"] == "chained"
+    assert plan == tsh.sweep_plan(MR, npen)
+    glob = tsh._launch_sweep(ins, tsh.sweep_plan(MR, npen, variant="global"))
+    for field in tsh.Sweep._fields:
+        assert torch.equal(getattr(sw, field), getattr(glob, field)), field
+    del glob
+    wargs, wk = calls["walk"]
+    assert tsh.walk_h_ref(*wargs) == wk
+
+
+# a copy of K4's source whose column writer never releases its counter,
+# with the reader's stall budget cut to 2**31 cycles (~1 s): a chained
+# launch must then fail with a CUDA error, not hang
+_K4_STALL = (("if (writer) st_release(cnt_out, t);", ""),
+             ("if (writer) st_release(cnt_out, kDone);", ""),
+             ("constexpr long long kStall = 1LL << 35;",
+              "constexpr long long kStall = 1LL << 31;"))
+_K4_STALL_RUN = """
+import ctypes, sys, time, torch
+sys.path.insert(0, sys.argv[2])
+from prrn_aln_tpu_torch.ops import _build, spliced_h as tsh
+from prrn_aln_tpu_torch.splice.hapi import spliced_align_h
+lib = ctypes.CDLL(sys.argv[1])
+for name, argtypes in _build._SIGNATURES.items():
+    if name.startswith("spliced_h_wave"):
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = ctypes.c_int
+_build._lib = lib
+tsh.launch_plan = lambda MR, npen: tsh.sweep_plan(
+    MR, npen, variant="chained", clusters=2, ctas=1)
+rng = __import__("numpy").random.default_rng(11)
+g = "".join("ACGT"[k] for k in rng.integers(0, 4, 600))
+p = "".join("ACDEFGHIKLMNPQRSTVWY"[k] for k in rng.integers(0, 20, 120))
+t0 = time.perf_counter()
+try:
+    spliced_align_h(g, p, device="cuda")
+    torch.cuda.synchronize()
+except Exception as e:
+    print(f"FAILED after {time.perf_counter() - t0:.2f} s: {e}")
+    sys.exit(3)
+print("RAN")
+"""
+
+
+@pytest.mark.gpu
+def test_spliced_k4_chained_stall_traps(cuda_device, tmp_path):
+    """A chained launch whose writer never comes fails fast with a CUDA
+    error instead of hanging: a copy of the source without the counter's
+    releases and with a 2**31-cycle stall budget, built apart and run in
+    a process of its own (a trap ends its CUDA context)."""
+    from prrn_aln_tpu_torch.ops import _build
+    import subprocess
+    src = (_build._CSRC / "spliced_h_wave.cu").read_text()
+    for old, new in _K4_STALL:
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    (tmp_path / "stall.cu").write_text(src)
+    lib = tmp_path / "libstall.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+                    str(lib), str(tmp_path / "stall.cu")], check=True,
+                   capture_output=True, timeout=600)
+    run = subprocess.run([sys.executable, "-c", _K4_STALL_RUN, str(lib),
+                          str(FIX.parent.parent)], capture_output=True,
+                         text=True, timeout=300)
+    assert run.returncode == 3, (run.stdout, run.stderr[-2000:])
+    secs = float(run.stdout.split("FAILED after ")[1].split(" s")[0])
+    assert "CUDA error" in run.stdout and secs < 60, run.stdout
 
 
 def _k3_planes(seed, B, nsteps, nslot, device, offset=0, pdiag=0.7,

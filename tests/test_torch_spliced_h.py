@@ -285,20 +285,24 @@ def test_walk_matches_jax_host_walker(case):
 # ---------------------------------------------------------------------
 # (iv) K4's launch plan (csrc/spliced_h_wave.cu reads it; pure Python)
 
-# M + 1 -> variant, CTAs, rows a CTA, rows a thread, shared bytes a CTA,
-# with the default 806-entry penalty table: 4 * (162 * rows + 26 + 6,144
-# + 806 + 256) for the cluster variant, 4 * (806 + 256) for the global
-# one
+# M + 1 -> variant, clusters, CTAs a cluster, rows a CTA, rows a thread,
+# shared bytes a CTA, with the default 806-entry penalty table: 4 * (162 *
+# rows + 26 + 6,144 + 806 + 256) for the cluster variant, 4 * 264 more
+# for the chained one (the column's landing ring and stage)
 PLANS = {
-    1: ("cluster", 1, 32, 1, 49664),
-    173: ("cluster", 6, 32, 1, 49664),
-    512: ("cluster", 8, 64, 1, 70400),
-    513: ("cluster", 6, 96, 1, 91136),
-    527: ("cluster", 6, 96, 1, 91136),
-    1100: ("cluster", 7, 160, 1, 132608),
-    2048: ("cluster", 8, 256, 1, 194816),
-    2049: ("global", 1, 416, 5, 4248),
-    4000: ("global", 1, 512, 8, 4248),
+    1: ("cluster", 1, 1, 32, 1, 49664),
+    173: ("cluster", 1, 6, 32, 1, 49664),
+    512: ("cluster", 1, 8, 64, 1, 70400),
+    513: ("cluster", 1, 6, 96, 1, 91136),
+    527: ("cluster", 1, 6, 96, 1, 91136),
+    1100: ("cluster", 1, 7, 160, 1, 132608),
+    2048: ("cluster", 1, 8, 256, 1, 194816),
+    2049: ("chained", 3, 8, 96, 1, 92192),
+    2100: ("chained", 3, 8, 96, 1, 92192),
+    3501: ("chained", 5, 8, 96, 1, 92192),
+    4000: ("chained", 6, 7, 96, 1, 92192),
+    8193: ("chained", 11, 8, 96, 1, 92192),
+    20000: ("chained", 27, 8, 96, 1, 92192),
 }
 
 
@@ -306,15 +310,21 @@ PLANS = {
 def test_sweep_plan(MR):
     """One row a thread in whole warps over at most 8 CTAs up to 2,048
     rows, every row covered, the slab the smallest 8 CTAs hold; past
-    that the global variant, rows spread over at most 512 threads."""
+    that the chained variant, clusters of 8 CTAs of 96 rows (the card
+    not asked how many it holds), every cluster with rows."""
     plan = sh.sweep_plan(MR, 806)
-    assert (plan["variant"], plan["ctas"], plan["rows"], plan["rpt"],
-            plan["smem"]) == PLANS[MR]
-    assert plan["ctas"] * plan["rows"] * plan["rpt"] >= MR
+    assert (plan["variant"], plan["clusters"], plan["ctas"], plan["rows"],
+            plan["rpt"], plan["smem"]) == PLANS[MR]
+    rows_c = plan["ctas"] * plan["rows"] * plan["rpt"]
+    assert plan["clusters"] * rows_c >= MR
+    assert (plan["clusters"] - 1) * rows_c < MR
+    assert plan["rows"] % 32 == 0 and plan["rows"] <= sh.K4_ROWS_MAX
     if plan["variant"] == "cluster":
-        assert plan["rows"] % 32 == 0
         assert (plan["ctas"] - 1) * plan["rows"] < MR
         assert plan["rows"] == sh.sweep_plan(MR, 806, ctas=8)["rows"]
+    else:
+        assert plan["smem"] == 4 * (sh.K4_CHAIN_WORDS + sh.K4_ROW_WORDS
+                                    * plan["rows"] + 26 + 6144 + 806 + 256)
 
 
 @pytest.mark.parametrize("MR, ctas, rows", [(121, 1, 128), (527, 3, 192),
@@ -327,15 +337,48 @@ def test_sweep_plan_cluster_size_asked(MR, ctas, rows):
                                 + 256)
 
 
+@pytest.mark.parametrize("MR, kw, want", [
+    (121, dict(clusters=2, ctas=1), (2, 1, 64)),
+    (151, dict(clusters=3, ctas=1), (3, 1, 64)),
+    (527, dict(clusters=3, ctas=2), (3, 2, 96)),
+    (181, dict(clusters=2, ctas=3), (2, 3, 32)),
+    (2100, dict(clusters=3), (3, 8, 96)),
+    (3501, dict(ctas=16), (3, 13, 96)),
+    (20000, dict(held=16), (16, 8, 160)),
+    (8193, dict(held=8), (8, 7, 160))])
+def test_sweep_plan_chained_asked(MR, kw, want):
+    """The chained variant under asked plans (clusters, CTAs a cluster,
+    or the clusters the card holds at once): the smallest slab in whole
+    warps the clusters' CTAs hold, over as few CTAs and clusters as it
+    needs, so that every cluster has rows."""
+    plan = sh.sweep_plan(MR, 806, variant="chained", **kw)
+    assert (plan["clusters"], plan["ctas"], plan["rows"]) == want
+    rows_c = plan["ctas"] * plan["rows"]
+    assert plan["clusters"] * rows_c >= MR > (plan["clusters"] - 1) * rows_c
+    assert plan["smem"] == 4 * (sh.K4_CHAIN_WORDS + sh.K4_ROW_WORDS
+                                * plan["rows"] + 26 + 6144 + 806 + 256)
+
+
 @pytest.mark.parametrize("kw", [dict(MR=527, variant="cluster", ctas=2),
                                 dict(MR=100, variant="cluster", ctas=9),
                                 dict(MR=100, variant="global", ctas=2),
                                 dict(MR=100, variant="shared"),
-                                dict(MR=4000, npen=60000)])
+                                dict(MR=4000, npen=60000),
+                                dict(MR=400, variant="chained", clusters=1),
+                                dict(MR=20, variant="chained", clusters=2),
+                                dict(MR=4000, variant="chained", clusters=2,
+                                     ctas=1),
+                                dict(MR=5000, variant="chained", ctas=17),
+                                dict(MR=2100, variant="global", clusters=2),
+                                dict(MR=3000, variant="cluster"),
+                                dict(MR=40000, variant="chained", held=16)])
 def test_sweep_plan_refuses_what_the_kernel_cannot_take(kw):
-    """More than 256 rows a CTA or 8 CTAs, more than one block of the
-    global variant, an unknown variant, more than 227 KB of shared
-    memory: the plan raises, and nothing falls back to another plan."""
+    """More than 256 rows a CTA or 8 CTAs (16 chained), more than one
+    block of the global variant, an unknown variant, more than 227 KB of
+    shared memory, a chained plan of one cluster (asked for, or all the
+    rows fit one), clusters that cannot cover the rows, more rows than
+    the clusters the card holds can take: the plan raises, and nothing
+    falls back to another plan."""
     kw = dict(kw)
     MR, npen = kw.pop("MR"), kw.pop("npen", 806)
     with pytest.raises(ValueError):

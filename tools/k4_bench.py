@@ -6,6 +6,8 @@ Run from the repository root:
 
     python3 tools/k4_bench.py                      # both variants, held to each other
     python3 tools/k4_bench.py --ctas 2,4,8         # cluster sizes besides the default
+    python3 tools/k4_bench.py --shapes lp3500 --chained "clusters=4,ctas=14;ctas=16"
+                                                   # chained plans besides the default
     python3 tools/k4_bench.py --root DIR --digests FILE
                                                    # another checkout's K4, held to FILE
     python3 tools/k4_bench.py --sass FILE          # the kernels' SASS into FILE
@@ -20,11 +22,18 @@ Shapes (inputs as ``aln -yl2`` packs them, through the port's own path):
 - ``q1100``: a 1,100-residue random protein against 3.6 kb of random
   genome rich in GT and AG (seed 3), 1,101 rows;
 - ``flagship``: the window at 31,400 in seeded random flanks to 34.9 kb
-  x ``ce13a.msa``, 527 rows x 36,475 waves.
+  x ``ce13a.msa``, 527 rows x 36,475 waves;
+- ``lp2100``, ``lp3500``: ``chip_smoke.long_protein_gene``'s seeded
+  genes past one cluster (2,101 rows x ~14,800 waves, 3,501 x ~46,500),
+  whose default plan is the chained variant.
 
-In this checkout each shape runs the default plan, the cluster sizes
-``--ctas`` asks for and the global variant; every timed call's planes
-equal the other variant's bit for bit, or the script raises.  Each line
+In this checkout each shape runs the default plan (within what the card
+holds at once), the cluster sizes ``--ctas`` asks for, the chained plans
+``--chained`` asks for (``;``-separated, each ``clusters=C,ctas=K`` or
+either alone; a plan the shape or the card cannot take is reported and
+skipped) and the global variant; every timed call's planes equal the
+global variant's (the global variant's the first other plan's) bit for
+bit, or the script raises.  Each line
 carries a digest of the planes (ev, jd, V, D).  ``--root`` imports
 ``prrn_aln_tpu_torch`` from another checkout (an unpacked parent commit)
 and times its K4 as it launches it; ``--digests`` then holds its planes
@@ -62,7 +71,7 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 FIX = REPO / "tests" / "fixtures"
-SHAPES = ("mini", "win_msa", "q1100", "flagship")
+SHAPES = ("mini", "win_msa", "q1100", "flagship", "lp2100", "lp3500")
 # parts of the cluster variant an ablation changes in a copy of the
 # sources: the release (fence) of the cluster barrier's arrival (the
 # planes are then not checked; the time says what the fence costs)
@@ -142,6 +151,11 @@ def capture_inputs(name: str, SH, aln_main, spliced_align_h, pio):
         if name == "q1100":
             g, p = rich_pair(3, 3600, 1100, 0.2)
             spliced_align_h(g, p, device="cuda")
+        elif name.startswith("lp"):
+            sys.path.insert(0, str(REPO))
+            from chip_smoke import LONG_PROTEINS, long_protein_gene
+            spliced_align_h(*long_protein_gene(*LONG_PROTEINS[name]),
+                            device="cuda")
         else:
             with tempfile.TemporaryDirectory() as tmp:
                 if name == "flagship":
@@ -242,8 +256,8 @@ def profiled_sources(root: Path) -> Path:
     head = text.index("spliced_h_wave_cluster(Params p) {")
     pre, body = text[:head], text[head:]
     nsec = len(PROFILE_SECTIONS)
-    body = body.replace("  const int m = rank * R + lm;\n",
-                        "  const int m = rank * R + lm;\n"
+    body = body.replace("  const int m = i0 + rank * R + lm;\n",
+                        "  const int m = i0 + rank * R + lm;\n"
                         f"  long long prof_t = 0, prof_acc[{nsec}] = {{0}};\n", 1)
     for k, (_, line) in enumerate(PROFILE_SECTIONS):
         if body.count(line) != 1:
@@ -306,6 +320,9 @@ def main(argv=None) -> int:
     ap.add_argument("--shapes", default=",".join(SHAPES))
     ap.add_argument("--ctas", default="",
                     help="cluster sizes to time besides the default plan")
+    ap.add_argument("--chained", default="",
+                    help="chained plans to time besides the default, "
+                         "';'-separated, each 'clusters=C,ctas=K'")
     ap.add_argument("--digests", type=Path,
                     help="JSON lines of an earlier run to hold planes to")
     ap.add_argument("--out", type=Path)
@@ -353,18 +370,31 @@ def main(argv=None) -> int:
     _build.load()
     if args.sass:
         dump_sass(args.sass, _build)
-    attrs = ({v: SH.spliced_h_wave_attrs(v) for v in ("cluster", "global")}
+    variants = ("cluster", "chained", "global") if hasattr(
+        SH, "launch_plan") else ("cluster", "global")
+    attrs = ({v: SH.spliced_h_wave_attrs(v) for v in variants}
              if this else {})
+    default_plan = getattr(SH, "launch_plan", SH.sweep_plan)
+    chained = [dict((k, int(v)) for k, v in
+                    (kv.split("=") for kv in spec.split(",")))
+               for spec in filter(None, args.chained.split(";"))]
     for name in args.shapes.split(","):
         ins = capture_inputs(name, SH, aln_main, spliced_align_h, pio)
         MR, npen = ins.M + 1, ins.rlmt - ins.llmt + 1
         if this:
-            plans = [SH.sweep_plan(MR, npen)]
-            for c in filter(None, args.ctas.split(",")):
+            plans = [default_plan(MR, npen)]
+            asked = [("cluster", {"ctas": int(c)})
+                     for c in filter(None, args.ctas.split(","))]
+            asked += [("chained", kw) for kw in chained]
+            for variant, kw in asked:
                 try:
-                    plan = SH.sweep_plan(MR, npen, variant="cluster",
-                                         ctas=int(c))
-                except ValueError:
+                    plan = SH.sweep_plan(MR, npen, variant=variant, **kw)
+                    if variant == "chained" and plan["clusters"] > \
+                            SH.clusters_held(plan, npen):
+                        raise ValueError("more clusters than the card holds")
+                except ValueError as e:
+                    emit({"shape": name, "refused": {variant: kw},
+                          "why": str(e)})
                     continue
                 if plan not in plans:
                     plans.append(plan)
@@ -372,7 +402,7 @@ def main(argv=None) -> int:
             outs = [SH._launch_sweep(ins, plan) for plan in plans]
             glob = outs[-1]
             other = next((o for p, o in zip(plans, outs)
-                          if p["variant"] == "cluster"), None)
+                          if p["variant"] != "global"), None)
         else:
             plans = [{"variant": "parent"}]
             outs = [SH._launch_sweep(ins)]
@@ -391,11 +421,15 @@ def main(argv=None) -> int:
             if name in want and want[name] != d:
                 raise AssertionError(f"K4 planes on {name} differ from "
                                      f"{args.digests}")
-            ms = time_ms(fn, args.reps)
+            # the global variant takes seconds a call on the long proteins
+            slow = plan["variant"] == "global" and ins.waves * MR > 2e7
+            ms = time_ms(fn, 1 if slow else args.reps)
             emit({"shape": name, "root": str(root), "rows": MR,
                   "waves": ins.waves, "ms": ms,
                   "us_per_wave": ms * 1e3 / ins.waves,
-                  "variant": plan["variant"], "ctas": plan.get("ctas"),
+                  "variant": plan["variant"],
+                  "clusters": plan.get("clusters", 1),
+                  "ctas": plan.get("ctas"),
                   "rows_a_cta": plan.get("rows"),
                   "smem": plan.get("smem"),
                   **attrs.get(plan["variant"], {}), "digest": d,
@@ -403,7 +437,8 @@ def main(argv=None) -> int:
                   "held_to": ("other variant" if this and (
                       not args.ablate or args.ablate in SCHEDULES)
                               else "digests" if name in want else None)})
-        if args.profile and this and plans[0]["variant"] == "cluster":
+        outs = glob = other = sw = None
+        if args.profile and this and plans[0]["variant"] != "global":
             profile_read(_build, 1, 1, clear=True)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)

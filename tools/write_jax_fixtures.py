@@ -22,7 +22,12 @@ The spliced fixtures come from the JAX package's f32 engines, which it
 runs on an accelerator (on a CPU it picks the float64 oracle):
 ``jax_aln_G_gen{1,2}_<mode>.txt`` and ``jax_aln_yl2_mini_dna.txt`` are
 ``aln -G``/``-yl2`` with a DNA query, ``splice.api.spliced_align`` called
-with ``engine="device"``; ``jax_refgs_*.txt`` are ``refgs`` on the
+with ``engine="device"``; ``jax_aln_yl2_long_protein.txt`` is ``aln
+-yl2`` on ``long_protein_{gen,pro}.fa`` (``chip_smoke.long_protein_gene``'s
+lp2100, 2,101 rows) with ``splice.hapi.spliced_align_h`` called with
+``engine="device"``: past 1,024 rows ``forward_h_device`` runs its scan
+engine ``_sweep_h``, which K4 reproduces (~4 min on one core);
+``jax_refgs_*.txt`` are ``refgs`` on the
 family of ``chip_smoke.refgs_family_inputs`` with ``splice.hapi.spliced_align_h``
 called with ``engine="device"``.  Both are wrapped for the run only;
 ``aln_main`` and ``refgs`` import them inside the function, so the wrap
@@ -227,6 +232,10 @@ def main() -> int:
                      str(FIX / f"cdna{case}.fa")]))
     mini = str(FIX / "mini_gen.fa")
     jobs["jax_aln_yl2_mini_dna.txt"] = lambda: aln_dna(["-yl2", mini, mini])
+    # a protein past 1,024 rows: forward_h_device's scan engine (_sweep_h)
+    jobs["jax_aln_yl2_long_protein.txt"] = lambda: aln_dna(
+        ["-yl2", str(FIX / "long_protein_gen.fa"),
+         str(FIX / "long_protein_pro.fa")])
     for name, job in jobs.items():
         if args.only and name not in args.only:
             continue
