@@ -86,19 +86,29 @@ Phases (each raises on failure, so the script exits non-zero):
    line;
 12. long pairs (``long_pair``): a 20 kb random DNA sequence and a mutant
    (3 % substitutions, two short indels) at the default window, 24,064
-   slots (K2's wide variant).  (a) K2 resumed from carries against its
-   plain version, bit for bit (planes, score, output carry), on the
-   chunk at step 0 and two later chunks of 256 steps (one at an odd
-   step), each from the kernel's own carry; the same on a 1,000 x 1,040
-   protein pair of 3 members a side, ls=1 and ls=3, in the shared and
-   the global variants; K3's range walk in both variants against its
-   plain version on every one of those chunks.  (b) ``group_align`` and
-   ``group_align_linear`` (chunks of 2,048 steps) on the pair: equal
-   score bits and SKL, each one's wall, K2's variant, microseconds a
-   step and registers, and peak device memory (the linear aligner's
-   under a fifth of the standard's).  (c) ``seeded_align`` on the pair
-   against (b)'s standard result (score within rel 1e-5 / abs 1e-2,
-   the same SKL), its anchors, sub-DP batch and wall.
+   slots (K2's cluster variant on the default plan, asserted).  (a) K2
+   resumed from carries against its plain version, bit for bit (planes,
+   score, output carry), on the chunk at step 0 and two later chunks of
+   256 steps (one at an odd step), each from the kernel's own carry, in
+   the cluster variant and in the wide variant (asked for); the same on
+   a 1,000 x 1,040 protein pair of 3 members a side, ls=1 and ls=3, in
+   the shared and the global variants; K3's range walk in both variants
+   against its plain version on every one of those chunks.  (b)
+   ``group_align`` and ``group_align_linear`` (chunks of 2,048 steps) on
+   the pair, on the default plan and on the wide plan (the parent
+   design's: the wide variant where the default takes the cluster
+   variant): equal score bits and SKL all four, each one's wall, K2's
+   variant, CTAs, microseconds a step and registers, and peak device
+   memory (the linear aligner's under a fifth of the standard's).  (c)
+   ``seeded_align`` on the pair against (b)'s standard result (score
+   within rel 1e-5 / abs 1e-2, the same SKL), its anchors, sub-DP batch
+   and wall.  (d) ``prrn -R 0`` on a seeded DNA family (``DNA_FAMILY``:
+   a 6 kb sequence and four mutants at 3-10 % substitutions with short
+   indels, written as FASTA; every progressive merge past 6,280 slots),
+   cold and warm on the default plan and on the wide plan:
+   byte-identical output, the default's merges on the cluster variant;
+   K2's launches, each launch's variant, CTAs and slots, K2's summed
+   time (CUDA events) and the walls; then the card line.
 13. the ``prrn`` and ``aln`` modes (``cli_modes``), each run once with
    the launch counts set to 0 just before it, byte-identical to the JAX
    package's output fixture (``tools/write_jax_fixtures.py``): ``prrn -U
@@ -223,6 +233,9 @@ F64_OPS = 34e12
 LONG_PAIR = {"dna_nt": 20000, "dna_starts": (0, 10001, 20480),
              "chunk": 2048, "prot": (1000, 1040),
              "prot_starts": (0, 777, 1536)}
+# phase 12 (d): the DNA family's base length, its mutants' substitution
+# rates and short indels each
+DNA_FAMILY = {"nt": 6000, "subs": (0.03, 0.05, 0.08, 0.10), "indels": 3}
 # gene-prediction inputs: genome, query
 ALN_CASES = {"mini": ("mini_gen.fa", "mini_pro.fa"),
              "win_single": ("cet10b9_win31401.fa", "ce13a1_unaligned.fa"),
@@ -1649,12 +1662,49 @@ def chunk_check(name: str, ins: dict, nslot: int, ls3: bool,
                                       **kw), 3),
             "plain_ms": plain_ms, **k2_chunk_bound(ins, d0, 256, nslot)}
     plan = G.wavefront_plan(ins, nslot=nslot, ls3=ls3, variant=variant)
+    out.update(variant=plan["variant"], ctas=plan["ctas"], runs=plan["runs"],
+               **G.group_wavefront_attrs(ls3, plan["variant"], plan["runs"]))
     emit({"phase": f"long_pair_chunks_{name}", "starts": list(starts),
-          "nslot": nslot, "variant": plan["variant"], "ls3": ls3,
-          "planes_equal": True, "scores_equal": True, "carries_equal": True,
-          "range_walks_equal": True, "last_chunk": out,
-          **G.group_wavefront_attrs(ls3, plan["variant"])})
+          "nslot": nslot, "ls3": ls3, "planes_equal": True,
+          "scores_equal": True, "carries_equal": True,
+          "range_walks_equal": True, "last_chunk": out})
     return out
+
+
+def wide_plan_of(plan):
+    """K2's plan of the design before the cluster variant, on top of
+    ``plan``: the wide variant wherever ``plan`` takes the cluster
+    variant by default."""
+    def wide(ins, *, nslot, ls3=False, variant=None, ctas=None):
+        if variant is None and plan(ins, nslot=nslot,
+                                    ls3=ls3)["variant"] == "cluster":
+            variant = "wide"
+        return plan(ins, nslot=nslot, ls3=ls3, variant=variant, ctas=ctas)
+    return wide
+
+
+@contextlib.contextmanager
+def k2_wide_plan():
+    """K2's wrapper on the wide plan for the calls inside."""
+    real = G.wavefront_plan
+    G.wavefront_plan = wide_plan_of(real)
+    try:
+        yield
+    finally:
+        G.wavefront_plan = real
+
+
+def probe_summary_k2(rec) -> dict:
+    """K2's launches by plan (variant:CTAs:runs), its summed time (CUDA
+    events) and its steps, from ``long_probe``'s record."""
+    torch.cuda.synchronize()
+    calls = rec["k2_calls"]
+    by_plan = collections.Counter(f"{v}:{c}:{r}" for *_, v, c, r in calls)
+    return {"k2_launches": len(calls), "k2_plans": dict(by_plan),
+            "k2_ms": sum(a.elapsed_time(b)
+                         for a, b in rec["events"]["group_wavefront"]),
+            "k2_steps": sum(c[2] for c in calls),
+            "widest_slots": max((c[1] for c in calls), default=0)}
 
 
 @contextlib.contextmanager
@@ -1663,7 +1713,7 @@ def long_probe(k2_d0=None):
     arguments of the first K2 call at step ``k2_d0`` and those of the
     first range walk there but its planes (none is kept, so the probe
     leaves the peak memory as it was); each K2 call's pairs, slots and
-    steps."""
+    steps, and its plan's variant, CTAs and where the runs live."""
     rec = {"events": collections.defaultdict(list), "walk": None,
            "k2": None, "k2_calls": []}
 
@@ -1677,8 +1727,12 @@ def long_probe(k2_d0=None):
             rec["events"][name].append((start, end))
             if name == "group_wavefront":
                 ins = args[0]
+                plan = G.wavefront_plan(
+                    ins, nslot=kwargs["nslot"], ls3=kwargs.get("ls3", False),
+                    variant=kwargs.get("variant"), ctas=kwargs.get("ctas"))
                 rec["k2_calls"].append((ins["CA"].shape[0], kwargs["nslot"],
-                                        kwargs["nsteps"]))
+                                        kwargs["nsteps"], plan["variant"],
+                                        plan["ctas"], plan["runs"]))
                 if rec["k2"] is None and kwargs.get("d0") == k2_d0:
                     rec["k2"] = (ins, kwargs)
             elif rec["walk"] is None and int(args[5][0]) == k2_d0:
@@ -1728,10 +1782,15 @@ def phase_long_pair(dev) -> dict:
     ins = G.stack_inputs([G._pack_inputs(
         A, B, dna, 2.0, 9.0, w, 1, 1, G._bucket(La), G._bucket(Lb),
         uniform=False)], dev)
-    if G.wavefront_plan(ins, nslot=nslot)["variant"] != "wide":
-        raise AssertionError("the 20 kb pair did not take K2's wide variant")
-    # (a) carried chunks, kernel against plain version
-    wide_chunk = chunk_check("dna20k", ins, nslot, False, None,
+    plan = G.wavefront_plan(ins, nslot=nslot)
+    if plan["variant"] != "cluster":
+        raise AssertionError("the 20 kb pair did not take K2's cluster "
+                             f"variant: {plan}")
+    # (a) carried chunks, kernel against plain version, in the cluster
+    # variant and the wide variant
+    cluster_chunk = chunk_check("dna20k", ins, nslot, False, None,
+                                LONG_PAIR["dna_starts"])
+    wide_chunk = chunk_check("dna20k_wide", ins, nslot, False, "wide",
                              LONG_PAIR["dna_starts"])
     prot, _ = scoring.protein_matrix(AlnParams(pam=150))
     prng = np.random.default_rng(1)
@@ -1786,12 +1845,30 @@ def phase_long_pair(dev) -> dict:
     if not 5 * lin_peak < std_peak:
         raise AssertionError(f"linear peak {lin_peak} bytes is not under a "
                              f"fifth of the standard's {std_peak}")
+    # the same two on the wide plan
+    wide = {}
+    with k2_wide_plan():
+        for name, fn in (("standard", lambda: G.group_align(
+                A, B, dna, 2.0, 9.0, device=dev)),
+                         ("linear", lambda: G.group_align_linear(
+                A, B, dna, 2.0, 9.0, chunk=chunk, device=dev))):
+            with long_probe() as wprobe:
+                (res, wall, launches, _) = measured(fn)
+            if (np.float32(res[0]).view(np.int32)
+                    != np.float32(std[0]).view(np.int32) or res[1] != std[1]):
+                raise AssertionError(f"{name} on the wide plan: score "
+                                     f"{res[0]} or SKL != the default's")
+            wide[name] = {"wall_s": wall, "launches": launches,
+                          **probe_summary_k2(wprobe)}
+            if set(wide[name]["k2_plans"]) != {"wide:1:device"}:
+                raise AssertionError(f"the wide plan took {wide[name]}")
     std_steps = G._bucket(La + Lb + 1)
     lin_steps = k2_calls * chunk
-    regs = G.group_wavefront_attrs(False, "wide")
+    regs = G.group_wavefront_attrs(False, "cluster", plan["runs"])
     emit({"phase": "long_pair_align", "la": La, "lb": Lb, "nslot": nslot,
           "score": std[0], "scores_equal": True, "skls_equal": True,
-          "skl_vertices": len(std[1]), "k2_variant": "wide", **regs,
+          "skl_vertices": len(std[1]), "k2_variant": "cluster",
+          "ctas": plan["ctas"], "runs": plan["runs"], **regs,
           "standard": {"wall_s": std_wall, "peak_bytes": std_peak,
                        "launches": std_launch, "k2_ms": std_k2,
                        "steps": std_steps,
@@ -1801,7 +1878,8 @@ def phase_long_pair(dev) -> dict:
                      "k2_calls": k2_calls, "steps": lin_steps,
                      "us_per_step": lin_k2 * 1e3 / lin_steps,
                      "range_walk_ms": lin_walk},
-          "peak_ratio": lin_peak / std_peak})
+          "peak_ratio": lin_peak / std_peak, "wide_plan": wide,
+          "wide_plan_scores_equal": True, "wide_plan_skls_equal": True})
 
     # K2 and the range walk at the linear aligner's shapes: its forward
     # pass's middle chunk, and the walk of that chunk's recomputed planes
@@ -1850,18 +1928,92 @@ def phase_long_pair(dev) -> dict:
           "anchors": len(anchors),
           "anchored_nt": sum(h.length - 24 for h in anchors),
           "sub_dp_batches": [{"pairs": b, "nslot": s, "nsteps": t}
-                             for b, s, t in batches],
+                             for b, s, t, *_ in batches],
           "wall_s": sd_wall, "peak_bytes": sd_peak, "launches": sd_launch})
-    k2_long = {"launches": lin_launch["group_wavefront"], "variant": "wide",
+    with k2_wide_plan():
+        wide_ms = time_ms(lambda: G.group_wavefront(k2ins, **k2kw), 3)
+    k2_long = {"launches": lin_launch["group_wavefront"],
                "chunk_ms": chunk_ms, "chunk_steps": chunk, "chunk_d0": mid,
-               "us_per_step": chunk_ms * 1e3 / chunk, **wide_chunk,
+               "us_per_step": chunk_ms * 1e3 / chunk, **cluster_chunk,
                "max_abs_err": 0.0, "standard_k2_ms": std_k2,
-               "linear_k2_ms": lin_k2}
+               "linear_k2_ms": lin_k2, "standard_wall_s": std_wall,
+               "linear_wall_s": lin_wall,
+               "wide": {"chunk_ms": wide_ms,
+                        "us_per_step": wide_ms * 1e3 / chunk, **wide_chunk,
+                        "standard_k2_ms": wide["standard"]["k2_ms"],
+                        "linear_k2_ms": wide["linear"]["k2_ms"],
+                        "standard_wall_s": wide["standard"]["wall_s"],
+                        "linear_wall_s": wide["linear"]["wall_s"]}}
     walk_entry = {"name": "traceback_range", "route": "cuda",
                   "source": "prrn_aln_tpu_torch/csrc/traceback.cu",
                   "replaces": "prrn_aln_tpu/ops/group.py:678",
                   "launches": lin_launch["traceback_range"], **walk}
     return k2_long, walk_entry
+
+
+def dna_family_fasta(path: Path) -> int:
+    """``DNA_FAMILY`` as FASTA at ``path``: a seeded random sequence and
+    its mutants (substitutions and short indels); returns the longest
+    length."""
+    rng = np.random.default_rng(7)
+    base = rng.integers(0, 4, DNA_FAMILY["nt"])
+    seqs = [base] + [mutate(rng, base, sub, DNA_FAMILY["indels"])
+                     for sub in DNA_FAMILY["subs"]]
+    path.write_text("".join(
+        f">dna{i}\n" + "\n".join(s[j:j + 60] for j in range(0, len(s), 60))
+        + "\n" for i, s in enumerate("".join("ACGT"[c] for c in x)
+                                     for x in seqs)))
+    return max(len(s) for s in seqs)
+
+
+def phase_dna_family() -> dict:
+    """Phase 12 (d): ``prrn -R 0`` on ``DNA_FAMILY``, cold and warm on
+    K2's default plan and on the wide plan; returns K2's entry for the
+    kernels line."""
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "dnafam6k.fa"
+        longest = dna_family_fasta(path)
+        for plan, scope in (("default", contextlib.nullcontext),
+                            ("wide", k2_wide_plan)):
+            for run in ("cold", "warm"):
+                with scope(), long_probe() as probe:
+                    text, secs, launches = run_cli(prrn_main,
+                                                   ["-R", "0", str(path)])
+                rec = {"seconds": secs, "launches": launches,
+                       **probe_summary_k2(probe)}
+                runs[(plan, run)] = (text, rec, probe["k2_calls"])
+    texts = {text for text, _, _ in runs.values()}
+    if len(texts) != 1:
+        raise AssertionError("prrn -R 0 on the DNA family differs between "
+                             "the default and the wide plan or cold and "
+                             "warm")
+    calls = runs[("default", "warm")][2]
+    past = [c for c in calls  # bands past what one block holds
+            if 21 * c[1] + 4 * G.K2_SPAN * ((c[1] + 1) // 2) > G.SMEM_MAX]
+    if not past or any(c[3] != "cluster" for c in past):
+        raise AssertionError("the DNA family's merges past one block did "
+                             f"not take the cluster variant: {calls}")
+    if any(c[3] == "cluster" for c in runs[("wide", "warm")][2]):
+        raise AssertionError("the wide plan took the cluster variant")
+    out = {plan: {run: runs[(plan, run)][1] for run in ("cold", "warm")}
+           for plan in ("default", "wide")}
+    emit({"phase": "long_pair_dna_family", "sequences": 1 + len(
+        DNA_FAMILY["subs"]), "longest_nt": longest, "output_equal": True,
+        "bytes": len(texts.pop()), **out,
+        "k2_calls_default_warm": [list(c) for c in calls]})
+    print(card_line(), flush=True)
+    warm = out["default"]["warm"]
+    return {"launches": warm["k2_launches"], "plans": warm["k2_plans"],
+            "k2_ms": warm["k2_ms"],
+            "us_per_step": warm["k2_ms"] * 1e3 / warm["k2_steps"],
+            "wall_s": {run: out["default"][run]["seconds"]
+                       for run in ("cold", "warm")},
+            "wide": {"k2_ms": out["wide"]["warm"]["k2_ms"],
+                     "us_per_step": out["wide"]["warm"]["k2_ms"] * 1e3
+                     / out["wide"]["warm"]["k2_steps"],
+                     "wall_s": {run: out["wide"][run]["seconds"]
+                                for run in ("cold", "warm")}}}
 
 
 GROUPS = "1 2/3-5/6"
@@ -3134,6 +3286,7 @@ def main() -> int:
     phase_flagship()
     k4_chained = phase_aln_yl2_long_protein()
     k2_long, walk_entry = phase_long_pair(dev)
+    k2_family = phase_dna_family()
     cli = phase_cli_modes()
     aln_G = phase_aln_G()
     phyln = phase_utils_cli()
@@ -3166,7 +3319,8 @@ def main() -> int:
          "launches": launches["group_wavefront"], **k2,
          "fam19": {"launches": forest_runs["cold"]["group_wavefront"],
                    **k2_fam19},
-         "long_pair": k2_long, "cli_modes": cli_launches("group_wavefront")},
+         "long_pair": k2_long, "dna_family": k2_family,
+         "cli_modes": cli_launches("group_wavefront")},
         {"name": "traceback", "route": "cuda",
          "source": "prrn_aln_tpu_torch/csrc/traceback.cu",
          "replaces": "prrn_aln_tpu/ops/group.py:595",

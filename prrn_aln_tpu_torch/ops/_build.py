@@ -35,8 +35,8 @@ _SIGNATURES = {
     "pairwise_scores_launch": [_vp] * 12 + [_int] * 11 + [_vp],
     "pairwise_rows_launch": [_vp] * 12 + [_int] * 11 + [_vp],
     "pairwise_rows_attrs": [_int, _int, _vp],
-    "group_wavefront_launch": [_vp] * 22 + [_int] * 13 + [_vp],
-    "group_wavefront_attrs": [_int, _int, _vp],
+    "group_wavefront_launch": [_vp] * 22 + [_int] * 15 + [_vp],
+    "group_wavefront_attrs": [_int, _int, _int, _vp],
     "pairwise_scores_attrs": [_int, _int, _int, _vp],
     "traceback_launch": [_vp] * 12 + [_int] * 9 + [_vp],
     "traceback_attrs": [_int, _vp],

@@ -633,6 +633,13 @@ def group_wavefront_ref(ins: dict, *, nslot: int, nsteps: int,
 SMEM_MAX = 232448
 # steps whose profile scores K2 computes at once (kSpan in the kernel)
 K2_SPAN = 8
+# K2's threads a block (kMaxThreads) and CTAs a cluster of its cluster
+# variant (kClusterMax, the non-portable most on the H100)
+K2_THREADS = 512
+K2_CLUSTER_MAX = 16
+# bytes of a gap-run word in K2's shared memory, by where the runs live
+# (the kernel's run_bytes; "device": int32 in the output carry)
+RUN_BYTES = {"shared16": 2, "shared32": 4, "device": 0}
 
 
 def member_counts(w: torch.Tensor) -> torch.Tensor:
@@ -644,55 +651,129 @@ def member_counts(w: torch.Tensor) -> torch.Tensor:
     return torch.where(w != 0, idx, 0).amax(1).clamp_min(1).to(torch.int32)
 
 
+def cluster_shape(an_max: int, bn_max: int, nslot: int, la_max: int,
+                  lb_max: int, ls3: bool,
+                  ctas: int | None = None) -> dict | None:
+    """The cluster variant's shape for a launch, or None where it does
+    not fit.
+
+    CTA r of a pair's cluster of ``ctas`` takes slot pairs ``r * npairs
+    // ctas`` to ``(r + 1) * npairs // ctas - 1``; each CTA's shared
+    memory holds the profile scores of the next ``K2_SPAN`` steps of its
+    ``pairs_per_cta`` slot pairs (f32), and over their slots and a halo
+    slot each side the lane values and Hdir (21 bytes a slot) and, where
+    they fit, the gap runs: as int16 where no run can pass int16
+    ("shared16"), else as int32 ("shared32"); where they do not fit,
+    "device": int32 in the output carry.  By default the fewest CTAs from
+    one live slot a thread (``K2_THREADS`` slot pairs a CTA) up to
+    ``K2_CLUSTER_MAX`` that hold the runs, else the fewest that hold the
+    rest; ``ctas`` asks for a size (1 to ``K2_CLUSTER_MAX``, at most one
+    CTA a slot pair).
+    """
+    npairs = (nslot + 1) // 2
+    rows = (5 if ls3 else 3) * (an_max + bn_max)
+
+    def smem(P, runs):
+        pc = -(-npairs // P)
+        n2 = 2 * pc + 2
+        return 4 * K2_SPAN * pc + 21 * n2 + RUN_BYTES[runs] * rows * n2
+
+    lo = max(1, -(-npairs // K2_THREADS))
+    sizes = ([ctas] if ctas is not None
+             else range(min(lo, K2_CLUSTER_MAX), K2_CLUSTER_MAX + 1))
+    sizes = [P for P in sizes if 1 <= P <= min(K2_CLUSTER_MAX, npairs)]
+    for runs in ("shared16" if la_max + lb_max < 32767 else "shared32",
+                 "device"):
+        for P in sizes:
+            if smem(P, runs) <= SMEM_MAX:
+                pc = -(-npairs // P)
+                return {"ctas": P, "pairs_per_cta": pc,
+                        "slots_per_cta": 2 * pc,
+                        "threads": min(max(-(-pc // 32) * 32, 32),
+                                       K2_THREADS),
+                        "runs": runs, "smem_bytes": smem(P, runs)}
+    return None
+
+
 def wavefront_variant(an_max: int, bn_max: int, nslot: int, la_max: int,
-                      lb_max: int, ls3: bool,
-                      variant: str | None = None) -> tuple[str, int]:
-    """K2's variant for a launch and its bytes of shared memory.
+                      lb_max: int, ls3: bool, variant: str | None = None,
+                      ctas: int | None = None) -> tuple[str, int]:
+    """K2's variant for a launch and its bytes of shared memory (a CTA's,
+    for the cluster variant).
 
     "shared" keeps the gap runs (3 lanes, 5 with ls3, of nslot + 2 slots
     a member) as int16 in shared memory beside the lane values (21 bytes
     a slot) and the profile scores of the next ``K2_SPAN`` steps (f32, a
     pair of slots each); "global" keeps the runs as int32 in device
-    memory; "wide" keeps the lane values and the span there too, and no
-    shared memory.  Shared needs the runs to fit in int16 (a run is at
-    most la + lb long) and the block's bytes to fit in ``SMEM_MAX``,
-    global its lane values and span.  By default the first that fits of
-    shared, global, wide; a ``variant`` asked for that does not fit
-    raises.  ``an_max``/``bn_max`` are the largest real member counts of
-    the batch (``member_counts``).
+    memory; "cluster" spreads the slots over a thread-block cluster
+    (``cluster_shape``); "wide" keeps the lane values and the span in
+    device memory too, and no shared memory, on one block.  Shared needs
+    the runs to fit in int16 (a run is at most la + lb long) and the
+    block's bytes to fit in ``SMEM_MAX``, global its lane values and
+    span, cluster a CTA's slice of them.  By default the first that fits
+    of shared, global, cluster, wide; a ``variant`` asked for that does
+    not fit raises.  ``an_max``/``bn_max`` are the largest real member
+    counts of the batch (``member_counts``); ``ctas`` asks for the
+    cluster variant's size.
     """
     vals = 21 * nslot + 4 * K2_SPAN * ((nslot + 1) // 2)
     runs = 2 * (5 if ls3 else 3) * (an_max + bn_max) * (nslot + 2)
+    shape = cluster_shape(an_max, bn_max, nslot, la_max, lb_max, ls3, ctas)
     fits = {"shared": la_max + lb_max < 32767 and vals + runs <= SMEM_MAX,
-            "global": vals <= SMEM_MAX, "wide": True}
-    smem = {"shared": vals + runs, "global": vals, "wide": 0}
+            "global": vals <= SMEM_MAX, "cluster": shape is not None,
+            "wide": True}
+    smem = {"shared": vals + runs, "global": vals,
+            "cluster": shape["smem_bytes"] if shape else None, "wide": 0}
     if variant is None:
-        variant = next(v for v in ("shared", "global", "wide") if fits[v])
+        variant = next(v for v in ("shared", "global", "cluster", "wide")
+                       if fits[v])
     if variant not in fits:
         raise ValueError(f"wavefront_variant: unknown variant {variant!r}")
     if not fits[variant]:
         raise ValueError(f"wavefront_variant: the {variant} variant does "
                          f"not take {an_max} + {bn_max} members at {nslot} "
                          f"slots ({smem[variant]} bytes of shared memory "
-                         f"of {SMEM_MAX}, lengths {la_max} + {lb_max})")
+                         f"of {SMEM_MAX}, lengths {la_max} + {lb_max}"
+                         + (f", {ctas} CTAs" if ctas is not None else "")
+                         + ")")
     return variant, smem[variant]
 
 
 def wavefront_plan(ins: dict, *, nslot: int, ls3: bool = False,
-                   variant: str | None = None) -> dict:
+                   variant: str | None = None,
+                   ctas: int | None = None) -> dict:
     """What K2 walks for a batch: per-pair real member counts, their
     largest, real and padded member pairs, and the variant (by size,
-    or the one asked for)."""
+    or the one asked for); for the cluster variant also its CTAs a
+    cluster, slot pairs and slots a CTA, threads a CTA; and where the
+    runs live (``cluster_shape``; the shared variant "shared16", the
+    global and wide variants "device")."""
     ca, cb = member_counts(ins["wa"]), member_counts(ins["wb"])
     host = torch.stack([ca, cb]).cpu().long()
     an_max, bn_max = int(host[0].max()), int(host[1].max())
-    variant, smem = wavefront_variant(an_max, bn_max, nslot,
-                                      ins["CA"].shape[1], ins["CB"].shape[1],
-                                      ls3, variant)
+    la_max, lb_max = ins["CA"].shape[1], ins["CB"].shape[1]
+    variant, smem = wavefront_variant(an_max, bn_max, nslot, la_max, lb_max,
+                                      ls3, variant, ctas)
+    shape = (cluster_shape(an_max, bn_max, nslot, la_max, lb_max, ls3, ctas)
+             if variant == "cluster" else None)
     return {"an_b": ca, "bn_b": cb, "an_max": an_max, "bn_max": bn_max,
             "variant": variant, "smem_bytes": smem,
+            "ctas": shape["ctas"] if shape else 1,
+            "pairs_per_cta": shape["pairs_per_cta"] if shape else None,
+            "slots_per_cta": shape["slots_per_cta"] if shape else nslot,
+            "runs": (shape["runs"] if shape else
+                     "shared16" if variant == "shared" else "device"),
             "real_pairs": (host[0] * host[1]).tolist(),
             "padded_pairs": ins["wa"].shape[1] * ins["wb"].shape[1]}
+
+
+def cluster_slices(nslot: int, ctas: int) -> list[tuple[int, int]]:
+    """The slots [s0, s1) CTA r of the cluster variant owns, as the
+    kernel cuts them (whole slot pairs)."""
+    npairs = (nslot + 1) // 2
+    return [(2 * (r * npairs // ctas),
+             min(2 * ((r + 1) * npairs // ctas), nslot))
+            for r in range(ctas)]
 
 
 def kernel_operands(ins: dict) -> tuple:
@@ -713,12 +794,13 @@ def kernel_operands(ins: dict) -> tuple:
     return XA, YB, CA, CB
 
 
-_K2_VARIANTS = {"global": 0, "shared": 1, "wide": 2}
+_K2_VARIANTS = {"global": 0, "shared": 1, "wide": 2, "cluster": 3}
 
 
 def group_wavefront(ins: dict, *, nslot: int, nsteps: int,
                     ls3: bool = False, d0: int = 0,
-                    carry: Carry | None = None, variant: str | None = None):
+                    carry: Carry | None = None, variant: str | None = None,
+                    ctas: int | None = None):
     """Banded group wavefront over a batch (kernel K2).
 
     ``ins`` holds the stacked inputs of ``stack_inputs``.  Runs steps d0
@@ -727,7 +809,8 @@ def group_wavefront(ins: dict, *, nslot: int, nsteps: int,
     d0 + i) and the final state (``Carry``).  CPU tensors take the plain
     version; CUDA tensors launch the kernel on the operands of
     ``kernel_operands``, walking each pair's real members only, in the
-    variant ``wavefront_plan`` picks by size (or ``variant``).
+    variant ``wavefront_plan`` picks by size (or ``variant``, and for
+    the cluster variant ``ctas``).
     """
     dev = ins["CA"].device
     if dev.type == "cpu":
@@ -751,7 +834,8 @@ def group_wavefront(ins: dict, *, nslot: int, nsteps: int,
               "wa": (Bn, an), "wb": (Bn, bn)}
     for k in _FIELDS:
         _build.require(ins[k], k, torch.float32, shapes[k], dev)
-    plan = wavefront_plan(ins, nslot=nslot, ls3=ls3, variant=variant)
+    plan = wavefront_plan(ins, nslot=nslot, ls3=ls3, variant=variant,
+                          ctas=ctas)
     iprm = torch.stack([ins[k] for k in _IFIELDS]
                        + [plan["an_b"], plan["bn_b"]], 1).contiguous()
     fprm = torch.stack([ins[k] for k in _FFIELDS], 1).contiguous()
@@ -784,19 +868,25 @@ def group_wavefront(ins: dict, *, nslot: int, nsteps: int,
         *((None,) * 3 if carry is None else (t.data_ptr() for t in carry)),
         *(t.data_ptr() for t in out), span.data_ptr(),
         Bn, C, an, bn, plan["an_max"], plan["bn_max"], la_max, lb_max,
-        nslot, nsteps, d0, int(ls3), _K2_VARIANTS[plan["variant"]], stream)
+        nslot, nsteps, d0, int(ls3), _K2_VARIANTS[plan["variant"]],
+        plan["ctas"], RUN_BYTES[plan["runs"]], stream)
     _build.check(err, "group_wavefront_launch")
     _build.LAUNCHES["group_wavefront"] += 1
     return score, dirs, opens, out
 
 
-def group_wavefront_attrs(ls3: bool, variant: str) -> dict:
+def group_wavefront_attrs(ls3: bool, variant: str,
+                          runs: str = "shared16") -> dict:
     """Registers a thread and local (spilled) bytes of one of K2's
-    instantiations, as the card's loader reports them."""
+    instantiations, as the card's loader reports them (the cluster
+    variant's with its runs where ``runs`` says, as ``cluster_shape``
+    names it)."""
     out = (ctypes.c_int * 2)()
+    nbytes = (RUN_BYTES[runs] if variant == "cluster"
+              else 2 if variant == "shared" else 0)
     _build.check(_build.load().group_wavefront_attrs(
-        int(ls3), _K2_VARIANTS[variant], ctypes.addressof(out)),
-        "group_wavefront_attrs")
+        int(ls3), _K2_VARIANTS[variant], nbytes,
+        ctypes.addressof(out)), "group_wavefront_attrs")
     return {"registers": out[0], "local_bytes": out[1]}
 
 

@@ -247,25 +247,34 @@ def test_per_pair_trim_is_exact(counts, pad, ls3):
     (2, 2, 640, 16384, False, "global"),    # a run could pass int16
     (2, 2, 640, 16383, False, "shared"),
     (1, 1, 6272, 5248, False, "global"),    # 232,064 bytes of values
-    (1, 1, 6400, 5312, False, "wide"),      # 5.3 kb a side at sh=-60
-    (1, 1, 24064, 20032, False, "wide"),    # 20 kb a side
-    (3, 3, 6400, 5312, True, "wide")])
+    (1, 1, 6400, 5312, False, "cluster"),   # 5.3 kb a side at sh=-60
+    (1, 1, 24064, 20032, False, "cluster"),  # 20 kb a side
+    (3, 3, 6400, 5312, True, "cluster"),
+    (20, 20, 24064, 20032, False, "cluster"),  # runs in device memory
+    (1, 1, 110000, 91664, False, "wide")])  # past one cluster
 def test_wavefront_variant_rule(an, bn, nslot, lmax, ls3, want):
-    """Shared, global, wide: the first whose shared memory fits."""
+    """Shared, global, cluster, wide: the first whose shared memory
+    fits (the cluster variant's: a CTA's)."""
     variant, smem = tg.wavefront_variant(an, bn, nslot, lmax, lmax, ls3)
     assert variant == want
     runs = 2 * (5 if ls3 else 3) * (an + bn) * (nslot + 2)
     vals = 21 * nslot + 4 * tg.K2_SPAN * (nslot // 2)
-    assert smem == {"shared": vals + runs, "global": vals, "wide": 0}[want]
+    shape = tg.cluster_shape(an, bn, nslot, lmax, lmax, ls3)
+    assert smem == {"shared": vals + runs, "global": vals,
+                    "cluster": shape and shape["smem_bytes"],
+                    "wide": 0}[want]
     assert smem <= tg.SMEM_MAX
-    if want == "wide":
+    if want in ("cluster", "wide"):
         assert vals > tg.SMEM_MAX
+    if want == "wide":
+        assert shape is None
 
 
 @pytest.mark.parametrize("an,bn,nslot,lmax,variant", [
     (40, 24, 640, 384, "shared"),           # runs past shared memory
     (2, 2, 640, 16384, "shared"),           # a run could pass int16
     (1, 1, 6400, 5312, "global"),           # values past shared memory
+    (1, 1, 110000, 91664, "cluster"),       # past one cluster of 16
     (1, 1, 640, 512, "rows")])
 def test_wavefront_variant_refuses(an, bn, nslot, lmax, variant):
     with pytest.raises(ValueError):
@@ -275,8 +284,64 @@ def test_wavefront_variant_refuses(an, bn, nslot, lmax, variant):
 def test_wavefront_variant_asked():
     """A variant that fits is taken when asked for, and wide always
     fits."""
-    for v in ("shared", "global", "wide"):
+    for v in ("shared", "global", "cluster", "wide"):
         assert tg.wavefront_variant(2, 2, 640, 512, 512, True, v)[0] == v
+
+
+@pytest.mark.parametrize("an,bn,nslot,lmax,ls3,ctas,want", [
+    (1, 1, 6400, 5312, False, None, (7, "shared16")),
+    (1, 1, 24064, 20032, False, None, (16, "shared32")),  # a run past int16
+    (3, 3, 6400, 5312, True, None, (7, "shared16")),
+    (20, 20, 24064, 20032, False, None, (16, "device")),
+    (20, 20, 6400, 5312, False, None, (8, "shared16")),  # more CTAs: fit
+    (1, 1, 7296, 6080, False, None, (8, "shared16")),   # the DNA family
+    (40, 40, 6400, 16384, False, None, (7, "device")),  # runs past 16 CTAs
+    (1, 1, 99999, 83000, False, None, (16, "device")),
+    (1, 1, 181, 150, False, 2, (2, "shared16")),        # an odd band, asked
+    (2, 3, 301, 250, True, 3, (3, "shared16")),
+    (1, 1, 6400, 5312, False, 4, (4, "shared16"))])
+def test_cluster_plan_slices(an, bn, nslot, lmax, ls3, ctas, want):
+    """The cluster variant's plan: the slices of whole slot pairs cover
+    every slot once, in order; a CTA's bytes fit in ``SMEM_MAX``; at most
+    16 CTAs, and one or two live slots a thread by default."""
+    shape = tg.cluster_shape(an, bn, nslot, lmax, lmax, ls3, ctas)
+    assert (shape["ctas"], shape["runs"]) == want
+    assert 1 <= shape["ctas"] <= tg.K2_CLUSTER_MAX
+    assert shape["smem_bytes"] <= tg.SMEM_MAX
+    slices = tg.cluster_slices(nslot, shape["ctas"])
+    covered = [k for s0, s1 in slices for k in range(s0, s1)]
+    assert covered == list(range(nslot))
+    assert all(s0 % 2 == 0 and s1 > s0 and s1 - s0 <= shape["slots_per_cta"]
+               for s0, s1 in slices)
+    assert shape["threads"] % 32 == 0 and shape["threads"] <= tg.K2_THREADS
+    if ctas is None and shape["ctas"] < tg.K2_CLUSTER_MAX:
+        assert shape["pairs_per_cta"] <= 2 * shape["threads"]
+    rows = (5 if ls3 else 3) * (an + bn)
+    n2 = shape["slots_per_cta"] + 2
+    assert shape["smem_bytes"] == (
+        4 * tg.K2_SPAN * shape["pairs_per_cta"] + 21 * n2
+        + {"shared16": 2, "shared32": 4, "device": 0}[shape["runs"]]
+        * rows * n2)
+    if ctas is None and shape["ctas"] > 1:   # the fewest CTAs that fit
+        fewer = shape["ctas"] - 1
+        alt = tg.cluster_shape(an, bn, nslot, lmax, lmax, ls3, fewer)
+        assert (alt is None or alt["runs"] != shape["runs"]
+                or alt["pairs_per_cta"] > tg.K2_THREADS)
+
+
+def test_cluster_plan_reported():
+    """``wavefront_plan`` reports the cluster variant's CTAs, slots a CTA
+    and where the runs live; a size asked for is taken."""
+    items, kw = _trim_batch(np.random.default_rng(43), [(1, 18), (9, 10)],
+                            19)
+    ins = tg.stack_inputs(items, "cpu")
+    plan = tg.wavefront_plan(ins, nslot=kw["nslot"], variant="cluster",
+                             ctas=3)
+    assert (plan["variant"], plan["ctas"], plan["runs"]) == (
+        "cluster", 3, "shared16")
+    assert plan["slots_per_cta"] == 2 * -(-((kw["nslot"] + 1) // 2) // 3)
+    default = tg.wavefront_plan(ins, nslot=kw["nslot"])
+    assert (default["variant"], default["ctas"]) == ("shared", 1)
 
 
 def test_wavefront_plan_counts_real_pairs():

@@ -184,23 +184,26 @@ def _same(a, b):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("variant", ["shared", "global", "wide"])
+@pytest.mark.parametrize("variant", ["shared", "global", "wide", "cluster"])
 @pytest.mark.parametrize("ls3", [False, True])
 def test_group_wavefront_carries_match_plain(cuda_device, variant, ls3):
     """Each variant of K2 resumed from a carry: three chunks (the second
     at an odd step), each from the kernel's own carry, against the plain
-    version from the same carry: planes, score and the stored carry."""
+    version from the same carry: planes, score and the stored carry; and
+    the chained carries equal to one launch (the cluster variant over 3
+    CTAs)."""
     items, kw = _k2_case("ls3" if ls3 else "mixed7")
     ins = tg.stack_inputs(items, cuda_device)
-    kw = dict(nslot=kw["nslot"], ls3=ls3)
+    kw = dict(nslot=kw["nslot"], ls3=ls3, variant=variant,
+              ctas=3 if variant == "cluster" else None)
     carry = None
     for d0, n in ((0, 64), (64, 37), (101, 160)):
-        got = tg.group_wavefront(ins, nsteps=n, d0=d0, carry=carry,
-                                 variant=variant, **kw)
-        ref = tg.group_wavefront_ref(ins, nsteps=n, d0=d0, carry=carry, **kw)
+        got = tg.group_wavefront(ins, nsteps=n, d0=d0, carry=carry, **kw)
+        ref = tg.group_wavefront_ref(ins, nsteps=n, d0=d0, carry=carry,
+                                     nslot=kw["nslot"], ls3=ls3)
         assert _same(got, ref), (variant, d0)
         carry = got[3]
-    whole = tg.group_wavefront(ins, nsteps=261, variant=variant, **kw)
+    whole = tg.group_wavefront(ins, nsteps=261, **kw)
     assert tg.carry_equal(whole[3], carry)
 
 
@@ -229,26 +232,132 @@ def _dna_pair(L, seed=0):
     return msa(base), msa(mut), mtx
 
 
-@pytest.mark.gpu
-def test_group_wavefront_wide_band(cuda_device):
-    """The wide variant on a band past shared memory (5.3 kb a side at
-    the default window: 6,400 slots), the first chunk and a later one at
-    an odd step, against the plain version from the same carry."""
+def _band_6400(device):
+    """A 5.3 kb DNA pair at the default window: 6,400 slots, past what
+    one block's shared memory holds."""
     A, B, mtx = _dna_pair(5300)
     w = stripe(A.length, B.length, -60)
     nslot = tg._bucket(w.up - w.lw + 3, 128)
     assert nslot >= 6400
     ins = tg.stack_inputs([tg._pack_inputs(
         A, B, mtx, 2.0, 9.0, w, 1, 1, tg._bucket(A.length),
-        tg._bucket(B.length), uniform=False)], cuda_device)
-    assert tg.wavefront_plan(ins, nslot=nslot)["variant"] == "wide"
-    first = tg.group_wavefront(ins, nslot=nslot, nsteps=128)
+        tg._bucket(B.length), uniform=False)], device)
+    return ins, nslot
+
+
+@pytest.mark.gpu
+def test_group_wavefront_wide_band(cuda_device):
+    """The wide variant, asked for, on a band past shared memory (5.3 kb
+    a side at the default window: 6,400 slots, where the default plan
+    takes the cluster variant), the first chunk and a later one at an
+    odd step, against the plain version from the same carry."""
+    ins, nslot = _band_6400(cuda_device)
+    assert tg.wavefront_plan(ins, nslot=nslot)["variant"] == "cluster"
+    kw = dict(nslot=nslot, variant="wide")
+    first = tg.group_wavefront(ins, nsteps=128, **kw)
     assert _same(first, tg.group_wavefront_ref(ins, nslot=nslot, nsteps=128))
-    _, _, _, carry = tg.group_wavefront(ins, nslot=nslot, nsteps=5001)
-    later = tg.group_wavefront(ins, nslot=nslot, nsteps=128, d0=5001,
-                               carry=carry)
+    _, _, _, carry = tg.group_wavefront(ins, nsteps=5001, **kw)
+    later = tg.group_wavefront(ins, nsteps=128, d0=5001, carry=carry, **kw)
     assert _same(later, tg.group_wavefront_ref(ins, nslot=nslot, nsteps=128,
                                                d0=5001, carry=carry))
+
+
+@pytest.mark.gpu
+def test_group_wavefront_cluster_band(cuda_device):
+    """The cluster variant, the default plan's, on the 6,400-slot band:
+    the first chunk and a later one at an odd step (5,001) against the
+    plain version from the same carry, and the whole carried run and the
+    later chunk equal to the wide variant's."""
+    ins, nslot = _band_6400(cuda_device)
+    plan = tg.wavefront_plan(ins, nslot=nslot)
+    assert (plan["variant"], plan["runs"]) == ("cluster", "shared16")
+    assert 4 <= plan["ctas"] <= 8
+    first = tg.group_wavefront(ins, nslot=nslot, nsteps=128)
+    assert _same(first, tg.group_wavefront_ref(ins, nslot=nslot, nsteps=128))
+    head = tg.group_wavefront(ins, nslot=nslot, nsteps=5001)
+    wide = tg.group_wavefront(ins, nslot=nslot, nsteps=5001, variant="wide")
+    assert _same(head, wide)
+    later = tg.group_wavefront(ins, nslot=nslot, nsteps=128, d0=5001,
+                               carry=head[3])
+    assert _same(later, tg.group_wavefront_ref(ins, nslot=nslot, nsteps=128,
+                                               d0=5001, carry=head[3]))
+    assert _same(later, tg.group_wavefront(ins, nslot=nslot, nsteps=128,
+                                           d0=5001, carry=head[3],
+                                           variant="wide"))
+
+
+def _k2_cluster_case(case):
+    """Packed inputs of a cluster-variant case: ls3 with 3 + 3 members;
+    20 + 20 members, whose runs go to device memory at 2 CTAs; a batch
+    of three pairs of unequal bands and members."""
+    rng = np.random.default_rng(41)
+    ls3 = case == "ls3_3x3"
+    counts, pad, L, ctas, runs = {
+        "ls3_3x3": ([(3, 3)], 3, 400, 3, "shared16"),
+        "device_runs": ([(20, 20)], 20, 2100, 2, "device"),
+        "batch3": ([(1, 5), (4, 2), (3, 3)], 5, 300, 3, "shared16")}[case]
+    pairs = [(_rand_msa(rng, a, L + int(rng.integers(-40, 40))),
+              _rand_msa(rng, b, L + int(rng.integers(-40, 40))))
+             for a, b in counts]
+    la_max = lb_max = tg._bucket(max(max(A.length, B.length)
+                                     for A, B in pairs))
+    wd = [stripe(A.length, B.length, -60) for A, B in pairs]
+    nslot = max(w.up - w.lw + 3 for w in wd)
+    nsteps = max(A.length + B.length + 1 for A, B in pairs)
+    items = [tg._pack_inputs(A, B, MTX, 2.0, 9.0, w, pad, pad, la_max,
+                             lb_max, spb=20.0, ls=3 if ls3 else 1)
+             for (A, B), w in zip(pairs, wd)]
+    return items, dict(nslot=nslot, ls3=ls3), nsteps, ctas, runs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["ls3_3x3", "device_runs", "batch3"])
+def test_group_wavefront_cluster_cases(cuda_device, case):
+    """The cluster variant against the plain version over the whole DP,
+    bit for bit (score, planes, carry), with its runs where the plan puts
+    them; the batch is three clusters in one launch."""
+    items, kw, nsteps, ctas, runs = _k2_cluster_case(case)
+    ins = tg.stack_inputs(items, cuda_device)
+    plan = tg.wavefront_plan(ins, variant="cluster", ctas=ctas, **kw)
+    assert (plan["ctas"], plan["runs"]) == (ctas, runs)
+    n0 = tg._build.LAUNCHES["group_wavefront"]
+    got = tg.group_wavefront(ins, nsteps=nsteps, variant="cluster",
+                             ctas=ctas, **kw)
+    assert tg._build.LAUNCHES["group_wavefront"] == n0 + 1
+    assert _same(got, tg.group_wavefront_ref(ins, nsteps=nsteps, **kw))
+
+
+def _kend_nslot(k_end, ctas):
+    """A band of slot pairs that puts ``k_end`` on a slice edge of a
+    cluster of ``ctas``: the last slot of the first slice (odd k_end)
+    or the first of the second (even), with the last pair one slot."""
+    return 2 * ctas * ((k_end + 1) // 2) - 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ctas", [2, 3])
+def test_group_wavefront_cluster_kend_on_edge(cuda_device, ctas):
+    """Forced 2- and 3-CTA clusters over an odd band whose end diagonal
+    falls on a slice edge: score, planes and carry against the plain
+    version."""
+    A, B, mtx = _dna_pair(600, seed=5)
+    if B.length < A.length:
+        A, B = B, A
+    w = stripe(A.length, B.length, -10)
+    k_end = (B.length - A.length) - (w.lw - 1)
+    nslot = _kend_nslot(k_end, ctas)
+    assert nslot >= w.up - w.lw + 3 and nslot % 2 == 1
+    edges = {k for s0, s1 in tg.cluster_slices(nslot, ctas)
+             for k in (s0, s1 - 1)}
+    assert k_end in edges
+    ins = tg.stack_inputs([tg._pack_inputs(
+        A, B, mtx, 2.0, 9.0, w, 1, 1, tg._bucket(A.length),
+        tg._bucket(B.length), uniform=False)], cuda_device)
+    kw = dict(nslot=nslot, nsteps=A.length + B.length + 1)
+    got = tg.group_wavefront(ins, variant="cluster", ctas=ctas, **kw)
+    ref = tg.group_wavefront_ref(ins, **kw)
+    assert _same(got, ref)
+    assert float(got[0][0]) > -1e29
 
 
 @pytest.mark.gpu
