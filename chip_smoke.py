@@ -108,7 +108,20 @@ Phases (each raises on failure, so the script exits non-zero):
    cold and warm on the default plan and on the wide plan:
    byte-identical output, the default's merges on the cluster variant;
    K2's launches, each launch's variant, CTAs and slots, K2's summed
-   time (CUDA events) and the walls; then the card line.
+   time (CUDA events) and the walls; then the card line.  (e)
+   ``long_dna_family``: the same family at ``LONG_FAMILY_NT`` (20 kb a
+   side), ``prrn -R 0`` cold and warm on K1's and K3's default plans
+   (K1's cluster variant, asserted, for the distance pass of 10 pairs at
+   ~24,000 slots; K3's window walk, asserted, for every merge past
+   ``K3_MIN_ROWS`` full rows) and on the earlier designs' (K1's block
+   variant with its band in device memory, K3's global walk): all four
+   outputs byte-identical; the distance batch in K1's cluster and
+   device-memory variants and K1f's block variant with its row in
+   device memory, each bit-equal to its plain version; each merge's walk
+   from the end equal to the plain walk and timed on the window and the
+   global plan; ``phyln`` on the family (K1 alone, the cluster variant);
+   K1's ms a batch and µs a step, K3's ms and µs a move under each plan,
+   the bounds and the walls; then the card line.
 13. the ``prrn`` and ``aln`` modes (``cli_modes``), each run once with
    the launch counts set to 0 just before it, byte-identical to the JAX
    package's output fixture (``tools/write_jax_fixtures.py``): ``prrn -U
@@ -182,7 +195,8 @@ Phases (each raises on failure, so the script exits non-zero):
 Prints one JSON line per phase, then the card line, the kernels line
 (launches from the cold runs of phases 4 and 10, for K1f from the run
 under the switch in phase 6, for K3's range walk from the linear
-aligner's run in phase 12, each phase 13 mode's under ``cli_modes``,
+aligner's run in phase 12, K1's and K3's ``long_dna_family`` entries
+from phase 12 (e)'s warm default run, each phase 13 mode's under ``cli_modes``,
 K5's from ``aln -G`` on gen2 in phase 14, K6s's from phase 16's run
 with no group and K6r's from rank 0 of its world-2 run, both on the 4 kb
 pair; times at the main paths'
@@ -210,7 +224,7 @@ import numpy as np
 import torch
 
 from prrn_aln_tpu_torch import alphabet as ab, io as pio, pipeline, scoring
-from prrn_aln_tpu_torch.cli import aln_main, prrn_main
+from prrn_aln_tpu_torch.cli import aln_main, phyln_main, prrn_main
 from prrn_aln_tpu_torch.config import AlnParams, default_params
 from prrn_aln_tpu_torch.msa import distance, kmer, progressive, slforest, tree
 from prrn_aln_tpu_torch.msa.merge import merge_msas
@@ -234,8 +248,10 @@ LONG_PAIR = {"dna_nt": 20000, "dna_starts": (0, 10001, 20480),
              "chunk": 2048, "prot": (1000, 1040),
              "prot_starts": (0, 777, 1536)}
 # phase 12 (d): the DNA family's base length, its mutants' substitution
-# rates and short indels each
+# rates and short indels each; phase 12 (e) takes the same family at
+# LONG_FAMILY_NT
 DNA_FAMILY = {"nt": 6000, "subs": (0.03, 0.05, 0.08, 0.10), "indels": 3}
+LONG_FAMILY_NT = 20000
 # gene-prediction inputs: genome, query
 ALN_CASES = {"mini": ("mini_gen.fa", "mini_pro.fa"),
              "win_single": ("cet10b9_win31401.fa", "ce13a1_unaligned.fa"),
@@ -1904,6 +1920,8 @@ def phase_long_pair(dev) -> dict:
             "chunk_steps": args[0].shape[1],
             "variant": G.traceback_plan(args[0].shape[1], args[0].shape[2],
                                         kwargs["max_iters"])["variant"]}
+    if walk["variant"] != "window":
+        raise AssertionError(f"the 20 kb pair's range walk took {walk}")
     del probe, args, planes, moves
     chunk_ms = time_ms(lambda: G.group_wavefront(k2ins, **k2kw), 3)
 
@@ -1951,12 +1969,12 @@ def phase_long_pair(dev) -> dict:
     return k2_long, walk_entry
 
 
-def dna_family_fasta(path: Path) -> int:
-    """``DNA_FAMILY`` as FASTA at ``path``: a seeded random sequence and
-    its mutants (substitutions and short indels); returns the longest
-    length."""
+def dna_family_fasta(path: Path, nt: int | None = None) -> int:
+    """``DNA_FAMILY`` as FASTA at ``path``: a seeded random sequence of
+    ``nt`` (default ``DNA_FAMILY["nt"]``) and its mutants (substitutions
+    and short indels); returns the longest length."""
     rng = np.random.default_rng(7)
-    base = rng.integers(0, 4, DNA_FAMILY["nt"])
+    base = rng.integers(0, 4, nt or DNA_FAMILY["nt"])
     seqs = [base] + [mutate(rng, base, sub, DNA_FAMILY["indels"])
                      for sub in DNA_FAMILY["subs"]]
     path.write_text("".join(
@@ -2014,6 +2032,275 @@ def phase_dna_family() -> dict:
                      / out["wide"]["warm"]["k2_steps"],
                      "wall_s": {run: out["wide"][run]["seconds"]
                                 for run in ("cold", "warm")}}}
+
+
+def earlier_plan_of(k1_plan, k3_plan):
+    """K1's and K3's plans of the designs before the cluster and window
+    variants, on top of ``k1_plan`` and ``k3_plan``: K1's block variant
+    with its band in device memory where the default takes the cluster
+    variant, K3's global walk where it takes the window walk."""
+    def k1(maxw, B, dim, Ma, Mb, **kw):
+        if not kw and k1_plan(maxw, B, dim, Ma, Mb)["variant"] == "cluster":
+            kw = {"variant": "block", "state": "device"}
+        return k1_plan(maxw, B, dim, Ma, Mb, **kw)
+
+    def k3(nsteps, nslot, max_iters, **kw):
+        if not kw and k3_plan(nsteps, nslot,
+                              max_iters)["variant"] == "window":
+            kw = {"variant": "global"}
+        return k3_plan(nsteps, nslot, max_iters, **kw)
+    return k1, k3
+
+
+@contextlib.contextmanager
+def earlier_plans():
+    """K1's and K3's wrappers on the earlier designs' plans for the calls
+    inside (``earlier_plan_of``)."""
+    real = (pairwise.pairwise_plan, G.traceback_plan)
+    pairwise.pairwise_plan, G.traceback_plan = earlier_plan_of(*real)
+    try:
+        yield
+    finally:
+        pairwise.pairwise_plan, G.traceback_plan = real
+
+
+@contextlib.contextmanager
+def k1k3_probe():
+    """CUDA events around K1's and K3's launches (both walks), with each
+    call's plan, shape and arguments (K1's and K3's planes of the walks
+    from the end are kept: the caller drops the record)."""
+    rec = {"k1": [], "k3": []}
+    real = (pairwise._launch_pairwise, G._launch_walk)
+
+    def k1(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        a_batch, b_batch, la, lb, lw, up, mtx = args[:7]
+        maxw = int((up - lw).max()) + 3
+        plan = pairwise.pairwise_plan(maxw, a_batch.shape[0], mtx.shape[0],
+                                      a_batch.shape[1], b_batch.shape[1])
+        start.record()
+        out = real[0](*args)
+        end.record()
+        rec["k1"].append({"args": args, "plan": plan, "maxw": maxw,
+                          "steps": int((la + lb).max()) - 1,
+                          "events": (start, end)})
+        return out
+
+    def k3(dirs, opens, starts, ends, *, max_iters, plan, name):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        used = plan or G.traceback_plan(dirs.shape[1], dirs.shape[2],
+                                        max_iters)
+        start.record()
+        moves, cnts = real[1](dirs, opens, starts, ends,
+                              max_iters=max_iters, plan=plan, name=name)
+        end.record()
+        rec["k3"].append({"name": name, "plan": used, "nslot": dirs.shape[2],
+                          "nsteps": dirs.shape[1], "cnts": cnts,
+                          "events": (start, end),
+                          "args": ((dirs, opens, starts["m0"], starts["n0"],
+                                    starts["lw"]), max_iters)
+                          if ends is None else None,
+                          "moves": moves if ends is None else None})
+        return moves, cnts
+
+    pairwise._launch_pairwise, G._launch_walk = k1, k3
+    try:
+        yield rec
+    finally:
+        pairwise._launch_pairwise, G._launch_walk = real
+
+
+def k1k3_summary(rec) -> dict:
+    """K1's and K3's plans, summed times (CUDA events) and steps or moves
+    from ``k1k3_probe``'s record (K3: the walks past ``K3_MIN_ROWS`` full
+    rows of shared memory apart)."""
+    torch.cuda.synchronize()
+    ms = lambda c: c["events"][0].elapsed_time(c["events"][1])  # noqa: E731
+    wide = [c for c in rec["k3"] if c["plan"]["variant"] != "staged"]
+    return {"k1_calls": [{"pairs": c["args"][0].shape[0], "maxw": c["maxw"],
+                          "steps": c["steps"], "ms": ms(c),
+                          "us_per_step": ms(c) * 1e3 / c["steps"],
+                          **{k: c["plan"][k] for k in (
+                              "variant", "state", "ctas", "lanes", "warps",
+                              "ghost", "every")}} for c in rec["k1"]],
+            "k3_plans": dict(collections.Counter(
+                c["plan"]["variant"] for c in rec["k3"])),
+            "k3_long": {"walks": len(wide),
+                        "variants": sorted({c["plan"]["variant"]
+                                            for c in wide}),
+                        "ms": sum(ms(c) for c in wide),
+                        "moves": sum(int(c["cnts"].sum()) for c in wide)},
+            "k3_ms": sum(ms(c) for c in rec["k3"])}
+
+
+def phase_long_dna_family(dev) -> tuple[dict, dict]:
+    """Phase 12 (e): ``prrn -R 0`` on the DNA family at LONG_FAMILY_NT a
+    side, cold and warm on K1's and K3's default plans (the cluster
+    variant, the window walk) and on the earlier designs' (K1's block
+    variant with its band in device memory, K3's global walk): the four
+    outputs byte-identical; K1 and its block variant in device memory,
+    and K1f (its block variant, the row in device memory), on the
+    recorded distance batch against their plain versions on the card, bit
+    for bit; K3's walks from the end against the plain walk; ``phyln``
+    on the family (K1 alone).  Returns the kernels line's K1, K3 and
+    K1f sub-entries."""
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "dnafam20k.fa"
+        longest = dna_family_fasta(path, LONG_FAMILY_NT)
+        for plan, scope in (("default", contextlib.nullcontext),
+                            ("earlier", earlier_plans)):
+            for run in ("cold", "warm"):
+                with scope(), k1k3_probe() as probe, long_probe() as k2p:
+                    text, secs, launches = run_cli(prrn_main,
+                                                   ["-R", "0", str(path)])
+                    summary = k1k3_summary(probe)
+                    k2 = probe_summary_k2(k2p)
+                runs[(plan, run)] = (text, {
+                    "seconds": secs, "launches": launches, **summary,
+                    "k2_ms": k2["k2_ms"], "k2_plans": k2["k2_plans"]})
+                if (plan, run) == ("default", "warm"):
+                    kept = probe
+                del probe
+        with k1k3_probe() as phy_probe:
+            _, phy_secs, phy_launches = run_cli(phyln_main, [str(path)])
+            phy = k1k3_summary(phy_probe)
+        del phy_probe
+    texts = {text for text, _ in runs.values()}
+    if len(texts) != 1:
+        raise AssertionError("prrn -R 0 on the 20 kb DNA family differs "
+                             "between the default and the earlier plans "
+                             "or cold and warm")
+    out = {plan: {run: runs[(plan, run)][1] for run in ("cold", "warm")}
+           for plan in ("default", "earlier")}
+    warm = out["default"]["warm"]
+    if not (warm["launches"].get("pairwise") == 1 and
+            [c["variant"] for c in warm["k1_calls"]] == ["cluster"]):
+        raise AssertionError(f"K1 did not take the cluster variant: {warm}")
+    if warm["k3_long"]["walks"] < 1 or warm["k3_long"]["variants"] != [
+            "window"]:
+        raise AssertionError(f"K3's long walks did not take the window "
+                             f"variant: {warm['k3_long']}")
+    old = out["earlier"]["warm"]
+    if ([c["variant"] for c in old["k1_calls"]] != ["block"]
+            or old["k3_long"]["variants"] != ["global"]):
+        raise AssertionError(f"the earlier plans took {old}")
+    if [c["variant"] for c in phy["k1_calls"]] != ["cluster"]:
+        raise AssertionError(f"phyln's K1 did not take the cluster "
+                             f"variant: {phy}")
+
+    # the distance batch: K1 (cluster), K1 (block, band in device memory)
+    # and K1f (block, row in device memory) against their plain versions
+    call = kept["k1"][0]
+    args = call["args"]
+    refs = []
+    k1_plain_ms = time_once_ms(
+        lambda: refs.append(pairwise._plain_pairwise(*args)))
+    ref = refs[0]
+    a_batch, b_batch, la, lb, lw, up, mtx = args[:7]
+    dev_plan = pairwise.pairwise_plan(call["maxw"], a_batch.shape[0],
+                                      mtx.shape[0], a_batch.shape[1],
+                                      b_batch.shape[1], variant="block",
+                                      state="device")
+    checks = {}
+    for name, plan in (("cluster", call["plan"]), ("device", dev_plan)):
+        got = pairwise._launch_pairwise(*args, plan)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+            raise AssertionError(f"K1's {name} variant != plain on the 20 kb "
+                                 "family's distance batch")
+        ms = time_ms(lambda: pairwise._launch_pairwise(*args, plan), 3)
+        checks[name] = {"ms": ms, "us_per_step": ms * 1e3 / call["steps"],
+                        "max_abs_err": 0.0, **pairwise.pairwise_attrs(plan)}
+    lw0 = int(lw.min())
+    nlane = int(up.max()) - lw0 + 1
+    rows_plan = pairwise.rows_plan(nlane, a_batch.shape[0], mtx.shape[0],
+                                   a_batch.shape[1], b_batch.shape[1])
+    if rows_plan["state"] != "device":
+        raise AssertionError(f"K1f's plan at {nlane} lanes: {rows_plan}")
+    rows_ref = pairwise.row_scores_ref(*args[:11], lw0=lw0, nlane=nlane,
+                                       nrow=int(la.max()))
+    rows_got = pairwise._launch_rows(*args[:11], lw0, nlane, rows_plan)
+    torch.cuda.synchronize()
+    if not torch.equal(rows_got.view(torch.int32),
+                       rows_ref.view(torch.int32)):
+        raise AssertionError("K1f's block variant (row in device memory) != "
+                             "plain on the 20 kb family's distance batch")
+    rows_ms = time_once_ms(lambda: pairwise._launch_rows(
+        *args[:11], lw0, nlane, rows_plan))
+    cells = pairwise.band_cells(*(x.cpu().numpy() for x in (la, lb, lw, up)))
+    k1_bound = bound(tensor_bytes(*(x for x in args
+                                    if isinstance(x, torch.Tensor)))
+                     + 4 * a_batch.shape[0], 9 * cells)
+    # K3's walks from the end of the warm default run against the plain
+    # walk, and each one's time on the window and the global plan
+    walks = []
+    for c in kept["k3"]:
+        if c["args"] is None or c["plan"]["variant"] != "window":
+            continue
+        tb, mi = c["args"]
+        mr, cr = G.traceback_ref(*tb, max_iters=mi)
+        torch.cuda.synchronize()
+        if not (torch.equal(c["moves"], mr) and torch.equal(c["cnts"], cr)):
+            raise AssertionError("K3's window walk != plain on the 20 kb "
+                                 "family")
+        glob = G.traceback_plan(*tb[0].shape[1:], mi, variant="global")
+        moves = int(cr.sum())
+        w_ms = time_ms(lambda: G.traceback(*tb, max_iters=mi), 3)
+        g_ms = time_ms(lambda: G.traceback(*tb, max_iters=mi, plan=glob), 3)
+        walks.append({"nsteps": tb[0].shape[1], "nslot": tb[0].shape[2],
+                      "moves": moves, "window_ms": w_ms, "global_ms": g_ms,
+                      "window_us_per_move": w_ms * 1e3 / moves,
+                      "global_us_per_move": g_ms * 1e3 / moves})
+    moves = sum(w["moves"] for w in walks)
+    k3_plain_ms = 0.0
+    if walks:
+        c = next(c for c in kept["k3"] if c["args"] is not None
+                 and c["plan"]["variant"] == "window")
+        k3_plain_ms = time_once_ms(lambda: G.traceback_ref(
+            *c["args"][0], max_iters=c["args"][1]))
+    del kept
+    emit({"phase": "long_dna_family", "sequences": 1 + len(
+        DNA_FAMILY["subs"]), "longest_nt": longest, "output_equal": True,
+        "bytes": len(texts.pop()), **out, "phyln": {
+            "seconds": phy_secs, "launches": phy_launches, **phy},
+        "k1_checks": checks, "k1_plain_ms": k1_plain_ms,
+        "k1f_device": {"ms": rows_ms, "lanes": nlane, "max_abs_err": 0.0,
+                       "plan": rows_plan}, "k1_bound": k1_bound,
+        "k3_walks": walks})
+    print(card_line(), flush=True)
+    k1c = warm["k1_calls"][0]
+    k1_entry = {"launches": warm["launches"]["pairwise"], "ms": k1c["ms"],
+                "us_per_step": k1c["us_per_step"], "pairs": k1c["pairs"],
+                "maxw": k1c["maxw"], "ctas": k1c["ctas"],
+                "lanes": k1c["lanes"], "warps": k1c["warps"],
+                "ghost": k1c["ghost"], "every": k1c["every"],
+                "max_abs_err": 0.0, "plain_ms": k1_plain_ms, **k1_bound,
+                "block_device": {"ms": old["k1_calls"][0]["ms"],
+                                 "us_per_step":
+                                     old["k1_calls"][0]["us_per_step"]},
+                "checked_ms": checks,
+                "wall_s": {run: out["default"][run]["seconds"]
+                           for run in ("cold", "warm")},
+                "earlier_wall_s": {run: out["earlier"][run]["seconds"]
+                                   for run in ("cold", "warm")},
+                "phyln": phy["k1_calls"]}
+    k3_entry = {"launches": warm["launches"].get("traceback", 0),
+                "window_walks": warm["k3_long"]["walks"],
+                "ms": warm["k3_long"]["ms"], "moves": warm["k3_long"]["moves"],
+                "us_per_move": warm["k3_long"]["ms"] * 1e3
+                / max(warm["k3_long"]["moves"], 1),
+                "global_ms": old["k3_long"]["ms"],
+                "global_us_per_move": old["k3_long"]["ms"] * 1e3
+                / max(old["k3_long"]["moves"], 1),
+                "walks": walks, "max_abs_err": 0.0, "plain_ms": k3_plain_ms,
+                # a move reads one dirs and one opens byte, writes one
+                **bound(3 * moves + 4 * len(walks), 0)}
+    return (k1_entry, k3_entry,
+            {"ms": rows_ms, "lanes": nlane, "max_abs_err": 0.0,
+             "plan": rows_plan})
 
 
 GROUPS = "1 2/3-5/6"
@@ -3287,6 +3574,7 @@ def main() -> int:
     k4_chained = phase_aln_yl2_long_protein()
     k2_long, walk_entry = phase_long_pair(dev)
     k2_family = phase_dna_family()
+    k1_long, k3_long, k1f_long = phase_long_dna_family(dev)
     cli = phase_cli_modes()
     aln_G = phase_aln_G()
     phyln = phase_utils_cli()
@@ -3306,13 +3594,15 @@ def main() -> int:
                          "ms": k1f["k1_ms"]},
          "cli_modes": cli_launches("pairwise"),
          "phyln": {name: c["pairwise"] for name, c in phyln.items()
-                   if c.get("pairwise")}},
+                   if c.get("pairwise")},
+         "long_dna_family": k1_long},
         {"name": "pairwise_rows", "route": "cuda",
          "source": "prrn_aln_tpu_torch/csrc/pairwise_rows.cu",
          "replaces": "prrn_aln_tpu/ops/pallas_pairwise.py:341",
          "launches": forest_runs["fused"]["pairwise_rows"],
          **{k: x for k, x in k1f.items() if k != "k1_ms"},
-         "cli_modes": cli_launches("pairwise_rows")},
+         "cli_modes": cli_launches("pairwise_rows"),
+         "long_dna_family_device_row": k1f_long},
         {"name": "group_wavefront", "route": "cuda",
          "source": "prrn_aln_tpu_torch/csrc/group_wavefront.cu",
          "replaces": "prrn_aln_tpu/ops/pallas_group.py:102",
@@ -3327,7 +3617,8 @@ def main() -> int:
          "launches": launches["traceback"], **k3,
          "fam19": {"launches": forest_runs["cold"]["traceback"],
                    "sum_ms": forest_runs["cold_k3_ms"]},
-         "cli_modes": cli_launches("traceback")},
+         "cli_modes": cli_launches("traceback"),
+         "long_dna_family": k3_long},
         walk_entry,
         {"name": "spliced_h_wave", "route": "cuda",
          "source": "prrn_aln_tpu_torch/csrc/spliced_h_wave.cu",

@@ -441,6 +441,12 @@ __device__ float block_max(float x, float* red) {
   return r;
 }
 
+// bytes of a pair's row and codes in the device-memory block variant
+__host__ __device__ __forceinline__ size_t rows_state_bytes(int W, int Ma,
+                                                            int Mb) {
+  return ((size_t)20 * W + Ma + Mb + 15) / 16 * 16;
+}
+
 // The "block" variant, the first design: one thread block per pair, L
 // adjacent lanes a thread (L = 1 up to 1,024 lanes).  Step 1 of a row
 // reads the previous row's H and G from shared memory and forms X, the
@@ -450,7 +456,13 @@ __device__ float block_max(float x, float* red) {
 // through shared memory (barrier 1), then step 2 folds the carries in,
 // masks the band and writes H and G in place (barrier 2).  The last row
 // is the loop's final H; the right-column candidates are a running
-// maximum in the one thread that holds column lb - 1.
+// maximum in the one thread that holds column lb - 1.  DEV: the row
+// (five arrays of W lanes) and the codes in device memory (``state``,
+// 5 W floats and Ma + Mb bytes a pair, 16-byte aligned), and the matrix
+// too where ``mtx_shared`` is 0, for rows that shared memory does not
+// hold; the block barriers order the block's device-memory writes
+// before its reads as they do its shared ones.
+template <bool DEV>
 __global__ void pairwise_rows_block_kernel(
     const int32_t* __restrict__ a_batch, const int32_t* __restrict__ b_batch,
     const int32_t* __restrict__ la_, const int32_t* __restrict__ lb_,
@@ -458,7 +470,8 @@ __global__ void pairwise_rows_block_kernel(
     const float* __restrict__ u_, const float* __restrict__ v_,
     const float* __restrict__ tg_, const uint8_t* __restrict__ exg_,
     const float* __restrict__ mtx, float* __restrict__ out,
-    int Ma, int Mb, int dim, int lw0, int W, int L) {
+    int Ma, int Mb, int dim, int lw0, int W, int L, unsigned char* state,
+    int mtx_shared) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int p = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -477,16 +490,25 @@ __global__ void pairwise_rows_block_kernel(
   }
 
   float* smtx = reinterpret_cast<float*>(smem);   // dim * dim
-  float* H = smtx + dim * dim;       // previous row, W lanes each
+  // the device variant's pair: its row and codes in ``state``
+  float* dst = DEV ? reinterpret_cast<float*>(
+                         state + (size_t)p * rows_state_bytes(W, Ma, Mb))
+                   : nullptr;
+  float* H = DEV ? dst : smtx + dim * dim;   // previous row, W lanes each
   float* G = H + W;
   float* Xs = G + W;                 // this row's X, new G, running max
   float* Gn = Xs + W;
   float* Ts = Gn + W;
-  float* wtot = Ts + W;              // one carry per warp (32 words)
-  uint8_t* bc = (uint8_t*)(wtot + 32);   // the pair's b codes, Mb bytes
-  uint8_t* ac = bc + Mb;                 // the pair's a codes, Ma bytes
+  // one carry per warp (32 words)
+  float* wtot = DEV ? smtx + (mtx_shared ? dim * dim : 0) : Ts + W;
+  // the pair's b codes, Mb bytes, then its a codes, Ma bytes
+  uint8_t* bc = (uint8_t*)(DEV ? Ts + W : wtot + 32);
+  uint8_t* ac = bc + Mb;
 
-  for (int i = tid; i < dim * dim; i += blockDim.x) smtx[i] = mtx[i];
+  if (DEV && !mtx_shared)
+    smtx = const_cast<float*>(mtx);
+  else
+    for (int i = tid; i < dim * dim; i += blockDim.x) smtx[i] = mtx[i];
   for (int i = tid; i < Mb; i += blockDim.x)
     bc[i] = (uint8_t)b_batch[(size_t)p * Mb + i];
   for (int i = tid; i < Ma; i += blockDim.x)
@@ -621,15 +643,18 @@ RowsKernel pick_kernel(int variant, int lanes) {
 }  // namespace
 
 // variant 0: block (L = ceil(W / 1024) lanes a thread, threads and
-// code_stride ignored); 1: warp (threads / 32 pairs a block); 2: warps
+// code_stride ignored; ``state`` null: the row and codes in shared
+// memory, else in ``state``, rows_state_bytes a pair, and the matrix in
+// shared memory where smem_bytes holds it); 1: warp (threads / 32 pairs a block); 2: warps
 // (threads / 32 warps a pair).  lanes: lanes a thread of the register
 // variants; code_stride: bytes of a pair's codes in shared memory.
 extern "C" int pairwise_rows_launch(
     const void* a_batch, const void* b_batch, const void* la, const void* lb,
     const void* lw, const void* up, const void* u, const void* v,
     const void* tgapf, const void* exg, const void* mtx, void* out,
-    int B, int Ma, int Mb, int dim, int lw0, int W, int variant, int lanes,
-    int threads, int code_stride, int smem_bytes, void* stream) {
+    void* state, int B, int Ma, int Mb, int dim, int lw0, int W,
+    int variant, int lanes, int threads, int code_stride, int smem_bytes,
+    void* stream) {
   const int32_t* a = (const int32_t*)a_batch;
   const int32_t* b = (const int32_t*)b_batch;
   const int32_t *la_ = (const int32_t*)la, *lb_ = (const int32_t*)lb;
@@ -645,16 +670,31 @@ extern "C" int pairwise_rows_launch(
     // L adjacent lanes a thread, threads a multiple of the warp
     const int L = (W + 1023) / 1024;
     const int nthreads = (((W + L - 1) / L + 31) / 32) * 32;
-    const size_t smem =
-        sizeof(float) * ((size_t)dim * dim + 5 * (size_t)W + 32) +
-        (size_t)Mb + (size_t)Ma;
+    if (state == nullptr) {
+      const size_t smem =
+          sizeof(float) * ((size_t)dim * dim + 5 * (size_t)W + 32) +
+          (size_t)Mb + (size_t)Ma;
+      cudaError_t err = cudaFuncSetAttribute(
+          pairwise_rows_block_kernel<false>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      pairwise_rows_block_kernel<false><<<B, nthreads, smem, st>>>(
+          a, b, la_, lb_, lw_, up_, u_, v_, tg_, exg_, mtx_, out_, Ma, Mb,
+          dim, lw0, W, L, nullptr, 1);
+      return (int)cudaGetLastError();
+    }
+    // the row and codes in device memory; the matrix in shared memory
+    // where smem_bytes holds it
+    const int mtx_shared =
+        (size_t)smem_bytes >= sizeof(float) * ((size_t)dim * dim + 32);
+    if (smem_bytes < (int)(32 * sizeof(float))) return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(
-        pairwise_rows_block_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        pairwise_rows_block_kernel<true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return (int)err;
-    pairwise_rows_block_kernel<<<B, nthreads, smem, st>>>(
+    pairwise_rows_block_kernel<true><<<B, nthreads, smem_bytes, st>>>(
         a, b, la_, lb_, lw_, up_, u_, v_, tg_, exg_, mtx_, out_, Ma, Mb, dim,
-        lw0, W, L);
+        lw0, W, L, (unsigned char*)state, mtx_shared);
     return (int)cudaGetLastError();
   }
   const RowsKernel kern = pick_kernel(variant, lanes);
@@ -675,10 +715,13 @@ extern "C" int pairwise_rows_launch(
 }
 
 // registers a thread and local (spilled) bytes of a variant's kernel
+// (variant 0: the block variant with its row in shared memory; 4: in
+// device memory)
 extern "C" int pairwise_rows_attrs(int variant, int lanes, void* out) {
   cudaFuncAttributes attr;
   const cudaError_t err =
-      variant == 0 ? cudaFuncGetAttributes(&attr, pairwise_rows_block_kernel)
+      variant == 0   ? cudaFuncGetAttributes(&attr, pairwise_rows_block_kernel<false>)
+      : variant == 4 ? cudaFuncGetAttributes(&attr, pairwise_rows_block_kernel<true>)
       : pick_kernel(variant, lanes) == nullptr
           ? cudaErrorInvalidValue
           : cudaFuncGetAttributes(&attr, pick_kernel(variant, lanes));

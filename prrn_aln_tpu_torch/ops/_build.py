@@ -32,13 +32,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _vp, _int, _flt = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the kernels' launchers; each returns cudaGetLastError()
 _SIGNATURES = {
-    "pairwise_scores_launch": [_vp] * 12 + [_int] * 11 + [_vp],
-    "pairwise_rows_launch": [_vp] * 12 + [_int] * 11 + [_vp],
+    "pairwise_scores_launch": [_vp] * 13 + [_int] * 14 + [_vp],
+    "pairwise_rows_launch": [_vp] * 13 + [_int] * 11 + [_vp],
     "pairwise_rows_attrs": [_int, _int, _vp],
     "group_wavefront_launch": [_vp] * 22 + [_int] * 15 + [_vp],
     "group_wavefront_attrs": [_int, _int, _int, _vp],
     "pairwise_scores_attrs": [_int, _int, _int, _vp],
-    "traceback_launch": [_vp] * 12 + [_int] * 9 + [_vp],
+    "traceback_launch": [_vp] * 12 + [_int] * 10 + [_vp],
     "traceback_attrs": [_int, _vp],
     "spliced_h_wave_launch": [_vp] * 20 + [_int] * 16 + [_vp],
     "spliced_h_wave_attrs": [_int, _vp],

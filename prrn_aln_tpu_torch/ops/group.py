@@ -978,11 +978,17 @@ def traceback_range_ref(dirs: torch.Tensor, opens: torch.Tensor, m0, n0,
 
 # K3's staged variant: a tile holds at most this many bytes of a plane
 # (fewer rows to wait for before the walk starts, against fewer tile
-# crossings), and at least K3_MIN_ROWS rows, or the global variant walks
+# crossings), and at least K3_MIN_ROWS rows, or the window variant walks
 K3_TILE_BYTES = 32768
 K3_MIN_ROWS = 8
-# shared memory ahead of K3's tile buffers (its two mbarriers, padded)
+# shared memory ahead of K3's tile buffers (its mbarriers and flags,
+# padded)
 K3_HEAD = 128
+# K3's window variant: rows a tile, stages in flight (at most 4), and a
+# row's window, 2 * rows + 32 slots rounded out to 16 bytes
+K3_WINDOW_ROWS = 64
+K3_WINDOW_STAGES = 3
+K3_MAX_STAGES = 4
 
 
 def _k3_cap(rows: int, nslot: int) -> int:
@@ -993,17 +999,25 @@ def _k3_cap(rows: int, nslot: int) -> int:
 
 def traceback_plan(nsteps: int, nslot: int, max_iters: int, *,
                    variant: str | None = None,
-                   tile_rows: int | None = None) -> dict:
+                   tile_rows: int | None = None,
+                   width: int | None = None,
+                   stages: int | None = None) -> dict:
     """K3's variant for planes of (nsteps, nslot) and its tiles.
 
     "staged" walks one pair a block with tiles of ``tile_rows`` band rows
     of both planes double-buffered in shared memory (four buffers of
-    ``width`` bytes) beside the ``max_iters`` moves; "global" walks the
-    planes in device memory, one thread a pair.  By default a tile holds
+    ``width`` bytes) beside the ``max_iters`` moves; "window" walks one
+    pair a block of two warps with tiles of ``tile_rows`` rows of a
+    window of ``width`` bytes a plane around the walk's slot, ``stages``
+    tiles in flight, and writes the moves to device memory as it goes;
+    "global" walks the planes in device memory, one thread a pair (the
+    first design, only when asked for).  By default a staged tile holds
     ``K3_TILE_BYTES`` of a plane (at least ``K3_MIN_ROWS`` rows, at most
-    the plane's rows and what ``SMEM_MAX`` holds), and the global variant
-    takes the bands where ``K3_MIN_ROWS`` rows do not fit.  A variant or
-    tile asked for that the kernel cannot take raises.
+    the plane's rows and what ``SMEM_MAX`` holds), and the window variant
+    takes the bands where ``K3_MIN_ROWS`` full rows do not fit
+    (``K3_WINDOW_ROWS`` rows, ``K3_WINDOW_STAGES`` stages, a window of
+    2 * rows + 32 slots), whatever the band's width or the walk's length.
+    A variant or tile asked for that the kernel cannot take raises.
     """
     if nsteps < 1 or nslot < 1 or max_iters < 1:
         raise ValueError(f"traceback_plan: empty planes ({nsteps}, {nslot}) "
@@ -1015,12 +1029,34 @@ def traceback_plan(nsteps: int, nslot: int, max_iters: int, *,
     fit = max((room - 32) // nslot, 0)
     rows = max(nsteps - 1, 1)
     if variant is None:
-        variant = "staged" if fit >= min(K3_MIN_ROWS, rows) else "global"
+        variant = "staged" if fit >= min(K3_MIN_ROWS, rows) else "window"
+    if variant != "window" and (width is not None or stages is not None):
+        raise ValueError(f"traceback_plan: the {variant} variant has no "
+                         f"window or stages")
     if variant == "global":
         if tile_rows is not None:
             raise ValueError("traceback_plan: the global variant has no tiles")
         return {"variant": "global", "tile_rows": 0, "width": 0,
                 "smem_bytes": 0}
+    if variant == "window":
+        if tile_rows is None:
+            tile_rows = min(K3_WINDOW_ROWS, rows)
+        if width is None:
+            width = -(-(2 * tile_rows + 32) // 16) * 16
+        if stages is None:
+            stages = K3_WINDOW_STAGES
+        if tile_rows < 1 or width < 16 or width % 16:
+            raise ValueError(f"traceback_plan: a window of {tile_rows} rows "
+                             f"of {width} bytes")
+        if not 2 <= stages <= K3_MAX_STAGES:
+            raise ValueError(f"traceback_plan: {stages} stages")
+        smem = K3_HEAD + 2 * stages * tile_rows * width
+        if smem > SMEM_MAX:
+            raise ValueError(f"traceback_plan: {stages} stages of "
+                             f"{tile_rows} rows of {width} bytes do not fit "
+                             f"in {SMEM_MAX} bytes of shared memory")
+        return {"variant": "window", "tile_rows": tile_rows, "width": width,
+                "stages": stages, "smem_bytes": smem}
     if variant != "staged":
         raise ValueError(f"traceback_plan: unknown variant {variant!r}")
     if tile_rows is None:
@@ -1034,7 +1070,7 @@ def traceback_plan(nsteps: int, nslot: int, max_iters: int, *,
             "smem_bytes": K3_HEAD + 4 * width + max_iters}
 
 
-_K3_VARIANTS = {"global": 0, "staged": 1}
+_K3_VARIANTS = {"global": 0, "staged": 1, "window": 2}
 
 
 def _launch_walk(dirs, opens, starts: dict, ends, *, max_iters: int,
@@ -1051,6 +1087,10 @@ def _launch_walk(dirs, opens, starts: dict, ends, *, max_iters: int,
         _build.require(t, key, torch.int32, (Bn,), dev)
     if plan is None:
         plan = traceback_plan(nsteps, nslot, max_iters)
+    if plan["variant"] == "window" and (dirs.data_ptr() % 16
+                                        or opens.data_ptr() % 16):
+        raise ValueError("traceback: the window variant takes planes on "
+                         "16-byte boundaries")
     moves = torch.empty((Bn, max_iters), dtype=torch.int8, device=dev)
     cnts = torch.empty(Bn, dtype=torch.int32, device=dev)
     if Bn == 0:
@@ -1065,7 +1105,7 @@ def _launch_walk(dirs, opens, starts: dict, ends, *, max_iters: int,
         *((None,) * 3 if ends is None else (t.data_ptr() for t in ends)),
         Bn, nsteps, nslot, max_iters, int(ends is not None),
         _K3_VARIANTS[plan["variant"]], plan["tile_rows"], plan["width"],
-        plan["smem_bytes"], stream)
+        plan.get("stages", 0), plan["smem_bytes"], stream)
     _build.check(err, "traceback_launch")
     _build.LAUNCHES[name] += 1
     return moves, cnts

@@ -344,13 +344,18 @@ def _launch_rows(a_batch, b_batch, la, lb, lw, up, mtx, u, v, tgapf, exg,
         return out
     if plan is None:
         plan = rows_plan(nlane, B, dim, Ma, Mb)
+    # the block variant's row and codes in device memory
+    state = (torch.empty(B * rows_state_bytes(nlane, Ma, Mb),
+                         dtype=torch.uint8, device=dev)
+             if plan["state"] == "device" else None)
     lib = _build.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.pairwise_rows_launch(
         a_batch.data_ptr(), b_batch.data_ptr(), la.data_ptr(),
         lb.data_ptr(), lw.data_ptr(), up.data_ptr(), u.data_ptr(),
         v.data_ptr(), tgapf.data_ptr(), exg_u8.data_ptr(), mtx.data_ptr(),
-        out.data_ptr(), B, Ma, Mb, dim, lw0, nlane,
+        out.data_ptr(), None if state is None else state.data_ptr(), B, Ma,
+        Mb, dim, lw0, nlane,
         _K1F_VARIANTS[plan["variant"]], plan["lanes"], plan["threads"],
         plan["code_stride"], plan["smem_bytes"], stream)
     _build.check(err, "pairwise_rows_launch")
@@ -374,7 +379,8 @@ _K1F_VARIANTS = {"block": 0, "warp": 1, "warps": 2}
 
 def rows_plan(nlane: int, B: int, dim: int, Ma: int, Mb: int, *,
               variant: str | None = None, lanes: int | None = None,
-              warps: int | None = None, pairs: int | None = None) -> dict:
+              warps: int | None = None, pairs: int | None = None,
+              state: str | None = None) -> dict:
     """K1f's variant for a batch of ``B`` pairs swept over ``nlane`` lanes.
 
     "warp": one warp a pair, ``pairs`` pairs a block (by default the
@@ -382,13 +388,15 @@ def rows_plan(nlane: int, B: int, dim: int, Ma: int, Mb: int, *,
     every SM), ``lanes`` lanes a thread in registers (32 * lanes >=
     nlane); "warps": ``warps`` warps a pair, one pair a block (32 * lanes
     * warps >= nlane); "block": one block of up to 1,024 threads a pair,
-    the row in shared memory (the first design).  By default a batch of
+    the row and the codes in shared memory (``state`` "shared", the first
+    design) or in device memory ("device", with the matrix in shared
+    memory where it fits), so every band has a plan.  By default a batch of
     at least ``K1F_SMS`` pairs takes "warp" up to 32 * 32 lanes, and a
     smaller batch "warps" of 4 lanes a thread from 129 lanes on (each
     pair has an SM to itself, so its row's latency sets the pace); past
     that "warps" (at least ``K1F_WARPS_MIN_LANES`` lanes a thread for a
     full batch) up to 32 * 16 * ``K1F_MAX_WARPS`` lanes, "block" the
-    rest.  The register variants hold the codes as bytes in shared memory
+    rest, its row in device memory where shared memory does not hold it.  The register variants hold the codes as bytes in shared memory
     (``code_stride`` bytes a pair) beside the matrix and its zero column,
     so they need ``dim`` <= 255.  A plan the kernels cannot take raises.
     """
@@ -413,19 +421,32 @@ def rows_plan(nlane: int, B: int, dim: int, Ma: int, Mb: int, *,
             variant = "warps"
         else:
             variant = "block"
+    if variant != "block" and state is not None:
+        raise ValueError(f"rows_plan: the {variant} variant keeps its row "
+                         f"in registers")
     if variant == "block":
         if lanes is not None or warps is not None or pairs is not None:
             raise ValueError("rows_plan: the block variant takes no lanes, "
                              "warps or pairs")
+        if dim > 256:
+            raise ValueError(f"rows_plan: a {dim}-letter matrix")
         L = -(-nlane // 1024)
         smem = 4 * (dim * dim + 5 * nlane + 32) + Ma + Mb
-        if smem > SMEM_MAX or dim > 256:
+        if state is None:
+            state = "shared" if smem <= SMEM_MAX else "device"
+        if state == "shared" and smem > SMEM_MAX:
             raise ValueError(f"rows_plan: a row of {nlane} lanes does not "
                              f"fit in shared memory")
+        if state == "device":
+            smem = 4 * (dim * dim + 32)
+            if smem > SMEM_MAX:
+                smem = 4 * 32
+        elif state != "shared":
+            raise ValueError(f"rows_plan: unknown state {state!r}")
         return {"variant": "block", "lanes": L, "warps": 0,
                 "pairs_per_block": 1,
                 "threads": (-(-nlane // L) + 31) // 32 * 32,
-                "code_stride": 0, "smem_bytes": smem}
+                "code_stride": 0, "smem_bytes": smem, "state": state}
     if variant not in ("warp", "warps"):
         raise ValueError(f"rows_plan: unknown variant {variant!r}")
     if dim > 255:
@@ -476,47 +497,153 @@ def rows_plan(nlane: int, B: int, dim: int, Ma: int, Mb: int, *,
                          f"shared memory")
     return {"variant": variant, "lanes": lanes, "warps": warps,
             "pairs_per_block": pairs, "threads": 32 * nwarps,
-            "code_stride": stride, "smem_bytes": smem}
+            "code_stride": stride, "smem_bytes": smem, "state": "registers"}
+
+
+def rows_state_bytes(nlane: int, Ma: int, Mb: int) -> int:
+    """Bytes of a pair's row (five arrays of ``nlane`` f32) and codes in
+    the device-memory block variant of K1f, 16-byte aligned."""
+    return -(-(20 * nlane + Ma + Mb) // 16) * 16
 
 
 def rows_attrs(plan: dict) -> dict:
     """Registers a thread and local (spilled) bytes of the kernel a K1f
     plan launches, as the card's loader reports them."""
     out = (ctypes.c_int * 2)()
+    code = (4 if plan.get("state") == "device"
+            else _K1F_VARIANTS[plan["variant"]])
     _build.check(_build.load().pairwise_rows_attrs(
-        _K1F_VARIANTS[plan["variant"]], plan["lanes"], ctypes.addressof(out)),
-        "pairwise_rows_attrs")
+        code, plan["lanes"], ctypes.addressof(out)), "pairwise_rows_attrs")
     return {"registers": out[0], "local_bytes": out[1]}
 
 
 # K1's launch plans (pairwise_plan): slot pairs a lane the register-state
 # variants are built for, pairs a block of the "warp" variant, the widest
 # band the "warp" variant takes by default, slot pairs a lane the "warps"
-# variant starts from, and its most warps a pair
+# and "cluster" variants start from, their most warps a CTA, the most
+# CTAs of a cluster, the ghost slots a side a cluster CTA aims at (and so
+# the steps between its exchanges), the card's SMs and the block
+# variant's threads
 K1_LANES = (1, 2, 3, 4, 5, 6, 8, 10)
 K1_WARP_PAIRS = 4
 K1_WARP_MAX = 256
 K1_WARPS_LANES = 2
 K1_MAX_WARPS = 16
+K1_MAX_CTAS = 16
+K1_GHOST = 16
+K1_SMS = 132
 SMEM_MAX = 232448
 K1_BLOCK_THREADS = 256
 
 
+def _ghost_lanes(lanes: int) -> int:
+    """Whole lanes a side that give a cluster CTA ``K1_GHOST`` ghost
+    slots or more."""
+    return -(-K1_GHOST // (2 * lanes))
+
+
+def cluster_owned(lanes: int, warps: int, ghost: int) -> int:
+    """Slots a cluster CTA owns: its window of 64 * lanes * warps slots
+    less ``ghost`` lanes (2 * lanes slots each) a side."""
+    return 2 * lanes * (32 * warps - 2 * ghost)
+
+
+def cluster_max_slots() -> int:
+    """The widest band one cluster of the default shape holds."""
+    L = K1_LANES[-1]
+    return K1_MAX_CTAS * cluster_owned(L, K1_MAX_WARPS, _ghost_lanes(L))
+
+
+def _cluster_plan(maxw, B, mtx_bytes, stride, lanes, warps, ctas, ghost,
+                  every) -> dict:
+    """The "cluster" variant's plan (``pairwise_plan``'s arguments)."""
+    def owned(L, W=K1_MAX_WARPS):
+        return cluster_owned(L, W, _ghost_lanes(L) if ghost is None
+                             else ghost)
+
+    if ctas is None:
+        fewest = -(-maxw // owned(K1_LANES[-1]))
+        # a batch that leaves SMs idle spreads each pair wider: clusters
+        # of a power of two CTAs (they pack the card's GPCs), at most two
+        # CTAs an SM over the batch
+        spread = K1_MAX_CTAS
+        while spread > 2 and B * spread > 2 * K1_SMS:
+            spread //= 2
+        ctas = max(fewest, spread)
+    if not 2 <= ctas <= K1_MAX_CTAS:
+        raise ValueError(f"pairwise_plan: {ctas} CTAs a cluster")
+    if lanes is None:
+        lanes = next((n for n in K1_LANES if n >= K1_WARPS_LANES
+                      and ctas * owned(n) >= maxw), None)
+        if lanes is None:
+            raise ValueError(f"pairwise_plan: a band of {maxw} slots does "
+                             f"not fit in {ctas} CTAs")
+    if lanes not in K1_LANES:
+        raise ValueError(f"pairwise_plan: {lanes} slot pairs a lane is not "
+                         f"one of {K1_LANES}")
+    if ghost is None:
+        ghost = _ghost_lanes(lanes)
+    if warps is None:
+        warps = next((w for w in range(1, K1_MAX_WARPS + 1)
+                      if 32 * w >= 4 * ghost
+                      and ctas * cluster_owned(lanes, w, ghost) >= maxw),
+                     None)
+        if warps is None:
+            raise ValueError(f"pairwise_plan: {ctas} CTAs of {lanes} slot "
+                             f"pairs a lane do not hold {maxw} slots")
+    if every is None:
+        every = 2 * lanes * ghost
+    if not 1 <= warps <= K1_MAX_WARPS:
+        raise ValueError(f"pairwise_plan: {warps} warps a CTA")
+    if not 1 <= ghost <= 31 or 32 * warps < 4 * ghost:
+        raise ValueError(f"pairwise_plan: {ghost} ghost lanes a side in "
+                         f"{warps} warps")
+    if not 1 <= every <= 2 * lanes * ghost:
+        raise ValueError(f"pairwise_plan: an exchange every {every} steps "
+                         f"with {2 * lanes * ghost} ghost slots")
+    per_cta = cluster_owned(lanes, warps, ghost)
+    if ctas * per_cta < maxw:
+        raise ValueError(f"pairwise_plan: {ctas} CTAs of {per_cta} slots "
+                         f"do not hold {maxw} slots")
+    smem = mtx_bytes + 44 * warps + 4 * (24 * lanes * ghost + 48) + stride
+    if smem > SMEM_MAX:
+        raise ValueError(f"pairwise_plan: codes of a cluster CTA do not "
+                         f"fit in shared memory")
+    return {"variant": "cluster", "lanes": lanes, "warps": warps,
+            "pairs_per_block": 1, "threads": 32 * warps,
+            "code_stride": stride, "smem_bytes": smem, "ctas": ctas,
+            "slots_per_cta": per_cta, "ghost": ghost, "every": every,
+            "state": "registers"}
+
+
 def pairwise_plan(maxw: int, B: int, dim: int, Ma: int, Mb: int, *,
                   variant: str | None = None, lanes: int | None = None,
-                  warps: int | None = None) -> dict:
+                  warps: int | None = None, ctas: int | None = None,
+                  ghost: int | None = None, every: int | None = None,
+                  state: str | None = None) -> dict:
     """K1's variant for a batch whose widest band has ``maxw`` slots.
 
     "warp": one warp a pair, ``K1_WARP_PAIRS`` pairs a block, each lane
     holding ``lanes`` slot pairs in registers (64 * lanes >= maxw);
     "warps": ``warps`` warps a pair, one pair a block (64 * lanes * warps
-    >= maxw); "block": one block of 256 threads a pair with the band in
-    shared memory (the earlier design).  By default "warp" takes bands of
-    up to ``K1_WARP_MAX`` slots, "warps" up to 64 * 10 * ``K1_MAX_WARPS``,
-    "block" the rest.  The register-state variants hold the codes as
-    bytes in shared memory (``code_stride`` bytes a pair) beside the
-    matrix, so they need ``dim`` <= 256.  A plan the kernels cannot take
-    raises.
+    >= maxw); "cluster": ``ctas`` CTAs of ``warps`` warps a pair, each
+    owning ``slots_per_cta`` slots of the band with ``ghost`` lanes a
+    side of its neighbours' (``cluster_owned``) and exchanging them
+    every ``every`` steps; "block": one block of 256 threads a pair with
+    the band in shared memory (``state`` "shared", the earlier design) or
+    in device memory ("device").  By default "warp" takes bands of up to
+    ``K1_WARP_MAX`` slots, "warps" up to 64 * 10 * ``K1_MAX_WARPS``,
+    "cluster" up to ``cluster_max_slots()`` (the fewest CTAs that hold
+    the band, or more where the batch leaves SMs idle: the most CTAs, a
+    power of two up to ``K1_MAX_CTAS``, that keep the batch within two
+    CTAs an SM; 2 slot pairs a lane where those CTAs hold the band),
+    "block" the rest, with its band in device memory where shared memory
+    does not hold it (and the matrix too where it does not fit), so every
+    band has a plan.  The register-state variants hold the codes as bytes
+    in shared memory (``code_stride`` bytes a pair) beside the matrix, so
+    they need ``dim`` <= 256.  Every plan reports its CTAs a pair
+    (``ctas``) and slots a CTA (``slots_per_cta``).  A plan the kernels
+    cannot take raises.
     """
     if maxw < 3 or B < 0 or dim < 1:
         raise ValueError(f"pairwise_plan: band of {maxw} slots, {B} pairs, "
@@ -537,27 +664,54 @@ def pairwise_plan(maxw: int, B: int, dim: int, Ma: int, Mb: int, *,
             variant = "warp"
         elif maxw <= 64 * K1_LANES[-1] * K1_MAX_WARPS:
             variant = "warps"
+        elif maxw <= cluster_max_slots():
+            variant = "cluster"
         else:
             variant = "block"
         fits = {"warp": mtx_bytes + 44 + stride,
-                "warps": mtx_bytes + 44 + stride}
+                "warps": mtx_bytes + 44 + stride,
+                "cluster": mtx_bytes + 44 + 4 * (24 * 12 + 48) + stride}
         if variant in fits and fits[variant] > SMEM_MAX:
             variant = "block"
+    if variant != "cluster" and (ctas is not None or ghost is not None
+                                 or every is not None):
+        raise ValueError(f"pairwise_plan: the {variant} variant has no "
+                         f"cluster")
+    if variant != "block" and state is not None:
+        raise ValueError(f"pairwise_plan: the {variant} variant keeps its "
+                         f"band in registers")
     if variant == "block":
         if lanes is not None or warps is not None:
             raise ValueError("pairwise_plan: the block variant has no lanes")
+        if dim > 256:
+            raise ValueError(f"pairwise_plan: a {dim}-letter matrix")
         smem = 4 * (dim * dim + 3 * maxw + 32)
-        if smem > SMEM_MAX:
+        if state is None:
+            state = "shared" if smem <= SMEM_MAX else "device"
+        if state == "shared" and smem > SMEM_MAX:
             raise ValueError(f"pairwise_plan: a band of {maxw} slots does "
                              f"not fit in shared memory")
+        if state == "device":
+            # the matrix in shared memory where it fits, else in device
+            # memory beside the band
+            smem = 4 * (dim * dim + 32)
+            if smem > SMEM_MAX:
+                smem = 4 * 32
+        elif state != "shared":
+            raise ValueError(f"pairwise_plan: unknown state {state!r}")
         return {"variant": "block", "lanes": 0, "warps": 0,
                 "pairs_per_block": 1, "threads": K1_BLOCK_THREADS,
-                "code_stride": 0, "smem_bytes": smem}
-    if variant not in ("warp", "warps"):
+                "code_stride": 0, "smem_bytes": smem, "ctas": 1,
+                "slots_per_cta": maxw, "ghost": 0, "every": 0,
+                "state": state}
+    if variant not in ("warp", "warps", "cluster"):
         raise ValueError(f"pairwise_plan: unknown variant {variant!r}")
     if dim > 256:
         raise ValueError(f"pairwise_plan: codes of a {dim}-letter matrix "
                          f"are not bytes")
+    if variant == "cluster":
+        return _cluster_plan(maxw, B, mtx_bytes, stride, lanes, warps, ctas,
+                             ghost, every)
     if variant == "warp":
         if warps not in (None, 1):
             raise ValueError("pairwise_plan: the warp variant has one warp "
@@ -593,10 +747,12 @@ def pairwise_plan(maxw: int, B: int, dim: int, Ma: int, Mb: int, *,
                          f"in shared memory")
     return {"variant": variant, "lanes": lanes, "warps": warps,
             "pairs_per_block": pairs, "threads": 32 * nwarps,
-            "code_stride": stride, "smem_bytes": smem}
+            "code_stride": stride, "smem_bytes": smem, "ctas": 1,
+            "slots_per_cta": 64 * lanes * (1 if variant == "warp" else warps),
+            "ghost": 0, "every": 0, "state": "registers"}
 
 
-_K1_VARIANTS = {"block": 0, "warp": 1, "warps": 2}
+_K1_VARIANTS = {"block": 0, "warp": 1, "warps": 2, "cluster": 3}
 
 
 def _launch_pairwise(a_batch, b_batch, la, lb, lw, up, mtx, u, v, tgapf,
@@ -613,15 +769,20 @@ def _launch_pairwise(a_batch, b_batch, la, lb, lw, up, mtx, u, v, tgapf,
     maxw = int((up - lw).max()) + 3
     if plan is None:
         plan = pairwise_plan(maxw, B, dim, Ma, Mb)
+    # the block variant's band in device memory: H, F, G a pair
+    state = (torch.empty((B, 3, maxw), dtype=torch.float32, device=dev)
+             if plan["state"] == "device" else None)
     lib = _build.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.pairwise_scores_launch(
         a_batch.data_ptr(), b_batch.data_ptr(), la.data_ptr(),
         lb.data_ptr(), lw.data_ptr(), up.data_ptr(), u.data_ptr(),
         v.data_ptr(), tgapf.data_ptr(), exg_u8.data_ptr(), mtx.data_ptr(),
-        out.data_ptr(), B, Ma, Mb, dim, int(local), maxw,
-        _K1_VARIANTS[plan["variant"]], plan["lanes"], plan["threads"],
-        plan["code_stride"], plan["smem_bytes"], stream)
+        out.data_ptr(), None if state is None else state.data_ptr(), B, Ma,
+        Mb, dim, int(local), maxw, _K1_VARIANTS[plan["variant"]],
+        plan["lanes"], plan["threads"], plan["code_stride"],
+        plan["smem_bytes"], plan["ctas"], plan["ghost"], plan["every"],
+        stream)
     _build.check(err, "pairwise_scores_launch")
     _build.LAUNCHES["pairwise"] += 1
     return out
@@ -631,9 +792,11 @@ def pairwise_attrs(plan: dict, local: bool = False) -> dict:
     """Registers a thread and local (spilled) bytes of the kernel a K1
     plan launches, as the card's loader reports them."""
     out = (ctypes.c_int * 2)()
+    code = (4 if plan.get("state") == "device"
+            else _K1_VARIANTS[plan["variant"]])
     _build.check(_build.load().pairwise_scores_attrs(
-        _K1_VARIANTS[plan["variant"]], plan["lanes"], int(local),
-        ctypes.addressof(out)), "pairwise_scores_attrs")
+        code, plan["lanes"], int(local), ctypes.addressof(out)),
+        "pairwise_scores_attrs")
     return {"registers": out[0], "local_bytes": out[1]}
 
 

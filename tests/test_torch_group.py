@@ -377,13 +377,17 @@ def test_member_counts_of_a_collapsed_side():
     (1280, 768, 4356, "staged", 42),     # fam19's last refinement
     (2304, 2100, 4356, "staged", 15),    # an sh=-100 retry
     (8192, 7116, 4356, "staged", 8),     # the widest band staged
-    (8192, 7117, 4356, "global", 0),     # 8 rows no longer fit
+    (8192, 7117, 4356, "window", 64),    # 8 rows no longer fit
     (2, 64, 8, "staged", 1),             # planes of one row
+    (12032, 7296, 24004, "window", 64),  # the 6 kb DNA family's merges
+    (40064, 24064, 80004, "window", 64),  # the 20 kb DNA pair
+    (12, 30000, 80004, "window", 11),    # a window of fewer rows
 ])
 def test_traceback_plan_rule(nsteps, nslot, max_iters, want, rows):
     """K3's tiles: K3_TILE_BYTES of a plane (at least K3_MIN_ROWS rows, at
     most the plane's rows), four buffers and the moves within SMEM_MAX;
-    the global variant where K3_MIN_ROWS rows do not fit."""
+    the window variant where K3_MIN_ROWS rows do not fit, whatever the
+    band's width or the walk's length."""
     plan = tg.traceback_plan(nsteps, nslot, max_iters)
     assert (plan["variant"], plan["tile_rows"]) == (want, rows)
     if want == "staged":
@@ -396,7 +400,13 @@ def test_traceback_plan_rule(nsteps, nslot, max_iters, want, rows):
         assert (more > tg.SMEM_MAX or rows == nsteps - 1
                 or (rows + 1) * nslot > tg.K3_TILE_BYTES)
     else:
-        assert plan["width"] == plan["smem_bytes"] == 0
+        # rows x a window of 2 rows + 32 slots, rounded out to 16 bytes,
+        # of both planes in each stage; no move in shared memory
+        assert plan["width"] == -(-(2 * rows + 32) // 16) * 16
+        assert plan["stages"] == tg.K3_WINDOW_STAGES
+        assert plan["smem_bytes"] == (tg.K3_HEAD + 2 * plan["stages"] * rows
+                                      * plan["width"])
+        assert plan["smem_bytes"] <= tg.SMEM_MAX
 
 
 @pytest.mark.parametrize("args,kw", [
@@ -411,6 +421,13 @@ def test_traceback_plan_rule(nsteps, nslot, max_iters, want, rows):
     ((1280, 640, 0), {}),
     ((1280, 640, 240000), {"variant": "staged"}),    # moves past the room
     ((65536, 32768, 4356), {}),                     # 2**31 bytes a pair
+    ((1280, 640, 2308), {"variant": "window", "stages": 1}),
+    ((1280, 640, 2308), {"variant": "window", "stages": 5}),
+    ((1280, 640, 2308), {"variant": "window", "width": 40}),
+    ((1280, 640, 2308), {"variant": "window", "tile_rows": 0}),
+    ((1280, 640, 2308), {"variant": "window", "tile_rows": 900}),
+    ((1280, 640, 2308), {"variant": "staged", "width": 64}),
+    ((1280, 640, 2308), {"variant": "global", "stages": 2}),
 ])
 def test_traceback_plan_refuses(args, kw):
     with pytest.raises(ValueError):
@@ -423,3 +440,15 @@ def test_traceback_plan_asked_tiles():
         "staged", 16, 10368)
     assert tg.traceback_plan(1280, 640, 2308, variant="global") == {
         "variant": "global", "tile_rows": 0, "width": 0, "smem_bytes": 0}
+
+
+def test_traceback_plan_asked_window():
+    """The window variant on any planes when asked for (ce13a17's merge
+    shape), with its tiles, window and stages as asked."""
+    plan = tg.traceback_plan(1280, 640, 2308, variant="window")
+    assert (plan["variant"], plan["tile_rows"], plan["width"],
+            plan["stages"]) == ("window", 64, 160, 3)
+    plan = tg.traceback_plan(1280, 640, 2308, variant="window", tile_rows=8,
+                             width=64, stages=4)
+    assert (plan["tile_rows"], plan["width"], plan["stages"],
+            plan["smem_bytes"]) == (8, 64, 4, tg.K3_HEAD + 2 * 4 * 8 * 64)

@@ -1509,3 +1509,326 @@ def test_frontier_wrapper_rejects_what_k6_does_not_take(cuda_device):
         tfr.frontier_sweep(H, G, a, b, mtx,
                            plan={"kernel": "sweep", "k": 3, "threads": 64},
                            **kw)
+
+
+# K1's cluster variant, K1 and K1f with their band in device memory, and
+# K3's window walk: long DNA pairs at the default window
+
+def _k1_dna(seed, nts, sub=0.05, local=False):
+    """K1's launch arguments (as the distance pass packs them: the prrn
+    DNA matrix, u 2, v 6, the stripe of -60) for seeded DNA pairs: a
+    random sequence of each length in ``nts`` and a mutant of it
+    (``sub`` substitutions and three short indels), or a family's pairs
+    where ``nts`` is ("family", nt): a sequence and three mutants at 3,
+    5 and 8 % substitutions, all six pairs."""
+    mtx, _ = scoring.build_matrix(ab.DNA, default_params(ab.DNA, "prrn"))
+    rng = np.random.default_rng(seed)
+
+    def mutant(base, s):
+        mut = list(base)
+        for _ in range(3):
+            p = int(rng.integers(200, len(mut) - 200))
+            if rng.random() < 0.5:
+                del mut[p:p + int(rng.integers(1, 4))]
+            else:
+                mut[p:p] = list(rng.integers(0, 4, int(rng.integers(1, 4))))
+        mut = np.array(mut)
+        hit = rng.random(len(mut)) < s
+        mut[hit] = rng.integers(0, 4, int(hit.sum()))
+        return mut
+
+    def codes(arr):
+        return ab.encode("".join("ACGT"[c] for c in arr), ab.DNA).astype(
+            np.int32)
+
+    if nts[0] == "family":
+        base = rng.integers(0, 4, nts[1])
+        seqs = [codes(s) for s in [base] + [mutant(base, s)
+                                            for s in (0.03, 0.05, 0.08)]]
+        pairs = [(seqs[i], seqs[j]) for j in range(1, 4) for i in range(j)]
+    else:
+        pairs = []
+        for nt in nts:
+            base = rng.integers(0, 4, nt)
+            pairs.append((codes(base), codes(mutant(base, sub))))
+    B = len(pairs)
+    A = np.zeros((B, max(len(a) for a, _ in pairs)), np.int32)
+    Bm = np.zeros((B, max(len(b) for _, b in pairs)), np.int32)
+    for i, (a, b) in enumerate(pairs):
+        A[i, :len(a)] = a
+        Bm[i, :len(b)] = b
+    wd = [stripe(len(a), len(b), -60) for a, b in pairs]
+    return [A, Bm, np.array([len(a) for a, _ in pairs], np.int32),
+            np.array([len(b) for _, b in pairs], np.int32),
+            np.array([w.lw for w in wd], np.int32),
+            np.array([w.up for w in wd], np.int32), mtx.astype(np.float32),
+            np.full(B, 2.0, np.float32), np.full(B, 6.0, np.float32),
+            np.ones(B, np.float32), np.zeros((B, 4), bool)]
+
+
+def _k1_edge_pair(ask):
+    """A DNA pair whose band's last slot is the last owned slot of CTA 0
+    of the cluster ``ask`` names (its sentinel CTA 1's first)."""
+    owned = tpw.cluster_owned(ask["lanes"], ask["warps"],
+                              tpw._ghost_lanes(ask["lanes"]))
+    n, k = next((n, k) for n in range(owned // 2, owned)
+                for k in range(3) if stripe(n, n - k, -60).width == owned + 1)
+    arrs = _k1_dna(71, [n])
+    a = arrs[0][0, :n]
+    b = np.resize(arrs[1][0], n - k)
+    w = stripe(n, n - k, -60)
+    return [a[None], b[None], np.array([n], np.int32),
+            np.array([n - k], np.int32), np.array([w.lw], np.int32),
+            np.array([w.up], np.int32), *arrs[6:]], owned
+
+
+# K1 cluster cases: the batch, local, the plan asked for, and the CTAs it
+# must give
+_K1_CLUSTER_CASES = {
+    "p2_9kb": (("pairs", [9000]), False,
+               {"variant": "cluster", "ctas": 2}, 2),
+    "p3_9kb_local": (("pairs", [9000]), True,
+                     {"variant": "cluster", "ctas": 3}, 3),
+    "p16_20kb": (("pairs", [20000]), False, {}, 16),
+    "p16_20kb_g1": (("pairs", [20000]), False,
+                    {"variant": "cluster", "ctas": 16, "every": 1}, 16),
+    "family_20kb": (("family", 20000), False, {}, None),
+    "edge_p2": (("edge",), False,
+                {"variant": "cluster", "ctas": 2, "lanes": 10, "warps": 11},
+                2),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(_K1_CLUSTER_CASES))
+def test_pairwise_cluster_matches_plain(cuda_device, case):
+    """K1's cluster variant against ``wavefront_scores_ref``, bit for
+    bit: a 9 kb DNA pair (10,8xx slots) on 2 CTAs and, with local
+    scores, on 3; the seeded 20 kb pair (24,0xx slots) on the default
+    plan (16 CTAs, a ghost of 16 or more slots, an exchange every ghost's
+    slots) and with an exchange every step; a 20 kb family's six pairs in
+    one launch; the band's last slot on a CTA's last owned slot."""
+    spec, local, ask, ctas = _K1_CLUSTER_CASES[case]
+    if spec[0] == "edge":
+        arrs, owned = _k1_edge_pair(ask)
+    else:
+        arrs = _k1_dna(zlib.crc32(case.encode()),
+                       spec[1] if spec[0] == "pairs" else spec)
+    args = [torch.as_tensor(x, device=cuda_device) for x in arrs]
+    maxw = int((arrs[5] - arrs[4]).max()) + 3
+    plan = tpw.pairwise_plan(maxw, arrs[0].shape[0], arrs[6].shape[0],
+                             arrs[0].shape[1], arrs[1].shape[1], **ask)
+    assert plan["variant"] == "cluster"
+    if ctas is not None:
+        assert plan["ctas"] == ctas
+    if spec[0] == "edge":
+        assert plan["slots_per_cta"] == owned == maxw - 1
+    if "every" in ask:
+        assert plan["every"] == 1 < 2 * plan["lanes"] * plan["ghost"]
+    n0 = tpw._build.LAUNCHES["pairwise"]
+    got = tpw._launch_pairwise(*args, local, plan)
+    assert tpw._build.LAUNCHES["pairwise"] == n0 + 1
+    ref = tpw._plain_pairwise(*args, local)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert torch.isfinite(got).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["dna_9kb", "protein_local", "gmem_mtx"])
+def test_pairwise_block_device_matches_plain(cuda_device, case):
+    """K1's block variant with its band in device memory (the plan past
+    one cluster, forced here on narrower bands), bit for bit: a 9 kb DNA
+    pair, protein pairs with local scores, and the matrix in device
+    memory as well (where shared memory does not hold it)."""
+    if case == "dna_9kb":
+        arrs, local = _k1_dna(5, [9000]), False
+    else:
+        arrs = _k1_batch(zlib.crc32(case.encode()),
+                         [(520, 515), (300, 515), (150, 157)], -60)
+        local = case == "protein_local"
+    args = [torch.as_tensor(x, device=cuda_device) for x in arrs]
+    maxw = int((arrs[5] - arrs[4]).max()) + 3
+    plan = tpw.pairwise_plan(maxw, arrs[0].shape[0], arrs[6].shape[0],
+                             arrs[0].shape[1], arrs[1].shape[1],
+                             variant="block", state="device")
+    if case == "gmem_mtx":
+        plan = dict(plan, smem_bytes=128)
+    got = tpw._launch_pairwise(*args, local, plan)
+    ref = tpw._plain_pairwise(*args, local)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nlane, ask", [(12000, {}),
+                                        (8193, {"variant": "block",
+                                                "state": "device"})])
+def test_pairwise_rows_block_device_matches_plain(cuda_device, nlane, ask):
+    """K1f's block variant with its row and codes in device memory, bit
+    for bit to ``row_scores_ref``: 12,000 lanes (past what shared memory
+    holds: the default plan) and 8,193 lanes asked for."""
+    arrs = _k1f_batch(61, [(2000, 2100), (2100, 1900), (1500, 2000)], nlane)
+    args = [torch.as_tensor(x, device=cuda_device) for x in arrs]
+    lw0 = int(arrs[4].min())
+    plan = tpw.rows_plan(nlane, 3, arrs[6].shape[0], arrs[0].shape[1],
+                         arrs[1].shape[1], **ask)
+    assert (plan["variant"], plan["state"]) == ("block", "device")
+    got = tpw._launch_rows(*args, lw0, nlane, plan)
+    ref = tpw._plain_rows(*args, lw0, nlane)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert torch.isfinite(got).all()
+
+
+# K3's window cases on random planes: B, nsteps, nslot, the plan asked
+# for, and whether the walks leave the band past both ends
+_K3_WINDOW_CASES = {
+    "default": (2, 1280, 640, {"variant": "window"}, False),
+    "tiles_4": (2, 1280, 640, {"variant": "window", "tile_rows": 4,
+                               "width": 32, "stages": 2}, False),
+    "stages_4": (3, 2000, 300, {"variant": "window", "tile_rows": 16,
+                                "width": 48, "stages": 4}, False),
+    "b32": (32, 768, 384, {"variant": "window"}, False),
+    "edges": (2, 200, 40, {"variant": "window", "tile_rows": 8,
+                           "width": 32}, True),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(_K3_WINDOW_CASES))
+def test_traceback_window_matches_plain(cuda_device, case):
+    """K3's window walk against ``traceback_ref``, moves and counts bit
+    for bit, on random planes (walks that wander off their windows):
+    the default window, tiles of 4 rows of a 32-byte window, 4 stages,
+    32 pairs, and walks that hug the band's edges and leave it past both
+    (the slot wrapped and clamped, the count past max_iters)."""
+    B, nsteps, nslot, ask, edges = _K3_WINDOW_CASES[case]
+    rng = np.random.default_rng(zlib.crc32(case.encode()))
+    args = _k3_planes(int(rng.integers(1 << 30)), B, nsteps, nslot,
+                      cuda_device)
+    La = rng.integers((nsteps - 1) // 3, (nsteps - 1) // 2, B)
+    Lb = nsteps - 1 - La - rng.integers(0, 3, B)
+    lw = -La
+    mi = 2 * int((La + Lb).max()) + 4
+    if edges:
+        lw = Lb - La + 1 + np.array([5, -nslot - 3])
+        mi = 60
+    args += [torch.as_tensor(x.astype(np.int32), device=cuda_device)
+             for x in (La, Lb, lw)]
+    plan = tg.traceback_plan(nsteps, nslot, mi, **ask)
+    assert plan["variant"] == "window"
+    n0 = tg._build.LAUNCHES["traceback"]
+    mk, ck = tg.traceback(*args, max_iters=mi, plan=plan)
+    assert tg._build.LAUNCHES["traceback"] == n0 + 1
+    mr, cr = tg.traceback_ref(*args, max_iters=mi)
+    assert torch.equal(mk, mr) and torch.equal(ck, cr)
+    if edges:
+        moves, cnts = mr.cpu().numpy(), cr.cpu().numpy()
+        slots = [int(1 - lw[b] + n - m) for b in range(B)
+                 for m, n in _visited(moves[b], min(cnts[b], mi - 1),
+                                      int(La[b]), int(Lb[b]))
+                 if 0 < m + n < nsteps]
+        assert min(slots) < 0 and max(slots) >= nslot and max(cnts) == mi
+
+
+@pytest.mark.gpu
+def test_traceback_window_refuses_unaligned_planes(cuda_device):
+    args = _k3_planes(5, 1, 300, 100, cuda_device, offset=3)
+    La = torch.tensor([140], dtype=torch.int32, device=cuda_device)
+    plan = tg.traceback_plan(300, 100, 600, variant="window")
+    with pytest.raises(ValueError, match="16-byte"):
+        tg.traceback(*args, La, La + 10, -La, max_iters=600, plan=plan)
+
+
+@pytest.mark.gpu
+def test_traceback_range_window_matches_plain(cuda_device):
+    """K3's window range walk on K2's planes of a chunk, as the staged and
+    global ones are tested, against ``traceback_range_ref``: moves,
+    counts and stop points."""
+    items, kw = _k2_case("mixed7")
+    ins = tg.stack_inputs(items, cuda_device)
+    nslot = kw["nslot"]
+    _, _, _, carry = tg.group_wavefront(ins, nslot=nslot, nsteps=101)
+    _, dirs, opens, _ = tg.group_wavefront(ins, nslot=nslot, nsteps=64,
+                                           d0=101, carry=carry)
+    rng = np.random.default_rng(67)
+    Bn = dirs.shape[0]
+    for ask in ({}, {"tile_rows": 4, "width": 16, "stages": 2}):
+        plan = tg.traceback_plan(64, nslot, 136, variant="window", **ask)
+        for top in (164, 150, 175):
+            m0 = rng.integers(top // 3, 2 * top // 3, Bn)
+            args = [torch.as_tensor(x.astype(np.int32), device=cuda_device)
+                    for x in (m0, top - m0, rng.integers(0, 5, Bn),
+                              np.full(Bn, 101))]
+            got = tg.traceback_range(dirs, opens, *args, ins["lw"],
+                                     max_iters=136, plan=plan)
+            ref = tg.traceback_range_ref(dirs, opens, *args, ins["lw"],
+                                         max_iters=136)
+            for g, r in zip(got, ref):
+                assert torch.equal(g, r), (ask, top)
+
+
+@pytest.mark.gpu
+def test_traceback_window_on_ce13a17(cuda_device, tmp_path):
+    """The window walk forced on every K3 call of ``prrn -R 0`` on
+    ce13a17 (the merges' and candidates' planes, which the staged walk
+    takes by default), against ``traceback_ref``."""
+    from prrn_aln_tpu_torch.cli import prrn_main
+    calls = []
+    real = tg.traceback
+
+    def record(*args, **kw):
+        calls.append((args, kw["max_iters"]))
+        return real(*args, **kw)
+
+    tg.traceback = record
+    try:
+        assert prrn_main(["-R", "0", str(FIX / "ce13a17_clean.fa"), "-o",
+                          str(tmp_path / "out.txt")]) == 0
+    finally:
+        tg.traceback = real
+    assert len(calls) >= 20
+    for args, mi in calls:
+        dirs = args[0]
+        plan = tg.traceback_plan(dirs.shape[1], dirs.shape[2], mi,
+                                 variant="window")
+        mk, ck = tg.traceback(*args, max_iters=mi, plan=plan)
+        mr, cr = tg.traceback_ref(*args, max_iters=mi)
+        assert torch.equal(mk, mr) and torch.equal(ck, cr)
+
+
+@pytest.mark.gpu
+def test_traceback_window_on_20kb_pair(cuda_device):
+    """K3 on the 20 kb DNA pair's planes (40,0xx steps x 24,064 slots, K2
+    on the card), on the default plan (the window variant), against the
+    plain walk from the end, and range walks over the rows from a middle
+    step (a contiguous copy of those rows) from points on the path."""
+    A, B, mtx = _dna_pair(20000)
+    w = stripe(A.length, B.length, -60)
+    nslot = tg._bucket(w.up - w.lw + 3, 128)
+    ins = tg.stack_inputs([tg._pack_inputs(
+        A, B, mtx, 2.0, 9.0, w, 1, 1, tg._bucket(A.length),
+        tg._bucket(B.length), uniform=False)], cuda_device)
+    nsteps = tg._bucket(A.length + B.length + 1, tg.K2_DSTEP)
+    _, dirs, opens, _ = tg.group_wavefront(ins, nslot=nslot, nsteps=nsteps)
+    mi = 2 * (A.length + B.length) + 4
+    plan = tg.traceback_plan(nsteps, nslot, mi)
+    assert plan["variant"] == "window"
+    tb = (dirs, opens, ins["la"], ins["lb"], ins["lw"])
+    mk, ck = tg.traceback(*tb, max_iters=mi)
+    mr, cr = tg.traceback_ref(*tb, max_iters=mi)
+    assert torch.equal(mk, mr) and torch.equal(ck, cr)
+    assert int(cr[0]) > 20000
+    # range walks over rows d_lo.. of a copy, from points of the path
+    moves = mr[0].cpu().numpy()
+    cells = _visited(moves, int(cr[0]), A.length, B.length)
+    for d_lo in (20001, 9000):
+        top = d_lo + 2047
+        m, n = next(c for c in cells if c[0] + c[1] <= top)
+        sub = [x[:, d_lo:d_lo + 2048].contiguous() for x in (dirs, opens)]
+        args = [torch.tensor([v], dtype=torch.int32, device=cuda_device)
+                for v in (m, n, 0, d_lo)]
+        rplan = tg.traceback_plan(2048, nslot, 4100)
+        assert rplan["variant"] == "window"
+        got = tg.traceback_range(*sub, *args, ins["lw"], max_iters=4100)
+        ref = tg.traceback_range_ref(*sub, *args, ins["lw"], max_iters=4100)
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r), d_lo

@@ -269,17 +269,24 @@ def test_rows_plan_refuses(kw):
 
 def test_rows_plan_limits():
     # the matrix and its zero column in shared memory: 240 letters fit,
-    # 241 fit no variant (nor the block variant's matrix beside its row)
+    # 241 fit no register variant; the block variant keeps its row and
+    # the matrix in device memory instead
     assert tpw.rows_plan(200, 4, 240, 200, 200)["variant"] == "warps"
-    for variant in (None, "warp", "warps", "block"):
+    for variant in ("warp", "warps"):
         with pytest.raises(ValueError):
             tpw.rows_plan(200, 4, 241, 200, 200, variant=variant)
+    for variant in (None, "block"):
+        plan = tpw.rows_plan(200, 4, 241, 200, 200, variant=variant)
+        assert (plan["variant"], plan["state"], plan["smem_bytes"]) == (
+            "block", "device", 128)
     # codes are bytes: no register variant past 255 letters
     with pytest.raises(ValueError):
         tpw.rows_plan(200, 4, 256, 20, 20, variant="warp")
-    # a row past the block variant's shared memory
-    with pytest.raises(ValueError):
-        tpw.rows_plan(12000, 4, 25, 200, 200)
+    # a row past the block variant's shared memory: in device memory
+    plan = tpw.rows_plan(12000, 4, 25, 200, 200)
+    assert (plan["variant"], plan["state"], plan["lanes"]) == (
+        "block", "device", 12)
+    assert plan["smem_bytes"] == 4 * (25 * 25 + 32)
     # fewer pairs a block where four pairs' codes do not fit
     plan = tpw.rows_plan(300, 600, 25, 40000, 40000)
     assert (plan["variant"], plan["pairs_per_block"]) == ("warp", 2)
@@ -301,3 +308,53 @@ def test_band_range_reads_host_values_first():
     assert tpw._band_range(None, None, x["la"], x["lb"], -la, lb) == (
         -int(x["la"].max()), int(x["lb"].max()))
     assert tpw._band_range(None, None, 30, 40, -la[:1], lb[:1]) == (-30, 40)
+
+
+@pytest.mark.parametrize("nlane", [8193, 11000, 12000, 24043, 200000])
+@pytest.mark.parametrize("codes", [200, 20000])
+def test_rows_plan_device_row(nlane, codes):
+    """Past 8,192 lanes the block variant: its row and codes in shared
+    memory where they fit (the first design, unchanged), else in device
+    memory, so ``PRRN_PW_FUSED=1`` refuses no band; a thread holds
+    ceil(nlane / 1024) adjacent lanes."""
+    plan = tpw.rows_plan(nlane, 10, 17, codes, codes)
+    assert plan["variant"] == "block"
+    shared = 4 * (17 * 17 + 5 * nlane + 32) + 2 * codes
+    assert plan["state"] == ("shared" if shared <= tpw.SMEM_MAX
+                             else "device")
+    assert plan["smem_bytes"] == (shared if plan["state"] == "shared"
+                                  else 4 * (17 * 17 + 32))
+    assert plan["lanes"] == -(-nlane // 1024)
+    assert plan["threads"] * plan["lanes"] >= nlane
+    assert plan["threads"] <= 1024 and plan["threads"] % 32 == 0
+    assert tpw.rows_state_bytes(nlane, codes, codes) % 16 == 0
+    assert tpw.rows_state_bytes(nlane, codes, codes) >= 20 * nlane + 2 * codes
+
+
+@pytest.mark.parametrize("dim", [17, 25, 255, 256])
+def test_rows_plan_every_band(dim):
+    """A plan for every band width with ``dim`` <= 256, with 200-residue
+    and 20 kb codes."""
+    widths = sorted({1, 1024, 1025, 8192, 8193, 11000, 24043, 200000,
+                     *np.unique(np.geomspace(1, 200000, 50)
+                                .astype(int)).tolist()})
+    for codes in (200, 20000):
+        for nlane in widths:
+            for B in (1, 10, 512):
+                plan = tpw.rows_plan(nlane, B, dim, codes, codes)
+                assert plan["smem_bytes"] <= tpw.SMEM_MAX
+
+
+@pytest.mark.parametrize("kw", [
+    {"variant": "warps", "state": "device"},
+    {"variant": "warp", "state": "shared"},
+    {"variant": "block", "state": "cache"},
+    {"variant": "block", "state": "shared", "lanes": 1},
+])
+def test_rows_plan_state_refuses(kw):
+    with pytest.raises(ValueError):
+        tpw.rows_plan(300, 8, 25, 200, 200, **kw)
+    # a row that shared memory does not hold cannot be asked there
+    with pytest.raises(ValueError):
+        tpw.rows_plan(12000, 4, 25, 200, 200, variant="block",
+                      state="shared")

@@ -33,6 +33,21 @@ Shapes:
 - K1f (``--kernels k1f``) on fam19's recorded edge call and on
   ``bench512``, each with the packing ``pairwise_scores`` gives it (lw0
   the batch's smallest lw);
+- ``longdna`` (``--shapes longdna``, not recorded: made anew in each
+  run, by whichever package runs): K1 on the distance pass of seeded DNA
+  families of five at 9, 16 and 20 kb a side (a sequence and mutants at
+  3, 5, 8 and 10 % substitutions with three short indels each, 10 pairs
+  at ~10,800, ~19,200 and ~24,000 slots) and on their first pair alone,
+  in each plan of ``--long-k1-plans`` (``block``: the band in shared
+  memory where it fits; ``device``: in device memory; ``cluster:P``,
+  ``cluster:PxE`` or ``cluster:PxExG``: P CTAs, an exchange every E
+  steps, G ghost lanes a side); K1f on the same
+  batches (the block variant, its row in shared or device memory); K3
+  on the walks of ``prrn -R 0`` on ``chip_smoke.DNA_FAMILY`` (6 kb, its
+  merges at 7,296 slots) and on the 20 kb pair's planes (24,064 slots,
+  K2 on the card): the walk from the end and a range walk over a chunk
+  of 2,048 rows, in each plan of ``--long-k3-plans`` (``window``,
+  ``window:T:W:S``, ``global``);
 - K4w (``--kernels k4w``) on the walks ``aln -yl2`` records on the card
   for (a) mini_gen x mini_pro, (c) the CET10B9 window x ce13a.msa and
   the flagship's shape (the window at 31,400 in seeded random flanks of
@@ -296,6 +311,9 @@ def main(argv=None) -> int:
     ap.add_argument("--k1-plans", default="")
     ap.add_argument("--k1f-plans", default="")
     ap.add_argument("--k4w-depths", default="")
+    ap.add_argument("--long-k1-plans", default="")
+    ap.add_argument("--long-k3-plans", default="")
+    ap.add_argument("--long-nt", default="9000,16000,20000")
     ap.add_argument("--reps", type=int, default=7)
     ap.add_argument("--out", type=Path)
     args = ap.parse_args(argv)
@@ -316,6 +334,8 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     print(card, flush=True)
+    if shapes == ["longdna"]:
+        return long_dna(args, root == REPO, dev)
     if args.inputs.exists():
         data = torch.load(args.inputs)
     else:
@@ -518,6 +538,267 @@ def k1f_report(emit, pw, name, call, asks, reps) -> None:
               "device_us_per_row": None if dms is None else dms * 1e3 / rows,
               "band_cells": cells, "gcups": cells / (ms * 1e6),
               "plan": plan, **attrs, "checked": True})
+
+
+def dna_family(nt: int, seed: int, subs=(0.03, 0.05, 0.08, 0.10),
+               indels: int = 3) -> list:
+    """A seeded random DNA sequence of ``nt`` and its mutants
+    (``chip_smoke.mutate``'s: short indels, then substitutions)."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 4, nt)
+    out = [base]
+    for sub in subs:
+        mut = list(base)
+        for _ in range(indels):
+            p = int(rng.integers(200, len(mut) - 200))
+            if rng.random() < 0.5:
+                del mut[p:p + int(rng.integers(1, 4))]
+            else:
+                mut[p:p] = list(rng.integers(0, 4, int(rng.integers(1, 4))))
+        mut = np.array(mut)
+        m = rng.random(len(mut)) < sub
+        mut[m] = rng.integers(0, 4, int(m.sum()))
+        out.append(mut)
+    return out
+
+
+def record_distance_call(seqs) -> tuple:
+    """K1's arguments for the distance pass of ``seqs`` (DNA, prrn's
+    defaults), as ``msa/distance.all_pairs_scores`` packs them."""
+    from prrn_aln_tpu_torch import alphabet as ab, scoring
+    from prrn_aln_tpu_torch.config import default_params
+    from prrn_aln_tpu_torch.msa import distance
+    from prrn_aln_tpu_torch.ops import pairwise as pw
+    params = default_params(ab.DNA, "prrn")
+    mtx, _ = scoring.build_matrix(ab.DNA, params)
+    codes = [ab.encode("".join("ACGT"[c] for c in s), ab.DNA)
+             for s in seqs]
+    got = []
+    real = pw._launch_pairwise
+
+    def rec(*a):
+        got.append(a)
+        return torch.zeros(a[0].shape[0], device=a[0].device)
+
+    pw._launch_pairwise = rec
+    try:
+        distance.all_pairs_scores(codes, mtx, params.u, params.v, params.sh,
+                                  device="cuda")
+    finally:
+        pw._launch_pairwise = real
+    return got[0]
+
+
+def parse_long_k1(text: str) -> dict:
+    if text == "block":
+        return {"variant": "block", "state": "shared"}
+    if text == "device":
+        return {"variant": "block", "state": "device"}
+    _, _, size = text.partition(":")
+    ctas, every, ghost = (size.split("x") + [None, None])[:3]
+    ask = {"variant": "cluster", "ctas": int(ctas)}
+    if every:
+        ask["every"] = int(every)
+    if ghost:
+        ask["ghost"] = int(ghost)
+    return ask
+
+
+def parse_long_k3(text: str) -> dict:
+    if text == "global":
+        return {"variant": "global"}
+    parts = text.split(":")
+    ask = {"variant": "window"}
+    if len(parts) == 4:
+        ask.update(tile_rows=int(parts[1]), width=int(parts[2]),
+                   stages=int(parts[3]))
+    return ask
+
+
+def long_dna(args, here: bool, dev) -> int:
+    """The ``longdna`` shapes (see the module's docstring)."""
+    from prrn_aln_tpu_torch.ops import group as G, pairwise as pw
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    root = str(args.root.resolve())
+
+    def emit(obj):
+        obj = {"root": root, "card": card, **obj}
+        print(json.dumps(obj), flush=True)
+        if args.out:
+            with args.out.open("a") as f:
+                f.write(json.dumps(obj) + "\n")
+
+    kernels = args.kernels.split(",")
+    k1_asks = [None] + [parse_long_k1(t) for t in args.long_k1_plans.split(",")
+                        if t]
+    for nt in (int(x) for x in args.long_nt.split(",")):
+        call = record_distance_call(dna_family(nt, nt))
+        for batch in (10, 1):
+            sub = tuple(x[:batch] if isinstance(x, torch.Tensor)
+                        and x.dim() and x.shape[0] == 10 else x
+                        for x in call)
+            a_batch, b_batch, la, lb, lw, up = sub[:6]
+            maxw = int((up - lw).max()) + 3
+            steps = int((la + lb).max()) - 1
+            cells = pw.band_cells(*(x.cpu().numpy()
+                                    for x in (la, lb, lw, up)))
+            name = f"dna{nt // 1000}k_b{batch}"
+            ref = None
+            if "k1" in kernels:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                ref = pw._plain_pairwise(*sub)
+                end.record()
+                torch.cuda.synchronize()
+                plain_ms = start.elapsed_time(end)
+                for ask in k1_asks if here else [None, {"variant": "block"}]:
+                    try:
+                        plan = pw.pairwise_plan(maxw, batch, sub[6].shape[0],
+                                                a_batch.shape[1],
+                                                b_batch.shape[1],
+                                                **(ask or {}))
+                    except ValueError as err:
+                        emit({"kernel": "K1", "shape": name, "ask": ask,
+                              "refused": str(err)})
+                        continue
+                    fn = lambda: pw._launch_pairwise(*sub, plan)  # noqa
+                    got = fn()
+                    torch.cuda.synchronize()
+                    if not torch.equal(got.view(torch.int32),
+                                       ref.view(torch.int32)):
+                        raise AssertionError(f"K1 != plain on {name} "
+                                             f"({plan})")
+                    ms = time_ms(fn, args.reps)
+                    dms = device_ms(fn, args.reps, "pairwise")
+                    # a band cell: 3 adds or subtractions and 6 maxima
+                    nbytes = sum(x.numel() * x.element_size() for x in sub
+                                 if isinstance(x, torch.Tensor)) + 4 * batch
+                    emit({"kernel": "K1", "shape": name, "ask": ask,
+                          "pairs": batch, "maxw": maxw, "steps": steps,
+                          "ms": ms, "device_ms": dms,
+                          "us_per_step": (dms or ms) * 1e3 / steps,
+                          "plain_ms": plain_ms, "band_cells": cells,
+                          "bound_ms": max(nbytes / 3.35e12,
+                                          9 * cells / 67e12) * 1e3,
+                          "plan": plan,
+                          **(pw.pairwise_attrs(plan, False)
+                             if hasattr(pw, "pairwise_attrs") else {}),
+                          "checked": True})
+            if "k1f" in kernels:
+                k1f_report(emit, pw, name, sub[:11], [None], args.reps)
+    if "k3" not in kernels:
+        return 0
+    k3_asks = [None] + [parse_long_k3(t) for t in args.long_k3_plans.split(",")
+                        if t]
+    if not here:
+        k3_asks = [None]
+    for name, calls in long_walks(G, dev).items():
+        refs = [(G.traceback_range_ref if len(tb) == 7
+                 else G.traceback_ref)(*tb, **kw) for tb, kw in calls]
+        for ask in k3_asks:
+            ms = dms = 0.0
+            moves = 0
+            plan = None
+            for (tb, kw), ref in zip(calls, refs):
+                dirs = tb[0]
+                try:
+                    plan = G.traceback_plan(dirs.shape[1], dirs.shape[2],
+                                            kw["max_iters"], **(ask or {}))
+                except ValueError as err:
+                    emit({"kernel": "K3", "shape": name, "ask": ask,
+                          "refused": str(err)})
+                    break
+                walk = G.traceback_range if len(tb) == 7 else G.traceback
+                fn = lambda: walk(*tb, **kw, plan=plan)  # noqa: E731
+                got = fn()
+                torch.cuda.synchronize()
+                if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+                    raise AssertionError(f"K3 != plain on {name} ({plan})")
+                ms += time_ms(fn, 3)
+                dms += device_ms(fn, 3, "traceback") or float("nan")
+                moves += int(ref[-1].sum())
+            else:
+                emit({"kernel": "K3", "shape": name, "ask": ask,
+                      "calls": len(calls), "moves": moves, "ms": ms,
+                      "device_ms": dms, "us_per_move": ms * 1e3 / moves,
+                      "device_us_per_move": dms * 1e3 / moves,
+                      "nsteps": calls[0][0][0].shape[1],
+                      "nslot": calls[0][0][0].shape[2],
+                      # a move reads a dirs and an opens byte, writes one
+                      "bound_ms": 3 * moves / 3.35e12 * 1e3,
+                      "plan": plan,
+                      **(G.traceback_attrs(plan["variant"])
+                         if hasattr(G, "traceback_attrs") else {}),
+                      "checked": True})
+    return 0
+
+
+def long_walks(G, dev) -> dict:
+    """K3's calls on long DNA: the walks of ``prrn -R 0`` on the 6 kb DNA
+    family (recorded with their planes), the 20 kb pair's walk from the
+    end and a range walk over the chunk of 2,048 rows at step 20,480 from
+    its path."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as C
+    from prrn_aln_tpu_torch import alphabet as ab, scoring
+    from prrn_aln_tpu_torch.cli import prrn_main
+    from prrn_aln_tpu_torch.config import default_params
+    from prrn_aln_tpu_torch.ops.window import stripe
+    out = {"dnafam6k": []}
+    real = G.traceback
+
+    def rec(*a, **kw):
+        out["dnafam6k"].append((a, {"max_iters": kw["max_iters"]}))
+        return real(*a, **kw)
+
+    G.traceback = rec
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            fa = Path(tmp) / "dnafam6k.fa"
+            C.dna_family_fasta(fa)
+            if prrn_main(["-R", "0", str(fa), "-o", str(Path(tmp) / "o"),
+                          "--device", "cuda"]) != 0:
+                raise AssertionError("prrn -R 0 failed on the DNA family")
+    finally:
+        G.traceback = real
+    out["dnafam6k"] = [c for c in out["dnafam6k"] if c[0][0].shape[2] > 7000]
+    dna, _ = scoring.build_matrix(ab.DNA, default_params(ab.DNA, "prrn"))
+    rng = np.random.default_rng(0)
+    base = rng.integers(0, 4, 20000)
+    msas = []
+    for arr in (base, C.mutate(rng, base)):
+        m = C.Msa(codes=ab.encode("".join("ACGT"[c] for c in arr),
+                                  ab.DNA)[None, :], molc=ab.DNA, names=["g"])
+        m.prepare(dna.shape[0])
+        msas.append(m)
+    A, B = msas
+    w = stripe(A.length, B.length, -60)
+    nslot = G._bucket(w.up - w.lw + 3, 128)
+    ins = G.stack_inputs([G._pack_inputs(
+        A, B, dna, 2.0, 9.0, w, 1, 1, G._bucket(A.length),
+        G._bucket(B.length), uniform=False)], dev)
+    nsteps = G._bucket(A.length + B.length + 1, 64)
+    _, dirs, opens, _ = G.group_wavefront(ins, nslot=nslot, nsteps=nsteps)
+    mi = 2 * (A.length + B.length) + 4
+    tb = (dirs, opens, ins["la"], ins["lb"], ins["lw"])
+    out["dna20k"] = [(tb, {"max_iters": mi})]
+    moves, cnts = G.traceback_ref(*tb, max_iters=mi)
+    m, n = A.length, B.length
+    d_lo, top = 20480, 20480 + 2047
+    for mv in moves[0, :int(cnts[0])].tolist():
+        if m + n <= top:
+            break
+        m -= mv in (0, 1)
+        n -= mv in (0, 2)
+    sub = tuple(x[:, d_lo:d_lo + 2048].contiguous() for x in (dirs, opens))
+    starts = tuple(torch.tensor([v], dtype=torch.int32, device=dev)
+                   for v in (m, n, 0, d_lo))
+    out["dna20k_range"] = [((*sub, *starts, ins["lw"]),
+                            {"max_iters": 2 * 2048 + 4})]
+    return out
 
 
 def flagship_genome() -> str:
