@@ -116,12 +116,19 @@ Phases (each raises on failure, so the script exits non-zero):
    ``K3_MIN_ROWS`` full rows) and on the earlier designs' (K1's block
    variant with its band in device memory, K3's global walk): all four
    outputs byte-identical; the distance batch in K1's cluster and
-   device-memory variants and K1f's block variant with its row in
-   device memory, each bit-equal to its plain version; each merge's walk
-   from the end equal to the plain walk and timed on the window and the
-   global plan; ``phyln`` on the family (K1 alone, the cluster variant);
-   K1's ms a batch and µs a step, K3's ms and µs a move under each plan,
-   the bounds and the walls; then the card line.
+   device-memory variants, each bit-equal to its plain version; each
+   merge's walk from the end equal to the plain walk and timed on the
+   window and the global plan; ``phyln`` on the family (K1 alone, the
+   cluster variant); then ``prrn -R 0`` under ``PRRN_PW_FUSED=1`` on
+   K1f's default plan (its cluster variant, asserted, for the distance
+   batch of ~24,000 lanes) and on its block variant (the row in device
+   memory, ``earlier_plans``): byte-identical, K1f launched and K1 not,
+   and whether the output equals the runs over K1 (printed, not
+   asserted: the two routes' scores differ by ulps); K1f's distance
+   batch in both variants bit-equal to ``row_scores_ref`` and timed;
+   K1's ms a batch and µs a step, K1f's ms a batch and µs a row, K3's
+   ms and µs a move under each plan, the bounds and the walls; then the
+   card line.
 13. the ``prrn`` and ``aln`` modes (``cli_modes``), each run once with
    the launch counts set to 0 just before it, byte-identical to the JAX
    package's output fixture (``tools/write_jax_fixtures.py``): ``prrn -U
@@ -196,7 +203,8 @@ Prints one JSON line per phase, then the card line, the kernels line
 (launches from the cold runs of phases 4 and 10, for K1f from the run
 under the switch in phase 6, for K3's range walk from the linear
 aligner's run in phase 12, K1's and K3's ``long_dna_family`` entries
-from phase 12 (e)'s warm default run, each phase 13 mode's under ``cli_modes``,
+from phase 12 (e)'s warm default run, K1f's from its run under the
+switch there, each phase 13 mode's under ``cli_modes``,
 K5's from ``aln -G`` on gen2 in phase 14, K6s's from phase 16's run
 with no group and K6r's from rank 0 of its world-2 run, both on the 4 kb
 pair; times at the main paths'
@@ -2034,11 +2042,13 @@ def phase_dna_family() -> dict:
                                 for run in ("cold", "warm")}}}
 
 
-def earlier_plan_of(k1_plan, k3_plan):
-    """K1's and K3's plans of the designs before the cluster and window
-    variants, on top of ``k1_plan`` and ``k3_plan``: K1's block variant
-    with its band in device memory where the default takes the cluster
-    variant, K3's global walk where it takes the window walk."""
+def earlier_plan_of(k1_plan, k3_plan, k1f_plan):
+    """K1's, K3's and K1f's plans of the designs before the cluster and
+    window variants, on top of ``k1_plan``, ``k3_plan`` and ``k1f_plan``:
+    K1's block variant with its band in device memory where the default
+    takes the cluster variant, K3's global walk where it takes the window
+    walk, K1f's block variant (its row in device memory where shared
+    memory does not hold it) where it takes the cluster variant."""
     def k1(maxw, B, dim, Ma, Mb, **kw):
         if not kw and k1_plan(maxw, B, dim, Ma, Mb)["variant"] == "cluster":
             kw = {"variant": "block", "state": "device"}
@@ -2049,19 +2059,70 @@ def earlier_plan_of(k1_plan, k3_plan):
                               max_iters)["variant"] == "window":
             kw = {"variant": "global"}
         return k3_plan(nsteps, nslot, max_iters, **kw)
-    return k1, k3
+
+    def k1f(nlane, B, dim, Ma, Mb, **kw):
+        if not kw and k1f_plan(nlane, B, dim, Ma, Mb)["variant"] == "cluster":
+            kw = {"variant": "block"}
+        return k1f_plan(nlane, B, dim, Ma, Mb, **kw)
+    return k1, k3, k1f
 
 
 @contextlib.contextmanager
 def earlier_plans():
-    """K1's and K3's wrappers on the earlier designs' plans for the calls
-    inside (``earlier_plan_of``)."""
-    real = (pairwise.pairwise_plan, G.traceback_plan)
-    pairwise.pairwise_plan, G.traceback_plan = earlier_plan_of(*real)
+    """K1's, K3's and K1f's wrappers on the earlier designs' plans for the
+    calls inside (``earlier_plan_of``)."""
+    real = (pairwise.pairwise_plan, G.traceback_plan, pairwise.rows_plan)
+    (pairwise.pairwise_plan, G.traceback_plan,
+     pairwise.rows_plan) = earlier_plan_of(*real)
     try:
         yield
     finally:
-        pairwise.pairwise_plan, G.traceback_plan = real
+        pairwise.pairwise_plan, G.traceback_plan, pairwise.rows_plan = real
+
+
+@contextlib.contextmanager
+def k1f_probe():
+    """CUDA events around K1f's launches, with each call's plan and
+    arguments (the caller drops the record)."""
+    rec = []
+    real = pairwise._launch_rows
+
+    def k1f(*args, plan=None):
+        a_batch, b_batch, la, lb, lw, up, mtx = args[:7]
+        lw0, nlane = args[11:13]
+        used = plan or pairwise.rows_plan(nlane, a_batch.shape[0],
+                                          mtx.shape[0], a_batch.shape[1],
+                                          b_batch.shape[1])
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*args, plan=used)
+        end.record()
+        rec.append({"args": args[:11], "lw0": lw0, "nlane": nlane,
+                    "plan": used, "rows": int(la.max()),
+                    "events": (start, end)})
+        return out
+
+    pairwise._launch_rows = k1f
+    try:
+        yield rec
+    finally:
+        pairwise._launch_rows = real
+
+
+def k1f_summary(rec) -> list:
+    """K1f's calls from ``k1f_probe``'s record: pairs, lanes, rows, plan,
+    ms (CUDA events) and µs a row."""
+    torch.cuda.synchronize()
+    out = []
+    for c in rec:
+        ms = c["events"][0].elapsed_time(c["events"][1])
+        out.append({"pairs": c["args"][0].shape[0], "nlane": c["nlane"],
+                    "rows": c["rows"], "ms": ms,
+                    "us_per_row": ms * 1e3 / c["rows"],
+                    **{k: c["plan"][k] for k in (
+                        "variant", "state", "ctas", "lanes", "warps")}})
+    return out
 
 
 @contextlib.contextmanager
@@ -2135,17 +2196,20 @@ def k1k3_summary(rec) -> dict:
             "k3_ms": sum(ms(c) for c in rec["k3"])}
 
 
-def phase_long_dna_family(dev) -> tuple[dict, dict]:
+def phase_long_dna_family(dev) -> tuple[dict, dict, dict]:
     """Phase 12 (e): ``prrn -R 0`` on the DNA family at LONG_FAMILY_NT a
     side, cold and warm on K1's and K3's default plans (the cluster
     variant, the window walk) and on the earlier designs' (K1's block
     variant with its band in device memory, K3's global walk): the four
-    outputs byte-identical; K1 and its block variant in device memory,
-    and K1f (its block variant, the row in device memory), on the
-    recorded distance batch against their plain versions on the card, bit
-    for bit; K3's walks from the end against the plain walk; ``phyln``
-    on the family (K1 alone).  Returns the kernels line's K1, K3 and
-    K1f sub-entries."""
+    outputs byte-identical; K1 and its block variant in device memory on
+    the recorded distance batch against their plain versions on the card,
+    bit for bit; K3's walks from the end against the plain walk; ``phyln``
+    on the family (K1 alone).  Then ``prrn -R 0`` under
+    ``PRRN_PW_FUSED=1`` on K1f's default plan (the cluster variant) and
+    on the earlier design (its block variant, the row in device memory):
+    byte-identical, K1f launched and K1 not; its distance batch in both
+    variants against ``row_scores_ref`` bit for bit, each timed.  Returns
+    the kernels line's K1, K3 and K1f sub-entries."""
     runs = {}
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "dnafam20k.fa"
@@ -2168,6 +2232,20 @@ def phase_long_dna_family(dev) -> tuple[dict, dict]:
             _, phy_secs, phy_launches = run_cli(phyln_main, [str(path)])
             phy = k1k3_summary(phy_probe)
         del phy_probe
+        # the distance pass over K1f: its default plan, then the block
+        # variant
+        fused = {}
+        for plan, scope in (("default", contextlib.nullcontext),
+                            ("earlier", earlier_plans)):
+            with scope(), k1f_probe() as fprobe:
+                text, secs, launches = run_cli(
+                    prrn_main, ["-R", "0", str(path)],
+                    env={"PRRN_PW_FUSED": "1"})
+                fused[plan] = (text, {"seconds": secs, "launches": launches,
+                                      "k1f_calls": k1f_summary(fprobe)})
+            if plan == "default":
+                k1f_call = fprobe[0]
+            del fprobe
     texts = {text for text, _ in runs.values()}
     if len(texts) != 1:
         raise AssertionError("prrn -R 0 on the 20 kb DNA family differs "
@@ -2190,9 +2268,26 @@ def phase_long_dna_family(dev) -> tuple[dict, dict]:
     if [c["variant"] for c in phy["k1_calls"]] != ["cluster"]:
         raise AssertionError(f"phyln's K1 did not take the cluster "
                              f"variant: {phy}")
+    ftexts = {text for text, _ in fused.values()}
+    if len(ftexts) != 1:
+        raise AssertionError("prrn -R 0 under PRRN_PW_FUSED=1 on the 20 kb "
+                             "DNA family differs between K1f's cluster and "
+                             "block variants")
+    fout = {plan: rec for plan, (_, rec) in fused.items()}
+    for plan, want in (("default", "cluster"), ("earlier", "block")):
+        rec = fout[plan]
+        if (not rec["launches"].get("pairwise_rows")
+                or rec["launches"].get("pairwise")):
+            raise AssertionError(f"under PRRN_PW_FUSED=1 K1f was not "
+                                 f"launched, or K1 was: {rec['launches']}")
+        if {c["variant"] for c in rec["k1f_calls"]} != {want}:
+            raise AssertionError(f"K1f's {plan} plans took "
+                                 f"{rec['k1f_calls']}")
+    # the scores of the two routes differ by ulps, so the outputs may too
+    fused_equals_k1 = ftexts == texts
 
-    # the distance batch: K1 (cluster), K1 (block, band in device memory)
-    # and K1f (block, row in device memory) against their plain versions
+    # the distance batch: K1 (cluster) and K1 (block, band in device
+    # memory) against their plain version
     call = kept["k1"][0]
     args = call["args"]
     refs = []
@@ -2214,26 +2309,55 @@ def phase_long_dna_family(dev) -> tuple[dict, dict]:
         ms = time_ms(lambda: pairwise._launch_pairwise(*args, plan), 3)
         checks[name] = {"ms": ms, "us_per_step": ms * 1e3 / call["steps"],
                         "max_abs_err": 0.0, **pairwise.pairwise_attrs(plan)}
-    lw0 = int(lw.min())
-    nlane = int(up.max()) - lw0 + 1
-    rows_plan = pairwise.rows_plan(nlane, a_batch.shape[0], mtx.shape[0],
-                                   a_batch.shape[1], b_batch.shape[1])
-    if rows_plan["state"] != "device":
-        raise AssertionError(f"K1f's plan at {nlane} lanes: {rows_plan}")
-    rows_ref = pairwise.row_scores_ref(*args[:11], lw0=lw0, nlane=nlane,
-                                       nrow=int(la.max()))
-    rows_got = pairwise._launch_rows(*args[:11], lw0, nlane, rows_plan)
-    torch.cuda.synchronize()
-    if not torch.equal(rows_got.view(torch.int32),
-                       rows_ref.view(torch.int32)):
-        raise AssertionError("K1f's block variant (row in device memory) != "
-                             "plain on the 20 kb family's distance batch")
-    rows_ms = time_once_ms(lambda: pairwise._launch_rows(
-        *args[:11], lw0, nlane, rows_plan))
     cells = pairwise.band_cells(*(x.cpu().numpy() for x in (la, lb, lw, up)))
     k1_bound = bound(tensor_bytes(*(x for x in args
                                     if isinstance(x, torch.Tensor)))
                      + 4 * a_batch.shape[0], 9 * cells)
+    # K1f's distance batch (as the fused run launched it): the cluster
+    # variant and the block variant, row in device memory, against the
+    # plain version, bit for bit
+    fa, lw0, nlane = k1f_call["args"], k1f_call["lw0"], k1f_call["nlane"]
+    cplan, rows = k1f_call["plan"], k1f_call["rows"]
+    if cplan["variant"] != "cluster":
+        raise AssertionError(f"K1f's plan at {nlane} lanes: {cplan}")
+    dplan = pairwise.rows_plan(nlane, fa[0].shape[0], fa[6].shape[0],
+                               fa[0].shape[1], fa[1].shape[1],
+                               variant="block")
+    if dplan["state"] != "device":
+        raise AssertionError(f"K1f's block plan at {nlane} lanes: {dplan}")
+    refs = []
+    rows_plain_ms = time_once_ms(lambda: refs.append(pairwise.row_scores_ref(
+        *fa, lw0=lw0, nlane=nlane, nrow=rows)))
+    rows_ref = refs[0]
+    for name, plan in (("cluster", cplan), ("block_device", dplan)):
+        got = pairwise._launch_rows(*fa, lw0, nlane, plan)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), rows_ref.view(torch.int32)):
+            raise AssertionError(f"K1f's {name} variant != plain on the 20 kb "
+                                 "family's distance batch")
+    cluster_ms = time_ms(lambda: pairwise._launch_rows(
+        *fa, lw0, nlane, cplan), 3)
+    # the block variant's time: its call in the run on the earlier plan
+    block_ms = fout["earlier"]["k1f_calls"][0]["ms"]
+    fcells = pairwise.band_cells(*(x.cpu().numpy() for x in fa[2:6]))
+    k1f_entry = {
+        "variant": "cluster",
+        "launches": fout["default"]["launches"]["pairwise_rows"],
+        "ms": cluster_ms, "us_per_row": cluster_ms * 1e3 / rows,
+        "pairs": fa[0].shape[0], "nlane": nlane, "rows": rows,
+        "ctas": cplan["ctas"], "lanes_a_thread": cplan["lanes"],
+        "warps_a_cta": cplan["warps"], "max_abs_err": 0.0,
+        "plain_ms": rows_plain_ms,
+        # a band cell: as K1, 3 adds or subtractions and 6 maxima
+        **bound(tensor_bytes(*fa) + 4 * fa[0].shape[0], 9 * fcells),
+        **pairwise.rows_attrs(cplan),
+        "in_run_ms": fout["default"]["k1f_calls"][0]["ms"],
+        "block_device": {"ms": block_ms, "us_per_row": block_ms * 1e3 / rows,
+                         **pairwise.rows_attrs(dplan)},
+        "wall_s": fout["default"]["seconds"],
+        "block_wall_s": fout["earlier"]["seconds"],
+        "output_equals_k1_run": fused_equals_k1}
+    del k1f_call, fa
     # K3's walks from the end of the warm default run against the plain
     # walk, and each one's time on the window and the global plan
     walks = []
@@ -2267,9 +2391,9 @@ def phase_long_dna_family(dev) -> tuple[dict, dict]:
         "bytes": len(texts.pop()), **out, "phyln": {
             "seconds": phy_secs, "launches": phy_launches, **phy},
         "k1_checks": checks, "k1_plain_ms": k1_plain_ms,
-        "k1f_device": {"ms": rows_ms, "lanes": nlane, "max_abs_err": 0.0,
-                       "plan": rows_plan}, "k1_bound": k1_bound,
-        "k3_walks": walks})
+        "k1_bound": k1_bound, "k3_walks": walks,
+        "fused": {"output_equal": True, "bytes": len(next(iter(ftexts))),
+                  **fout, "k1f": k1f_entry}})
     print(card_line(), flush=True)
     k1c = warm["k1_calls"][0]
     k1_entry = {"launches": warm["launches"]["pairwise"], "ms": k1c["ms"],
@@ -2298,9 +2422,7 @@ def phase_long_dna_family(dev) -> tuple[dict, dict]:
                 "walks": walks, "max_abs_err": 0.0, "plain_ms": k3_plain_ms,
                 # a move reads one dirs and one opens byte, writes one
                 **bound(3 * moves + 4 * len(walks), 0)}
-    return (k1_entry, k3_entry,
-            {"ms": rows_ms, "lanes": nlane, "max_abs_err": 0.0,
-             "plan": rows_plan})
+    return k1_entry, k3_entry, k1f_entry
 
 
 GROUPS = "1 2/3-5/6"
@@ -3602,7 +3724,7 @@ def main() -> int:
          "launches": forest_runs["fused"]["pairwise_rows"],
          **{k: x for k, x in k1f.items() if k != "k1_ms"},
          "cli_modes": cli_launches("pairwise_rows"),
-         "long_dna_family_device_row": k1f_long},
+         "long_dna_family": k1f_long},
         {"name": "group_wavefront", "route": "cuda",
          "source": "prrn_aln_tpu_torch/csrc/group_wavefront.cu",
          "replaces": "prrn_aln_tpu/ops/pallas_group.py:102",

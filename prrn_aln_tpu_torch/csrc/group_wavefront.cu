@@ -110,9 +110,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <mutex>
 #include <type_traits>
-#include <vector>
+
+#include "cluster_fits.cuh"
 
 namespace {
 
@@ -1001,35 +1001,6 @@ int launch(const Args& args, int B, size_t smem, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// Whether the card holds one cluster of a launch's shape
-// (cudaOccupancyMaxActiveClusters), asked once a shape: the query takes
-// about as long as a short launch.
-cudaError_t cluster_fits(const void* kernel, const cudaLaunchConfig_t& cfg,
-                         bool* fits) {
-  struct Seen {
-    const void* kernel;
-    unsigned ctas, threads;
-    size_t smem;
-    bool fits;
-  };
-  static std::mutex lock;
-  static std::vector<Seen> seen;
-  const unsigned ctas = cfg.attrs[0].val.clusterDim.x;
-  std::lock_guard<std::mutex> hold(lock);
-  for (const Seen& s : seen)
-    if (s.kernel == kernel && s.ctas == ctas &&
-        s.threads == cfg.blockDim.x && s.smem == cfg.dynamicSmemBytes) {
-      *fits = s.fits;
-      return cudaSuccess;
-    }
-  int held = 0;
-  const cudaError_t err = cudaOccupancyMaxActiveClusters(&held, kernel, &cfg);
-  if (err != cudaSuccess) return err;
-  *fits = held >= 1;
-  seen.push_back({kernel, ctas, cfg.blockDim.x, cfg.dynamicSmemBytes, *fits});
-  return cudaSuccess;
-}
-
 // B clusters of args.ctas CTAs; refused (cudaErrorInvalidConfiguration)
 // where the card cannot hold one such cluster
 template <bool LS3, int RB>
@@ -1055,7 +1026,7 @@ int launch_cluster(const Args& args, int B, size_t smem,
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   bool fits = false;
-  err = cluster_fits((const void*)kernel, cfg, &fits);
+  err = prrn_kernels::cluster_fits((const void*)kernel, cfg, &fits);
   if (err != cudaSuccess) return (int)err;
   if (!fits) return (int)cudaErrorInvalidConfiguration;
   err = cudaLaunchKernelEx(&cfg, kernel, args);

@@ -60,8 +60,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <mutex>
-#include <vector>
+#include "cluster_fits.cuh"
 
 namespace {
 
@@ -635,35 +634,6 @@ RegKernel pick_kernel(int variant, int lanes, int local) {
   return nullptr;
 }
 
-// Whether the card holds one cluster of a launch's shape
-// (cudaOccupancyMaxActiveClusters), asked once a shape: the query takes
-// about as long as a short launch.
-cudaError_t cluster_fits(const void* kernel, const cudaLaunchConfig_t& cfg,
-                         bool* fits) {
-  struct Seen {
-    const void* kernel;
-    unsigned ctas, threads;
-    size_t smem;
-    bool fits;
-  };
-  static std::mutex lock;
-  static std::vector<Seen> seen;
-  const unsigned ctas = cfg.attrs[0].val.clusterDim.x;
-  std::lock_guard<std::mutex> hold(lock);
-  for (const Seen& s : seen)
-    if (s.kernel == kernel && s.ctas == ctas &&
-        s.threads == cfg.blockDim.x && s.smem == cfg.dynamicSmemBytes) {
-      *fits = s.fits;
-      return cudaSuccess;
-    }
-  int held = 0;
-  const cudaError_t err = cudaOccupancyMaxActiveClusters(&held, kernel, &cfg);
-  if (err != cudaSuccess) return err;
-  *fits = held >= 1;
-  seen.push_back({kernel, ctas, cfg.blockDim.x, cfg.dynamicSmemBytes, *fits});
-  return cudaSuccess;
-}
-
 }  // namespace
 
 // variant 0: block (threads ignored; ``state`` null: the band in shared
@@ -749,7 +719,7 @@ extern "C" int pairwise_scores_launch(
     cfg.attrs = &attr;
     cfg.numAttrs = 1;
     bool fits = false;
-    err = cluster_fits((const void*)kern, cfg, &fits);
+    err = prrn_kernels::cluster_fits((const void*)kern, cfg, &fits);
     if (err != cudaSuccess) return (int)err;
     if (!fits) return (int)cudaErrorInvalidConfiguration;
     err = cudaLaunchKernelEx(&cfg, kern, a, b, la_, lb_, lw_, up_, u_, v_,

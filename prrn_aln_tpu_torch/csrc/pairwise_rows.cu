@@ -50,15 +50,42 @@
 // warp publishes its scan total, its first lane's Y and new G and its
 // last lane's Y and in-warp carry into double-buffered shared slots, and
 // the warps meet at one named barrier a row, after which each warp
-// finishes its neighbours' edge lanes itself; "block", the first design
-// (one block of up to 1,024 threads a pair, the row in shared memory, two
-// block barriers a row) for bands wider than the "warps" variant holds.
+// finishes its neighbours' edge lanes itself; "cluster", the "warps"
+// variant's row step on each CTA of a thread-block cluster of up to 16 a
+// pair, CTA r on the r-th slice of the lanes, for bands wider than one
+// CTA of the "warps" variant holds (8,192 lanes); "block", the first
+// design (one block of up to 1,024 threads a pair, the row in shared
+// memory, two block barriers a row) past what one cluster holds, or when
+// asked for.
+//
+// The cluster variant.  A row's running maximum can carry across the
+// whole band in one row, so there is no ghost zone to compute ahead (as
+// K1's cluster variant does along anti-diagonals): every row crosses the
+// CTAs once.  After its warps' named barrier, each CTA pushes through
+// distributed shared memory, into slots of this row's parity: its total
+// (the maximum of C + j*u over its lanes) into every CTA to its right, its
+// first lane's Y and new G into the CTA to its left, and its last lane's
+// Y and carry within the CTA into the CTA to its right.  One split
+// cluster barrier (arrive.release, wait.acquire) a row; then each CTA
+// folds the totals of the CTAs to its left into its carry and finishes
+// its edge lanes as the warps do theirs.  A maximum is exact in any
+// order, so the fold's order changes no bit.  The slots alternate by
+// row, so a push never lands on a slot a slower CTA still reads: it read
+// them before its next arrive, which the pusher waited for.  On an H100
+// a row of 16 CTAs takes ~1.7 us, ~0.6 us of it the barrier
+// (tools/k1k3_bench.py --ablate k1f_nocluster); the rest is the "warps"
+// step's chain, which wider threads (8 lanes or more) shorten.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "cluster_fits.cuh"
+
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr float kNegSent = -1879048192.0f;   // -(2**31 // 8) * 7
 constexpr float kNevsel = -1.0e30f;
@@ -82,6 +109,17 @@ __device__ __forceinline__ float warp_max(float x) {
 
 __device__ __forceinline__ void named_sync(int nthreads) {
   asm volatile("bar.sync 1, %0;" ::"r"(nthreads) : "memory");
+}
+
+// the split cluster barrier: a thread's writes before the arrive
+// (release) are seen by every thread of the cluster after its wait
+// (acquire)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
 struct RowPair {
@@ -179,8 +217,11 @@ __device__ __forceinline__ float row_pass2(float (&H)[L],
 // The register-state kernel.  WARPS = false: the "warp" variant (warp w
 // of a block sweeps pair blockIdx.x * (blockDim.x / 32) + w); WARPS =
 // true: the "warps" variant (the block's warps sweep pair blockIdx.x
-// together, L lanes a thread, 32 L a warp).
-template <int L, bool WARPS>
+// together, L lanes a thread, 32 L a warp); CLUSTER (with WARPS): the
+// "cluster" variant (the ``ctas`` CTAs of a cluster sweep pair
+// blockIdx.x / ctas together, CTA r on the L blockDim.x lanes from
+// r L blockDim.x).
+template <int L, bool WARPS, bool CLUSTER>
 __global__ void __launch_bounds__(WARPS ? 512 : 128) pairwise_rows_reg_kernel(
     const int32_t* __restrict__ a_batch, const int32_t* __restrict__ b_batch,
     const int32_t* __restrict__ la_, const int32_t* __restrict__ lb_,
@@ -188,24 +229,33 @@ __global__ void __launch_bounds__(WARPS ? 512 : 128) pairwise_rows_reg_kernel(
     const float* __restrict__ u_, const float* __restrict__ v_,
     const float* __restrict__ tg_, const uint8_t* __restrict__ exg_,
     const float* __restrict__ mtx, float* __restrict__ out, int B, int Ma,
-    int Mb, int dim, int lw0, int W, int code_stride) {
+    int Mb, int dim, int lw0, int W, int code_stride, int ctas) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   const int ms = dim + 1;                    // matrix row stride
   float* smtx = reinterpret_cast<float*>(smem);
-  // warps variant: edges[2][nwarps][5] and red[3][nwarps] after the matrix
+  // warps variant: edges[2][nwarps][5] and red[3][nwarps] after the matrix;
+  // cluster variant: then the slots the other CTAs push into, [2][20] by
+  // row parity (the CTAs' totals by rank, the next CTA's first lane's Y
+  // and G, the previous CTA's last lane's Y and carry), and the CTAs' end
+  // maxima [3][16]
   float* edges = smtx + dim * ms;
   float* red = edges + 10 * nwarps;
-  uint8_t* codes = reinterpret_cast<uint8_t*>(red + 3 * nwarps);
+  float* xs = red + 3 * nwarps;
+  float* cred = xs + (CLUSTER ? 40 : 0);
+  uint8_t* codes = reinterpret_cast<uint8_t*>(CLUSTER ? cred + 48 : xs);
   const int npairs = WARPS ? 1 : nwarps;     // pairs of this block
+  const int rank = CLUSTER ? (int)cg::this_cluster().block_rank() : 0;
+  const int pb = CLUSTER ? blockIdx.x / ctas : blockIdx.x;
+  const bool last_cta = !CLUSTER || rank == ctas - 1;
 
   for (int i = threadIdx.x; i < dim * ms; i += blockDim.x) {
     const int r = i / ms, c = i - r * ms;
     smtx[i] = c < dim ? mtx[r * dim + c] : 0.0f;
   }
   for (int k = 0; k < npairs; ++k) {
-    const int p = WARPS ? blockIdx.x : blockIdx.x * nwarps + k;
+    const int p = WARPS ? pb : pb * nwarps + k;
     if (p >= B) break;
     uint8_t* ca = codes + (size_t)k * code_stride;
     uint8_t* cb = ca + Ma;
@@ -217,15 +267,17 @@ __global__ void __launch_bounds__(WARPS ? 512 : 128) pairwise_rows_reg_kernel(
   }
   __syncthreads();
 
-  const int p = WARPS ? blockIdx.x : blockIdx.x * nwarps + warp;
+  const int p = WARPS ? pb : pb * nwarps + warp;
   if (p >= B) return;
   const uint8_t* sa = codes + (size_t)(WARPS ? 0 : warp) * code_stride;
   const uint8_t* sb = sa + Ma;
   const RowPair q = load_pair(p, la_, lb_, lw_, up_, u_, v_, tg_, exg_);
-  const int gt = WARPS ? threadIdx.x : lane;   // thread within the pair
+  // thread within the pair
+  const int gt = WARPS ? rank * (int)blockDim.x + (int)threadIdx.x : lane;
   const int j0 = gt * L;
   const float u = q.u, v = q.v;
-  // (the same for every thread of a pair, so a warps block leaves whole)
+  // (the same for every thread of a pair, so a warps block, and a
+  // cluster, leaves whole)
   if (q.La <= 0 || q.La > Ma || q.LW < lw0 || q.UP - lw0 >= W) {
     // no row ever becomes the last row, or the band lies outside the
     // packing the launch was given: NEVSEL as the plain version, NaN
@@ -253,8 +305,14 @@ __global__ void __launch_bounds__(WARPS ? 512 : 128) pairwise_rows_reg_kernel(
     const int n = lw0 + j0 - 1;
     cdl = (n >= 0 && n < Mb) ? sb[n] : dim;
   }
-  if (WARPS && lane == 31 && warp < nwarps - 1)
+  if (WARPS && lane == 31 && (warp < nwarps - 1 || !last_cta))
     hF = boundary_h(q, j0 + L, lw0, W);
+  // the cluster variant: every CTA of the cluster running before any
+  // pushes into another
+  if (CLUSTER) {
+    cluster_arrive();
+    cluster_wait();
+  }
 
   float bcol = kNevsel;              // right-column terminal candidates
   // the score reads them only with a free right end of b
@@ -346,17 +404,61 @@ __global__ void __launch_bounds__(WARPS ? 512 : 128) pairwise_rows_reg_kernel(
         c_next = fmaxf(c_next, t);
       }
       carry = fmaxf(carry, c_in);
-      // the neighbouring warps' edge lanes of this row, for the next row
-      if (lane == 31 && warp < nwarps - 1) {
-        const int jF = j0 + L;
-        hF = mask_lane(fmaxf(eb[nwarps + warp + 1], c_next - (float)jF * u),
-                       q, jF, m, lw0, W, colb, colb_ok);
-        gF = eb[2 * nwarps + warp + 1];
+      float yF = 0.0f, yL = 0.0f, cL = 0.0f;
+      if (CLUSTER) {
+        // this row's slots: the CTA's total into the CTAs to its right
+        // (the last warp's c_next: the maximum over the CTA's warps), its
+        // last lane's Y and carry into the next CTA, its first lane's Y
+        // and new G into the previous one; meet; fold in the totals of
+        // the CTAs to the left
+        float* xb = xs + 20 * (m & 1);
+        cg::cluster_group cluster = cg::this_cluster();
+        if (warp == nwarps - 1) {
+          if (lane > rank && lane < ctas)
+            cluster.map_shared_rank(xb, lane)[rank] = c_next;
+          if (lane == 31 && !last_cta) {
+            float* nx = cluster.map_shared_rank(xb, rank + 1);
+            nx[18] = H[L - 1];
+            nx[19] = carry;
+          }
+        }
+        if (warp == 0 && lane == 0 && rank > 0) {
+          float* pv = cluster.map_shared_rank(xb, rank - 1);
+          pv[16] = H[0];
+          pv[17] = G[0];
+        }
+        cluster_arrive();
+        cluster_wait();
+        const float t2 = warp_max(lane < rank - 1 ? xb[lane] : kNevsel);
+        const float tl = rank > 0 ? fmaxf(t2, xb[rank - 1]) : kNevsel;
+        carry = fmaxf(carry, tl);
+        c_next = fmaxf(c_next, tl);
+        c_prev = fmaxf(c_prev, tl);
+        if (warp == nwarps - 1 && lane == 31 && !last_cta) {
+          yF = xb[16];
+          gF = xb[17];
+        }
+        if (warp == 0 && lane == 0 && rank > 0) {
+          yL = xb[18];
+          cL = fmaxf(t2, xb[19]);
+        }
       }
-      if (lane == 0 && warp > 0) {
+      // the neighbouring warps' edge lanes of this row, for the next row
+      // (the cluster variant: across a CTA edge, from the slots)
+      if (lane == 31 && (warp < nwarps - 1 || !last_cta)) {
+        const int jF = j0 + L;
+        const bool here = !CLUSTER || warp < nwarps - 1;
+        hF = mask_lane(fmaxf(here ? eb[nwarps + warp + 1] : yF,
+                             c_next - (float)jF * u),
+                       q, jF, m, lw0, W, colb, colb_ok);
+        if (here) gF = eb[2 * nwarps + warp + 1];
+      }
+      if (lane == 0 && (warp > 0 || (CLUSTER && rank > 0))) {
         const int jL = j0 - 1;
-        const float cl = fmaxf(c_prev, eb[4 * nwarps + warp - 1]);
-        hL = mask_lane(fmaxf(eb[3 * nwarps + warp - 1], cl - (float)jL * u),
+        const bool here = !CLUSTER || warp > 0;
+        const float cl = here ? fmaxf(c_prev, eb[4 * nwarps + warp - 1]) : cL;
+        hL = mask_lane(fmaxf(here ? eb[3 * nwarps + warp - 1] : yL,
+                             cl - (float)jL * u),
                        q, jL, m, lw0, W, colb, colb_ok);
       }
     }
@@ -405,13 +507,32 @@ __global__ void __launch_bounds__(WARPS ? 512 : 128) pairwise_rows_reg_kernel(
       red[2 * nwarps + warp] = bcol;
     }
     named_sync(blockDim.x);
-    if (gt == 0) {
+    if (threadIdx.x == 0) {
       for (int w = 1; w < nwarps; ++w) {
         corner = fmaxf(corner, red[w]);
         brow = fmaxf(brow, red[nwarps + w]);
         bcol = fmaxf(bcol, red[2 * nwarps + w]);
       }
     }
+  }
+  if (CLUSTER) {
+    // the CTAs' maxima into CTA 0's shared memory; maxima are exact in
+    // any order
+    cg::cluster_group cluster = cg::this_cluster();
+    if (threadIdx.x == 0) {
+      float* c0 = cluster.map_shared_rank(cred, 0);
+      c0[rank] = corner;
+      c0[16 + rank] = brow;
+      c0[32 + rank] = bcol;
+    }
+    cluster_arrive();
+    cluster_wait();
+    if (gt == 0)
+      for (int r = 1; r < ctas; ++r) {
+        corner = fmaxf(corner, cred[r]);
+        brow = fmaxf(brow, cred[16 + r]);
+        bcol = fmaxf(bcol, cred[32 + r]);
+      }
   }
   if (gt == 0) {
     float score = corner;
@@ -612,31 +733,37 @@ using RowsKernel = void (*)(const int32_t*, const int32_t*, const int32_t*,
                             const int32_t*, const int32_t*, const int32_t*,
                             const float*, const float*, const float*,
                             const uint8_t*, const float*, float*, int, int,
-                            int, int, int, int, int);
+                            int, int, int, int, int, int);
 
-// the register-state kernel of a variant (1: warp, 2: warps), or null
+template <bool CLUSTER>
+RowsKernel warps_kernel(int lanes) {
+  switch (lanes) {
+    case 4: return pairwise_rows_reg_kernel<4, true, CLUSTER>;
+    case 8: return pairwise_rows_reg_kernel<8, true, CLUSTER>;
+    case 12: return pairwise_rows_reg_kernel<12, true, CLUSTER>;
+    case 16: return pairwise_rows_reg_kernel<16, true, CLUSTER>;
+  }
+  return nullptr;
+}
+
+// the register-state kernel of a variant (1: warp, 2: warps, 3:
+// cluster), or null
 RowsKernel pick_kernel(int variant, int lanes) {
   if (variant == 1) {
     switch (lanes) {
-      case 2: return pairwise_rows_reg_kernel<2, false>;
-      case 4: return pairwise_rows_reg_kernel<4, false>;
-      case 8: return pairwise_rows_reg_kernel<8, false>;
-      case 12: return pairwise_rows_reg_kernel<12, false>;
-      case 16: return pairwise_rows_reg_kernel<16, false>;
-      case 20: return pairwise_rows_reg_kernel<20, false>;
-      case 24: return pairwise_rows_reg_kernel<24, false>;
-      case 28: return pairwise_rows_reg_kernel<28, false>;
-      case 32: return pairwise_rows_reg_kernel<32, false>;
+      case 2: return pairwise_rows_reg_kernel<2, false, false>;
+      case 4: return pairwise_rows_reg_kernel<4, false, false>;
+      case 8: return pairwise_rows_reg_kernel<8, false, false>;
+      case 12: return pairwise_rows_reg_kernel<12, false, false>;
+      case 16: return pairwise_rows_reg_kernel<16, false, false>;
+      case 20: return pairwise_rows_reg_kernel<20, false, false>;
+      case 24: return pairwise_rows_reg_kernel<24, false, false>;
+      case 28: return pairwise_rows_reg_kernel<28, false, false>;
+      case 32: return pairwise_rows_reg_kernel<32, false, false>;
     }
   }
-  if (variant == 2) {
-    switch (lanes) {
-      case 4: return pairwise_rows_reg_kernel<4, true>;
-      case 8: return pairwise_rows_reg_kernel<8, true>;
-      case 12: return pairwise_rows_reg_kernel<12, true>;
-      case 16: return pairwise_rows_reg_kernel<16, true>;
-    }
-  }
+  if (variant == 2) return warps_kernel<false>(lanes);
+  if (variant == 3) return warps_kernel<true>(lanes);
   return nullptr;
 }
 
@@ -645,8 +772,9 @@ RowsKernel pick_kernel(int variant, int lanes) {
 // variant 0: block (L = ceil(W / 1024) lanes a thread, threads and
 // code_stride ignored; ``state`` null: the row and codes in shared
 // memory, else in ``state``, rows_state_bytes a pair, and the matrix in
-// shared memory where smem_bytes holds it); 1: warp (threads / 32 pairs a block); 2: warps
-// (threads / 32 warps a pair).  lanes: lanes a thread of the register
+// shared memory where smem_bytes holds it); 1: warp (threads / 32 pairs
+// a block); 2: warps (threads / 32 warps a pair); 3: cluster (ctas CTAs
+// of threads / 32 warps a pair).  lanes: lanes a thread of the register
 // variants; code_stride: bytes of a pair's codes in shared memory.
 extern "C" int pairwise_rows_launch(
     const void* a_batch, const void* b_batch, const void* la, const void* lb,
@@ -654,7 +782,7 @@ extern "C" int pairwise_rows_launch(
     const void* tgapf, const void* exg, const void* mtx, void* out,
     void* state, int B, int Ma, int Mb, int dim, int lw0, int W,
     int variant, int lanes, int threads, int code_stride, int smem_bytes,
-    void* stream) {
+    int ctas, void* stream) {
   const int32_t* a = (const int32_t*)a_batch;
   const int32_t* b = (const int32_t*)b_batch;
   const int32_t *la_ = (const int32_t*)la, *lb_ = (const int32_t*)lb;
@@ -702,21 +830,51 @@ extern "C" int pairwise_rows_launch(
   if (kern == nullptr || threads < 32 || threads % 32 != 0 || dim > 255 ||
       (variant == 1 && (threads > 128 || 32 * lanes < W)) ||
       (variant == 2 && (threads > 512 || 32 * lanes * nw < W)) ||
+      (variant == 3 && (threads > 512 || ctas < 2 || ctas > 16 ||
+                        32 * lanes * nw * ctas < W)) ||
       code_stride < Ma + Mb)
     return (int)cudaErrorInvalidValue;
-  const int per_block = variant == 1 ? nw : 1;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
+  if (variant == 3) {
+    // B clusters of ctas CTAs; refused where the card holds no such
+    // cluster (16 CTAs is a non-portable size)
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(B * ctas, 1, 1);
+    cfg.blockDim = dim3(threads, 1, 1);
+    cfg.dynamicSmemBytes = smem_bytes;
+    cfg.stream = st;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = ctas;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    bool fits = false;
+    err = prrn_kernels::cluster_fits((const void*)kern, cfg, &fits);
+    if (err != cudaSuccess) return (int)err;
+    if (!fits) return (int)cudaErrorInvalidConfiguration;
+    err = cudaLaunchKernelEx(&cfg, kern, a, b, la_, lb_, lw_, up_, u_, v_,
+                             tg_, exg_, mtx_, out_, B, Ma, Mb, dim, lw0, W,
+                             code_stride, ctas);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+  }
+  const int per_block = variant == 1 ? nw : 1;
   kern<<<(B + per_block - 1) / per_block, threads, smem_bytes, st>>>(
       a, b, la_, lb_, lw_, up_, u_, v_, tg_, exg_, mtx_, out_, B, Ma, Mb, dim,
-      lw0, W, code_stride);
+      lw0, W, code_stride, 1);
   return (int)cudaGetLastError();
 }
 
 // registers a thread and local (spilled) bytes of a variant's kernel
 // (variant 0: the block variant with its row in shared memory; 4: in
-// device memory)
+// device memory; 1-3: the register variants as pairwise_rows_launch)
 extern "C" int pairwise_rows_attrs(int variant, int lanes, void* out) {
   cudaFuncAttributes attr;
   const cudaError_t err =

@@ -4,9 +4,10 @@ At the first CUDA call, one ``nvcc`` per source compiles them all at
 once into objects, then one more links the objects into a shared library
 with a plain C interface, in ``build/prrn_aln_tpu_torch/`` under the
 repository root (git-ignored).  The library's name carries a hash of
-the sources and flags, so an edited source is rebuilt and a stale
-library is never loaded.  Importing this module runs nothing: the CPU
-tests import every module and have no ``nvcc``.
+the sources, the headers they include (``csrc/*.cuh``) and the flags,
+so an edited source or header is rebuilt and a stale library is never
+loaded.  Importing this module runs nothing: the CPU tests import every
+module and have no ``nvcc``.
 
 ``-fmad=false`` keeps each kernel's float arithmetic operation for
 operation equal to its plain PyTorch version (no fused multiply-add),
@@ -33,7 +34,7 @@ _vp, _int, _flt = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the kernels' launchers; each returns cudaGetLastError()
 _SIGNATURES = {
     "pairwise_scores_launch": [_vp] * 13 + [_int] * 14 + [_vp],
-    "pairwise_rows_launch": [_vp] * 13 + [_int] * 11 + [_vp],
+    "pairwise_rows_launch": [_vp] * 13 + [_int] * 12 + [_vp],
     "pairwise_rows_attrs": [_int, _int, _vp],
     "group_wavefront_launch": [_vp] * 22 + [_int] * 15 + [_vp],
     "group_wavefront_attrs": [_int, _int, _int, _vp],
@@ -77,9 +78,14 @@ def _sources() -> list[Path]:
     return sorted(_CSRC.glob("*.cu"))
 
 
+def _headers() -> list[Path]:
+    """The headers the sources include (``csrc/*.cuh``)."""
+    return sorted(_CSRC.glob("*.cuh"))
+
+
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return _BUILD / f"libprrn_kernels_{h.hexdigest()[:16]}.so"

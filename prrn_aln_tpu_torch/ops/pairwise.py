@@ -357,48 +357,84 @@ def _launch_rows(a_batch, b_batch, la, lb, lw, up, mtx, u, v, tgapf, exg,
         out.data_ptr(), None if state is None else state.data_ptr(), B, Ma,
         Mb, dim, lw0, nlane,
         _K1F_VARIANTS[plan["variant"]], plan["lanes"], plan["threads"],
-        plan["code_stride"], plan["smem_bytes"], stream)
+        plan["code_stride"], plan["smem_bytes"], plan["ctas"], stream)
     _build.check(err, "pairwise_rows_launch")
     _build.LAUNCHES["pairwise_rows"] += 1
     return out
 
 
 # K1f's launch plans (rows_plan): lanes a thread the "warp" and "warps"
-# variants are built for, the fewest lanes a thread the "warps" variant
-# takes by default when the batch fills the card, its most warps a pair,
-# the most pairs a block of the "warp" variant (a power of two), and the
-# card's SMs: a batch of fewer pairs spreads each pair over warps
+# variants are built for (the "cluster" variant takes the "warps" ones),
+# the fewest lanes a thread the "warps" variant takes by default when the
+# batch fills the card and the "cluster" variant always, their most warps
+# a CTA, the most pairs a block of the "warp" variant (a power of two),
+# the most CTAs of a cluster, and the card's SMs: a batch of fewer pairs
+# spreads each pair over warps
 K1F_WARP_LANES = (2, 4, 8, 12, 16, 20, 24, 28, 32)
 K1F_WARPS_LANES = (4, 8, 12, 16)
 K1F_WARPS_MIN_LANES = 8
 K1F_MAX_WARPS = 16
 K1F_WARP_PAIRS = 4
+K1F_MAX_CTAS = 16
 K1F_SMS = 132
-_K1F_VARIANTS = {"block": 0, "warp": 1, "warps": 2}
+_K1F_VARIANTS = {"block": 0, "warp": 1, "warps": 2, "cluster": 3}
+# the cluster variant's words after the warps' slots: the slots the other
+# CTAs push into, [2][20], and the CTAs' end maxima, [3][16]
+_K1F_CLUSTER_WORDS = 40 + 48
+
+
+def rows_cta_lanes() -> int:
+    """The widest band one CTA of the "warps" variant holds."""
+    return 32 * K1F_WARPS_LANES[-1] * K1F_MAX_WARPS
+
+
+def rows_cluster_lanes() -> int:
+    """The widest band one cluster of the "cluster" variant holds."""
+    return K1F_MAX_CTAS * rows_cta_lanes()
+
+
+def _rows_cluster_ctas(nlane: int, B: int) -> int:
+    """The "cluster" variant's CTAs a pair by default: the fewest that hold
+    the band, or more where the batch leaves SMs idle (the most, a power
+    of two up to ``K1F_MAX_CTAS``, that keep the batch within two CTAs an
+    SM; they pack the card's GPCs), as K1's cluster variant spreads."""
+    fewest = -(-nlane // rows_cta_lanes())
+    spread = K1F_MAX_CTAS
+    while spread > 2 and B * spread > 2 * K1F_SMS:
+        spread //= 2
+    return max(fewest, spread)
 
 
 def rows_plan(nlane: int, B: int, dim: int, Ma: int, Mb: int, *,
               variant: str | None = None, lanes: int | None = None,
               warps: int | None = None, pairs: int | None = None,
-              state: str | None = None) -> dict:
+              ctas: int | None = None, state: str | None = None) -> dict:
     """K1f's variant for a batch of ``B`` pairs swept over ``nlane`` lanes.
 
     "warp": one warp a pair, ``pairs`` pairs a block (by default the
     largest power of two up to ``K1F_WARP_PAIRS`` that leaves a block for
     every SM), ``lanes`` lanes a thread in registers (32 * lanes >=
     nlane); "warps": ``warps`` warps a pair, one pair a block (32 * lanes
-    * warps >= nlane); "block": one block of up to 1,024 threads a pair,
-    the row and the codes in shared memory (``state`` "shared", the first
-    design) or in device memory ("device", with the matrix in shared
-    memory where it fits), so every band has a plan.  By default a batch of
-    at least ``K1F_SMS`` pairs takes "warp" up to 32 * 32 lanes, and a
-    smaller batch "warps" of 4 lanes a thread from 129 lanes on (each
-    pair has an SM to itself, so its row's latency sets the pace); past
-    that "warps" (at least ``K1F_WARPS_MIN_LANES`` lanes a thread for a
-    full batch) up to 32 * 16 * ``K1F_MAX_WARPS`` lanes, "block" the
-    rest, its row in device memory where shared memory does not hold it.  The register variants hold the codes as bytes in shared memory
-    (``code_stride`` bytes a pair) beside the matrix and its zero column,
-    so they need ``dim`` <= 255.  A plan the kernels cannot take raises.
+    * warps >= nlane); "cluster": ``ctas`` CTAs of ``warps`` warps a pair,
+    CTA r on the r-th slice of 32 * lanes * warps lanes (32 * lanes *
+    warps * ctas >= nlane); "block": one block of up to 1,024 threads a
+    pair, the row and the codes in shared memory (``state`` "shared", the
+    first design) or in device memory ("device", with the matrix in shared
+    memory where it fits), so every band has a plan.  By default a batch
+    of at least ``K1F_SMS`` pairs takes "warp" up to 32 * 32 lanes, and a
+    smaller batch "warps" of 4 lanes a thread from 129 lanes on (each pair
+    has an SM to itself, so its row's latency sets the pace); past that
+    "warps" (at least ``K1F_WARPS_MIN_LANES`` lanes a thread for a full
+    batch) up to ``rows_cta_lanes()`` lanes, "cluster" up to
+    ``rows_cluster_lanes()`` (``_rows_cluster_ctas`` CTAs, each of the
+    fewest warps that hold its slice at ``K1F_WARPS_MIN_LANES`` lanes a
+    thread or more: fewer, wider warps shorten the row's fold over a
+    CTA's warps, the chain that a cluster row waits on besides its
+    barrier), "block" the rest, its row in device memory where shared
+    memory does not hold it.  The register variants hold the codes as
+    bytes in shared memory (``code_stride`` bytes a pair) beside the matrix
+    and its zero column, so they need ``dim`` <= 255.  Every plan reports
+    its CTAs a pair (``ctas``).  A plan the kernels cannot take raises.
     """
     if nlane < 1 or B < 0 or dim < 1:
         raise ValueError(f"rows_plan: {nlane} lanes, {B} pairs, dim {dim}")
@@ -408,8 +444,9 @@ def rows_plan(nlane: int, B: int, dim: int, Ma: int, Mb: int, *,
     def smallest(choices, need):
         return next((n for n in choices if n >= need), None)
 
-    def reg_smem(nwarps, npairs):
-        return mtx_bytes + 52 * nwarps + npairs * stride
+    def reg_smem(nwarps, npairs, cluster=False):
+        return (mtx_bytes + 52 * nwarps + npairs * stride
+                + (4 * _K1F_CLUSTER_WORDS if cluster else 0))
 
     spread = B < K1F_SMS and nlane > 32 * K1F_WARPS_LANES[0]
     if variant is None:
@@ -417,13 +454,18 @@ def rows_plan(nlane: int, B: int, dim: int, Ma: int, Mb: int, *,
             variant = "block"
         elif nlane <= 32 * K1F_WARP_LANES[-1] and not spread:
             variant = "warp"
-        elif nlane <= 32 * K1F_WARPS_LANES[-1] * K1F_MAX_WARPS:
+        elif nlane <= rows_cta_lanes():
             variant = "warps"
+        elif (nlane <= rows_cluster_lanes()
+              and reg_smem(K1F_MAX_WARPS, 1, True) <= SMEM_MAX):
+            variant = "cluster"
         else:
             variant = "block"
     if variant != "block" and state is not None:
         raise ValueError(f"rows_plan: the {variant} variant keeps its row "
                          f"in registers")
+    if variant != "cluster" and ctas is not None:
+        raise ValueError(f"rows_plan: the {variant} variant has no cluster")
     if variant == "block":
         if lanes is not None or warps is not None or pairs is not None:
             raise ValueError("rows_plan: the block variant takes no lanes, "
@@ -444,10 +486,10 @@ def rows_plan(nlane: int, B: int, dim: int, Ma: int, Mb: int, *,
         elif state != "shared":
             raise ValueError(f"rows_plan: unknown state {state!r}")
         return {"variant": "block", "lanes": L, "warps": 0,
-                "pairs_per_block": 1,
+                "pairs_per_block": 1, "ctas": 1,
                 "threads": (-(-nlane // L) + 31) // 32 * 32,
                 "code_stride": 0, "smem_bytes": smem, "state": state}
-    if variant not in ("warp", "warps"):
+    if variant not in ("warp", "warps", "cluster"):
         raise ValueError(f"rows_plan: unknown variant {variant!r}")
     if dim > 255:
         raise ValueError(f"rows_plan: codes of a {dim}-letter matrix and "
@@ -470,33 +512,47 @@ def rows_plan(nlane: int, B: int, dim: int, Ma: int, Mb: int, *,
         if not 1 <= pairs <= K1F_WARP_PAIRS:
             raise ValueError(f"rows_plan: {pairs} pairs a block")
         nwarps = pairs
+        ctas = 1
     else:
         if pairs not in (None, 1):
-            raise ValueError("rows_plan: the warps variant has one pair a "
-                             "block")
+            raise ValueError(f"rows_plan: the {variant} variant has one "
+                             f"pair a block")
         pairs = 1
+        if variant == "warps":
+            ctas = 1
+        else:
+            if ctas is None:
+                ctas = _rows_cluster_ctas(nlane, B)
+            if not 2 <= ctas <= K1F_MAX_CTAS:
+                raise ValueError(f"rows_plan: {ctas} CTAs a cluster")
+        # the lanes each CTA sweeps
+        per_cta = -(-nlane // ctas)
         if lanes is None:
-            need = -(-nlane // (32 * (warps or K1F_MAX_WARPS)))
-            least = K1F_WARPS_LANES[0] if spread else K1F_WARPS_MIN_LANES
+            need = -(-per_cta // (32 * (warps or K1F_MAX_WARPS)))
+            least = (K1F_WARPS_LANES[0] if spread and variant == "warps"
+                     else K1F_WARPS_MIN_LANES)
             lanes = smallest(K1F_WARPS_LANES,
                              need if warps else max(least, need))
+            if lanes is None:
+                raise ValueError(f"rows_plan: {ctas} CTAs do not hold "
+                                 f"{nlane} lanes")
         if lanes not in K1F_WARPS_LANES:
             raise ValueError(f"rows_plan: {lanes} lanes a thread is not one "
                              f"of {K1F_WARPS_LANES}")
         if warps is None:
-            warps = -(-nlane // (32 * lanes))
+            warps = -(-per_cta // (32 * lanes))
         if not 1 <= warps <= K1F_MAX_WARPS:
             raise ValueError(f"rows_plan: {warps} warps a pair")
         nwarps = warps
-    if 32 * lanes * warps < nlane:
-        raise ValueError(f"rows_plan: {warps} warps of {lanes} lanes a "
-                         f"thread do not hold {nlane} lanes")
-    smem = reg_smem(nwarps, pairs)
+    if 32 * lanes * warps * ctas < nlane:
+        raise ValueError(f"rows_plan: {ctas} CTAs of {warps} warps of "
+                         f"{lanes} lanes a thread do not hold {nlane} lanes")
+    smem = reg_smem(nwarps, pairs, variant == "cluster")
     if smem > SMEM_MAX:
         raise ValueError(f"rows_plan: codes of {Ma} + {Mb} do not fit in "
                          f"shared memory")
     return {"variant": variant, "lanes": lanes, "warps": warps,
-            "pairs_per_block": pairs, "threads": 32 * nwarps,
+            "pairs_per_block": pairs, "ctas": ctas, "threads": 32 * nwarps,
             "code_stride": stride, "smem_bytes": smem, "state": "registers"}
 
 

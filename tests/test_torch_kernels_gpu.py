@@ -888,7 +888,7 @@ _K1F_CASES = {
     "warps_8192": ((5, [(300, 320), (310, 290)], 8192, False, None, 2.0),
                    {}, ("warps", 16, 16, 1)),
     "block_8193": ((6, [(300, 320), (310, 290)], 8193, False, None, 2.0),
-                   {}, ("block", 9, 0, 1)),
+                   {"variant": "block"}, ("block", 9, 0, 1)),
     "pairs4_mixed": ((7, _rand_lens(7, 528, 40, 300), None, False, None,
                       2.0), {}, ("warp", 20, 1, 4)),
     "pairs2_mixed": ((8, _rand_lens(8, 264, 40, 300), None, False, None,
@@ -925,7 +925,9 @@ def test_pairwise_rows_plans_match_plain(cuda_device, case):
     """K1f against ``row_scores_ref``, bit for bit, in each plan: one warp
     a pair at its limit of 1,024 lanes and several warps past it, a small
     batch on either side of 128 lanes, the warps variant at its limit of
-    8,192 lanes and the block variant past it, four and two pairs a block
+    8,192 lanes and the block variant asked for past it (the cluster
+    variant's cases: ``test_pairwise_rows_cluster_matches_plain``), four
+    and two pairs a block
     of mixed lengths, each free end gap alone in both register variants,
     the DNA matrix, plans asked for, and a negative gap extension (the
     lanes past the batch's width then keep their G masked)."""
@@ -1659,13 +1661,14 @@ def test_pairwise_block_device_matches_plain(cuda_device, case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("nlane, ask", [(12000, {}),
+@pytest.mark.parametrize("nlane, ask", [(12000, {"variant": "block"}),
                                         (8193, {"variant": "block",
                                                 "state": "device"})])
 def test_pairwise_rows_block_device_matches_plain(cuda_device, nlane, ask):
     """K1f's block variant with its row and codes in device memory, bit
     for bit to ``row_scores_ref``: 12,000 lanes (past what shared memory
-    holds: the default plan) and 8,193 lanes asked for."""
+    holds, where the block variant takes device memory by itself) and
+    8,193 lanes asked for."""
     arrs = _k1f_batch(61, [(2000, 2100), (2100, 1900), (1500, 2000)], nlane)
     args = [torch.as_tensor(x, device=cuda_device) for x in arrs]
     lw0 = int(arrs[4].min())
@@ -1676,6 +1679,106 @@ def test_pairwise_rows_block_device_matches_plain(cuda_device, nlane, ask):
     ref = tpw._plain_rows(*args, lw0, nlane)
     assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
     assert torch.isfinite(got).all()
+
+
+def _k1f_wide(seed, lens, nlane, exg=None, u=2.0, tgapf=None):
+    """K1f's launch arguments for DNA pairs of the given (la, lb) lengths
+    (b's first min(la, lb) // 2 codes a's, the rest random): with
+    ``nlane``, bands that span exactly ``nlane`` lanes from lw0 = min(lw),
+    pair 0's all of them and the others' up to their corner lb - la where
+    the lanes reach it; with None, the full rectangle."""
+    arrs = _k1_batch(seed, lens, -60, dna=True, exg=exg)
+    la, lb = arrs[2], arrs[3]
+    if nlane is None:
+        lw, up = -la, lb.copy()
+    else:
+        lw = -(la // 2).astype(np.int32)
+        lw[0] = lw.min()
+        up = np.minimum(np.maximum(lb - la, 0) + la // 2,
+                        lw[0] + nlane - 1)
+        up[0] = lw[0] + nlane - 1
+    arrs[4], arrs[5] = lw.astype(np.int32), up.astype(np.int32)
+    arrs[7] = np.full(len(lens), u, np.float32)
+    if tgapf is not None:
+        arrs[9] = np.full(len(lens), tgapf, np.float32)
+    return arrs
+
+
+_WIDE = [(1000, 8500)]      # at 8,193 lanes: real lanes on every CTA
+_CL = {"variant": "cluster"}
+# K1f's cluster cases: the batch (seed, lengths, lanes or None for the
+# full rectangle, free end gaps, u, terminal gap factor), the plan asked
+# for, and the CTAs, lanes a thread and warps a CTA it must give
+_K1F_CLUSTER_CASES = {
+    "lanes_8193": ((31, _WIDE, 8193, None, 2.0, None), {}, (16, 8, 3)),
+    "ctas_2": ((32, _WIDE, 8193, None, 2.0, None), dict(_CL, ctas=2),
+               (2, 12, 11)),
+    "ctas_3": ((33, _WIDE, 8193, None, 2.0, None), dict(_CL, ctas=3),
+               (3, 8, 11)),
+    "ctas_16": ((34, _WIDE, 8193, None, 2.0, None), dict(_CL, ctas=16),
+                (16, 8, 3)),
+    # the other lanes a thread: 4 (also the band edge cases below) and
+    # 16 (12: ctas_2)
+    "lanes_4": ((46, _WIDE, 8193, None, 2.0, None), dict(_CL, lanes=4),
+                (16, 4, 5)),
+    "lanes_16": ((47, _WIDE, 8193, None, 2.0, None),
+                 dict(_CL, ctas=2, lanes=16), (2, 16, 9)),
+    # the band's last lane CTA 1's first; then CTA 1 all padding lanes
+    "edge_first": ((35, [(200, 1000)], 1025, None, 2.0, None),
+                   dict(_CL, ctas=2, lanes=4, warps=8), (2, 4, 8)),
+    "edge_last": ((36, [(200, 1000)], 1024, None, 2.0, None),
+                  dict(_CL, ctas=2, lanes=4, warps=8), (2, 4, 8)),
+    "batch_unequal": ((37, [(1000, 8500), (600, 3000), (1500, 1400),
+                            (300, 8000), (2500, 2600)], 9000, None, 2.0,
+                       None), {}, (16, 8, 3)),
+    "exg0": ((38, _WIDE, 8193, [1, 0, 0, 0], 2.0, None), {}, (16, 8, 3)),
+    "exg1": ((39, _WIDE, 8193, [0, 1, 0, 0], 2.0, None), {}, (16, 8, 3)),
+    "exg2": ((40, _WIDE, 8193, [0, 0, 1, 0], 2.0, None), {}, (16, 8, 3)),
+    "exg3": ((41, _WIDE, 8193, [0, 0, 0, 1], 2.0, None), {}, (16, 8, 3)),
+    "tgapf_half": ((42, _WIDE, 8193, None, 2.0, 0.5), {}, (16, 8, 3)),
+    "negative_u": ((43, _WIDE, 8193, None, -0.5, None), {}, (16, 8, 3)),
+    # a wide band of few rows: 300 x 8,700 nt, the full rectangle
+    "few_rows_wide": ((44, [(300, 8700)], None, None, 2.0, None), {},
+                      (16, 8, 3)),
+    # the distance batch of a 20 kb family (four sequences, six pairs of
+    # ~24,000 lanes) in one launch
+    "family_20kb": (None, {}, (16, 8, 6)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(_K1F_CLUSTER_CASES))
+def test_pairwise_rows_cluster_matches_plain(cuda_device, case):
+    """K1f's cluster variant against ``row_scores_ref``, bit for bit: the
+    default plan at 8,193 lanes (16 CTAs of 3 warps of 8 lanes a thread),
+    forced clusters of 2, 3 and 16 CTAs, 4 and 16 lanes a thread, a band
+    edge on a CTA edge, a batch of unequal
+    pairs, each free end gap, a terminal gap factor of 0.5, a negative
+    gap extension, a wide band of few rows and a 20 kb family's distance
+    batch in one launch."""
+    batch, ask, want = _K1F_CLUSTER_CASES[case]
+    if batch is None:
+        arrs = _k1_dna(45, ("family", 20000))
+    else:
+        seed, lens, nlane, exg, u, tgapf = batch
+        arrs = _k1f_wide(seed, lens, nlane,
+                         exg=None if exg is None else np.array(exg, bool),
+                         u=u, tgapf=tgapf)
+    args = [torch.as_tensor(x, device=cuda_device) for x in arrs]
+    lw0 = int(arrs[4].min())
+    width = int(arrs[5].max()) - lw0 + 1
+    plan = tpw.rows_plan(width, arrs[0].shape[0], arrs[6].shape[0],
+                         arrs[0].shape[1], arrs[1].shape[1], **ask)
+    assert plan["variant"] == "cluster"
+    assert (plan["ctas"], plan["lanes"], plan["warps"]) == want
+    before = tpw._build.LAUNCHES["pairwise_rows"]
+    got = tpw._launch_rows(*args, lw0, width, plan)
+    ref = tpw._plain_rows(*args, lw0, width)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert torch.isfinite(got).all() and (got > -1e8).all()
+    assert tpw._build.LAUNCHES["pairwise_rows"] == before + 1
+    attrs = tpw.rows_attrs(plan)
+    assert attrs["registers"] > 0
 
 
 # K3's window cases on random planes: B, nsteps, nslot, the plan asked

@@ -14,6 +14,10 @@ boundary penalty ``v + u * max(la, lb)``, so a score near 0 carries the
 rounding of those values, which is many ulp of the score itself.
 """
 
+import re
+import shutil
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -30,6 +34,17 @@ torch.set_num_threads(1)
 PROT, _ = jscoring.protein_matrix(JParams(pam=150))
 DNA, _ = jscoring.dna_matrix(JParams(u=2.0, n_mismatch=-6.0))
 REACHED_ULP = 0
+
+
+def _long_pair(seed, la, lb):
+    """One DNA pair of ``la`` x ``lb`` (b a copy of a with substitutions,
+    then random bases), the full rectangle: la + lb + 1 lanes."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(3, 7, la).astype(np.int32)
+    b = rng.integers(3, 7, lb).astype(np.int32)
+    b[:la] = np.where(rng.random(la) < 0.1, b[:la], a)
+    return dict(A=a[None], B=b[None], la=np.array([la], np.int32),
+                lb=np.array([lb], np.int32))
 
 
 def _pairs(seed, n, lo, hi, ncode, sh):
@@ -70,6 +85,11 @@ CASES = {
     "exg_tgapf": dict(x=_pairs(9, 6, 25, 60, 20, -40), mtx=PROT, tgapf=0.5,
                       exg=np.random.default_rng(9).random((6, 4)) < 0.4),
     "dna": dict(x=_pairs(10, 6, 30, 80, 4, -50), mtx=DNA),
+    # a band past 8,192 lanes (8,209: K1f's cluster variant on the card)
+    # of the fewest rows the fused kernel takes (8): it unrolls its rows
+    # and each row's 128-lane tiles when traced, so its time here grows
+    # with rows x lanes (~80 s at 8 rows, ~15 min at 300)
+    "dna_past_8192": dict(x=_long_pair(11, 8, 8200), mtx=DNA),
 }
 
 
@@ -223,7 +243,7 @@ ROWS_PLANS = {
     (4096, 512): ("warps", 8, 16, 1),
     (4097, 512): ("warps", 12, 11, 1),
     (8192, 2): ("warps", 16, 16, 1),      # the widest band of the warps
-    (8193, 2): ("block", 9, 0, 1),
+    (8193, 2): ("cluster", 8, 3, 1),      # then a cluster (of 16 CTAs)
 }
 
 
@@ -231,8 +251,8 @@ ROWS_PLANS = {
 def test_rows_plan_rule(nlane, B):
     """K1f's variant by band width and batch: one warp a pair (lanes in
     registers) up to 1,024 lanes for a batch that fills the card's SMs,
-    several warps a pair for a smaller batch and up to 8,192 lanes, the
-    first design (one block, the row in shared memory) past that."""
+    several warps a pair for a smaller batch and up to 8,192 lanes, a
+    cluster of CTAs of several warps past that."""
     plan = tpw.rows_plan(nlane, B, 25, 520, 520)
     assert (plan["variant"], plan["lanes"], plan["warps"],
             plan["pairs_per_block"]) == ROWS_PLANS[(nlane, B)]
@@ -241,13 +261,108 @@ def test_rows_plan_rule(nlane, B):
         assert plan["smem_bytes"] == 4 * (25 * 25 + 5 * nlane + 32) + 1040
         assert plan["threads"] * plan["lanes"] >= nlane
         return
-    assert 32 * plan["lanes"] * plan["warps"] >= nlane
+    assert 32 * plan["lanes"] * plan["warps"] * plan["ctas"] >= nlane
+    if plan["variant"] != "cluster":
+        assert plan["ctas"] == 1
     nwarps = plan["threads"] // 32
     assert nwarps == (plan["pairs_per_block"] if plan["variant"] == "warp"
                       else plan["warps"])
     assert plan["code_stride"] == 1040
-    assert plan["smem_bytes"] == (4 * 25 * 26 + 52 * nwarps
-                                  + plan["pairs_per_block"] * 1040)
+    assert plan["smem_bytes"] == (
+        4 * 25 * 26 + 52 * nwarps + plan["pairs_per_block"] * 1040
+        + (4 * (40 + 48) if plan["variant"] == "cluster" else 0))
+
+
+# (lanes, pairs) -> variant, lanes a thread, warps a CTA, CTAs a pair:
+# past 8,192 lanes a cluster of a power of two CTAs up to 16 while the
+# batch keeps within two CTAs an SM (the fewest that hold the band where
+# that is more), at least 8 lanes a thread, the fewest warps that hold a
+# CTA's slice; past one cluster (16 x 8,192 lanes) the block variant
+CLUSTER_PLANS = {
+    (8192, 1): ("warps", 16, 16, 1),
+    (8193, 1): ("cluster", 8, 3, 16),
+    (8193, 10): ("cluster", 8, 3, 16),
+    (8193, 16): ("cluster", 8, 3, 16),     # 256 CTAs: within two an SM
+    (8193, 17): ("cluster", 8, 5, 8),      # 272 would not be
+    (8193, 132): ("cluster", 12, 11, 2),   # 4,097 lanes a CTA: 12 a thread
+    (8193, 600): ("cluster", 12, 11, 2),
+    (10800, 10): ("cluster", 8, 3, 16),    # the 9 kb family's batch
+    (24043, 10): ("cluster", 8, 6, 16),    # the 20 kb family's
+    (24043, 1): ("cluster", 8, 6, 16),
+    (20000, 200): ("cluster", 16, 14, 3),  # the fewest CTAs that hold it
+    (131071, 132): ("cluster", 16, 16, 16),
+    (131072, 1): ("cluster", 16, 16, 16),  # the widest band of a cluster
+    (131073, 1): ("block", 129, 0, 1),     # then the block variant
+    (131073, 10): ("block", 129, 0, 1),
+}
+
+
+@pytest.mark.parametrize("nlane, B", list(CLUSTER_PLANS))
+def test_rows_plan_cluster_rule(nlane, B):
+    """K1f past one CTA's 8,192 lanes: the cluster variant up to one
+    cluster's limit, the block variant (its row in device memory) past
+    it, on 20 kb codes."""
+    plan = tpw.rows_plan(nlane, B, 17, 20100, 20100)
+    assert (plan["variant"], plan["lanes"], plan["warps"],
+            plan["ctas"]) == CLUSTER_PLANS[(nlane, B)]
+    assert plan["smem_bytes"] <= tpw.SMEM_MAX
+    if plan["variant"] == "block":
+        assert plan["state"] == "device"
+        assert plan["threads"] * plan["lanes"] >= nlane
+        return
+    assert plan["state"] == "registers" and plan["pairs_per_block"] == 1
+    held = 32 * plan["lanes"] * plan["warps"]        # lanes a CTA
+    assert held * plan["ctas"] >= nlane
+    if plan["variant"] == "cluster":
+        assert 2 <= plan["ctas"] <= tpw.K1F_MAX_CTAS
+        # a CTA holds what no fewer warps would
+        assert 32 * plan["lanes"] * (plan["warps"] - 1) < -(
+            -nlane // plan["ctas"])
+    assert plan["threads"] == 32 * plan["warps"]
+    assert plan["code_stride"] == 40208
+    assert plan["smem_bytes"] == (4 * 17 * 18 + 52 * plan["warps"] + 40208
+                                  + (4 * 88 if plan["variant"] == "cluster"
+                                     else 0))
+
+
+@pytest.mark.parametrize("kw", [
+    {"ctas": 1},                                   # a cluster has 2+
+    {"ctas": 17},
+    {"ctas": 2, "lanes": 4, "warps": 1},           # 256 lanes < 300
+    {"ctas": 2, "lanes": 2},                       # not built
+    {"ctas": 2, "warps": 17},
+    {"ctas": 2, "pairs": 2},
+    {"ctas": 2, "state": "device"},
+])
+def test_rows_plan_cluster_refuses(kw):
+    with pytest.raises(ValueError):
+        tpw.rows_plan(300, 8, 25, 200, 200, variant="cluster", **kw)
+
+
+def test_rows_plan_cluster_limits():
+    """Asked for, the cluster variant takes any band it holds (a forced
+    size of 2, 3 or 16 CTAs); CTAs are only for the cluster; a matrix
+    past 240 letters or codes past shared memory leave the default on the
+    block variant."""
+    assert tpw.rows_cluster_lanes() == 131072 == 16 * tpw.rows_cta_lanes()
+    for ctas, want in ((2, (8, 1)), (3, (8, 1)), (16, (8, 1))):
+        plan = tpw.rows_plan(200, 1, 25, 200, 200, variant="cluster",
+                             ctas=ctas)
+        assert (plan["ctas"], plan["lanes"], plan["warps"]) == (ctas, *want)
+    # 3 CTAs of 2,731 lanes: 8 lanes a thread, 11 warps
+    plan = tpw.rows_plan(8193, 1, 25, 200, 200, variant="cluster", ctas=3)
+    assert (plan["lanes"], plan["warps"]) == (8, 11)
+    for variant in ("warp", "warps", "block"):
+        with pytest.raises(ValueError):
+            tpw.rows_plan(300, 8, 25, 200, 200, variant=variant, ctas=2)
+    with pytest.raises(ValueError):
+        tpw.rows_plan(9000, 1, 256, 200, 200, variant="cluster")
+    assert tpw.rows_plan(9000, 1, 241, 200, 200)["variant"] == "block"
+    # codes of 2 x 116,000 do not fit beside the matrix: block, device
+    plan = tpw.rows_plan(9000, 1, 17, 116000, 116000)
+    assert (plan["variant"], plan["state"]) == ("block", "device")
+    with pytest.raises(ValueError):
+        tpw.rows_plan(9000, 1, 17, 116000, 116000, variant="cluster")
 
 
 @pytest.mark.parametrize("kw", [
@@ -282,10 +397,14 @@ def test_rows_plan_limits():
     # codes are bytes: no register variant past 255 letters
     with pytest.raises(ValueError):
         tpw.rows_plan(200, 4, 256, 20, 20, variant="warp")
-    # a row past the block variant's shared memory: in device memory
+    # a row past the block variant's shared memory: on a cluster up to
+    # 131,072 lanes, past that the block variant in device memory
     plan = tpw.rows_plan(12000, 4, 25, 200, 200)
+    assert (plan["variant"], plan["ctas"], plan["lanes"]) == (
+        "cluster", 16, 8)
+    plan = tpw.rows_plan(140000, 4, 25, 200, 200)
     assert (plan["variant"], plan["state"], plan["lanes"]) == (
-        "block", "device", 12)
+        "block", "device", 137)
     assert plan["smem_bytes"] == 4 * (25 * 25 + 32)
     # fewer pairs a block where four pairs' codes do not fit
     plan = tpw.rows_plan(300, 600, 25, 40000, 40000)
@@ -313,11 +432,16 @@ def test_band_range_reads_host_values_first():
 @pytest.mark.parametrize("nlane", [8193, 11000, 12000, 24043, 200000])
 @pytest.mark.parametrize("codes", [200, 20000])
 def test_rows_plan_device_row(nlane, codes):
-    """Past 8,192 lanes the block variant: its row and codes in shared
-    memory where they fit (the first design, unchanged), else in device
-    memory, so ``PRRN_PW_FUSED=1`` refuses no band; a thread holds
-    ceil(nlane / 1024) adjacent lanes."""
-    plan = tpw.rows_plan(nlane, 10, 17, codes, codes)
+    """Past 8,192 lanes the default is the cluster variant up to one
+    cluster's 131,072 lanes, the block variant past it.  The block
+    variant, asked for where the cluster takes the band: its row and
+    codes in shared memory where they fit (the first design, unchanged),
+    else in device memory, so ``PRRN_PW_FUSED=1`` refuses no band; a
+    thread holds ceil(nlane / 1024) adjacent lanes."""
+    default = tpw.rows_plan(nlane, 10, 17, codes, codes)["variant"]
+    assert default == ("cluster" if nlane <= tpw.rows_cluster_lanes()
+                       else "block")
+    plan = tpw.rows_plan(nlane, 10, 17, codes, codes, variant="block")
     assert plan["variant"] == "block"
     shared = 4 * (17 * 17 + 5 * nlane + 32) + 2 * codes
     assert plan["state"] == ("shared" if shared <= tpw.SMEM_MAX
@@ -334,15 +458,20 @@ def test_rows_plan_device_row(nlane, codes):
 @pytest.mark.parametrize("dim", [17, 25, 255, 256])
 def test_rows_plan_every_band(dim):
     """A plan for every band width with ``dim`` <= 256, with 200-residue
-    and 20 kb codes."""
-    widths = sorted({1, 1024, 1025, 8192, 8193, 11000, 24043, 200000,
-                     *np.unique(np.geomspace(1, 200000, 50)
-                                .astype(int)).tolist()})
+    and 20 kb codes, that holds the band."""
+    widths = sorted({1, 1024, 1025, 8192, 8193, 11000, 24043, 131072,
+                     131073, 200000, *np.unique(np.geomspace(1, 200000, 50)
+                                                .astype(int)).tolist()})
     for codes in (200, 20000):
         for nlane in widths:
             for B in (1, 10, 512):
                 plan = tpw.rows_plan(nlane, B, dim, codes, codes)
                 assert plan["smem_bytes"] <= tpw.SMEM_MAX
+                held = (plan["threads"] * plan["lanes"]
+                        if plan["variant"] == "block"
+                        else 32 * plan["lanes"] * plan["warps"]
+                        * plan["ctas"])
+                assert held >= nlane
 
 
 @pytest.mark.parametrize("kw", [
@@ -358,3 +487,32 @@ def test_rows_plan_state_refuses(kw):
     with pytest.raises(ValueError):
         tpw.rows_plan(12000, 4, 25, 200, 200, variant="block",
                       state="shared")
+
+
+# ---------------------------------------------------------------------
+# The kernels' build: one header for the cluster-fit query (pure Python)
+
+def test_library_name_hashes_the_headers(tmp_path, monkeypatch):
+    """The library's name changes with a header the sources include, so
+    an edited ``csrc/*.cuh`` is rebuilt, and the package ships the
+    headers; K1, K1f and K2 include the one cluster-fit query and define
+    none of their own."""
+    root = Path(_build._CSRC)
+    for name in ("pairwise.cu", "pairwise_rows.cu", "group_wavefront.cu"):
+        text = (root / name).read_text()
+        assert '#include "cluster_fits.cuh"' in text
+        assert "prrn_kernels::cluster_fits(" in text
+        assert "cudaError_t cluster_fits(" not in text
+    includes = {inc for src in _build._sources()
+                for inc in re.findall(r'#include "([^"]+)"', src.read_text())}
+    assert includes and includes <= {h.name for h in _build._headers()}
+    pyproject = (root.parent.parent / "pyproject.toml").read_text()
+    assert '"csrc/*.cuh"' in pyproject
+    csrc = tmp_path / "csrc"
+    shutil.copytree(root, csrc)
+    monkeypatch.setattr(_build, "_CSRC", csrc)
+    before = _build.library_path()
+    assert _build.library_path() == before
+    header = csrc / "cluster_fits.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    assert _build.library_path() != before

@@ -8,11 +8,11 @@ Run from the repository root (needs ``g++``; no card, no ``nvcc``):
     python3 tools/k1_emulate.py --sanitize thread # ThreadSanitizer
     python3 tools/k1_emulate.py --mutate no_push --cases dna_p2
 
-The source's first anonymous namespace up to the launch helpers (the
-kernels and their device helpers) is compiled with ``g++ -std=c++17
--ffp-contract=off`` after a header that defines the CUDA keywords,
-``threadIdx``/``blockIdx``/``blockDim`` as ``thread_local`` values,
-``extern __shared__`` as one buffer a CTA of exactly its bytes, the warp
+The source's anonymous namespace (the kernels and their device helpers)
+is compiled with ``g++ -std=c++17 -ffp-contract=off`` after a header
+that defines the CUDA keywords, ``threadIdx``/``blockIdx``/``blockDim``
+as ``thread_local`` values, ``extern __shared__`` as one buffer a CTA of
+exactly its bytes, the warp
 shuffles as an exchange through an array a warp between two spin
 barriers, and ``__syncthreads``, the named barrier and the split cluster
 barrier (``barrier.cluster.arrive.release`` / ``wait.acquire``, swapped
@@ -141,7 +141,11 @@ inline cluster_group this_cluster() { return {}; }
 }  // namespace cooperative_groups
 """
 
-DRIVER = r"""
+# the launch loop and the input reader (tools/k1f_emulate.py uses them too)
+RUNNER = r"""
+#ifndef EMU_POISON
+#define EMU_POISON 0xa5
+#endif
 namespace {
 // launch ``kernel`` over ``grid`` blocks, ``per_cluster`` at once (a
 // cluster's CTAs and threads together), ``threads`` a block
@@ -156,7 +160,8 @@ void run_blocks(K kernel, int grid, int per_cluster, int threads,
     cluster.total = per_cluster * threads;
     for (int r = 0; r < per_cluster; ++r) {
       bufs[r] = (unsigned char*)malloc(smem ? smem : 1);
-      memset(bufs[r], 0xa5, smem);   // poison: a read before a write shows
+      // poison: a read before a write shows
+      memset(bufs[r], EMU_POISON, smem);
       ctas[r].total = threads;
     }
     for (auto& w : warps) w.bar.total = 32;
@@ -191,7 +196,9 @@ T* take(FILE* f, size_t n) {
   return p;
 }
 }  // namespace
+"""
 
+DRIVER = r"""
 // argv[1]: the packed inputs (python side: ``pack``); argv[2]: scores
 int main(int argc, char** argv) {
   FILE* f = fopen(argv[1], "rb");
@@ -282,15 +289,15 @@ def source(src_dir: Path, mutate: str | None) -> str:
             raise ValueError(f"mutation {mutate}: no {old!r} in the source")
         text = text.replace(old, new, 1)
     start = text.index("namespace {")
-    end = text.index("// Whether the card holds one cluster")
-    body = text[start:end] + "}  // namespace\n"
+    end = text.index("}  // namespace\n") + len("}  // namespace\n")
+    body = text[start:end]
     for old, new in SWAPS:
         if old not in body:
             raise ValueError(f"no {old!r} in the kernel source")
         body = body.replace(old, new)
     if "asm" in body:
         raise ValueError("inline PTX left in the emulated source")
-    return HEADER + body + DRIVER
+    return HEADER + body + RUNNER + DRIVER
 
 
 def build(src_dir: Path, sanitize: str, mutate: str | None,

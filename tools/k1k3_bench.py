@@ -42,7 +42,9 @@ Shapes:
   memory where it fits; ``device``: in device memory; ``cluster:P``,
   ``cluster:PxE`` or ``cluster:PxExG``: P CTAs, an exchange every E
   steps, G ghost lanes a side); K1f on the same
-  batches (the block variant, its row in shared or device memory); K3
+  batches in its default plan (the cluster variant) and each plan of
+  ``--k1f-plans`` (``block``: the row in shared or device memory;
+  ``cluster:P`` or ``cluster:PxL``: P CTAs of L lanes a thread); K3
   on the walks of ``prrn -R 0`` on ``chip_smoke.DNA_FAMILY`` (6 kb, its
   merges at 7,296 slots) and on the 20 kb pair's planes (24,064 slots,
   K2 on the card): the walk from the end and a range walk over a chunk
@@ -64,9 +66,9 @@ raises.  In this checkout, ``--k3-plans`` times K3 in other plans
 (``staged:T`` for T rows a tile, ``global``),
 ``--k1-plans`` K1 in other plans (``warp:L``, ``warps:LxW``
 for L slot pairs a lane and W warps a pair, ``block``).  ``--ablate``
-builds a copy of the sources under ``build/`` with a part of K1's step
-taken out (ABLATIONS: its scores are wrong and not checked; the time
-says what the part costs).  ``--shapes`` leaves out the ``fam19`` run,
+builds a copy of the sources under ``build/`` with a part of K1's step,
+or of K1f's cluster row (``k1f_*``), taken out (ABLATIONS: its scores
+are wrong and not checked; the time says what the part costs).  ``--shapes`` leaves out the ``fam19`` run,
 ``--kernels`` one of the two kernels.
 
 Prints the card and its power limit, then one JSON line a timed call:
@@ -101,6 +103,19 @@ REPO = Path(__file__).resolve().parent.parent
 FIX = REPO / "tests" / "fixtures"
 # parts of K1's step an ablation takes out in a copy of the sources
 ABLATIONS = {
+    # K1f's cluster variant (csrc/pairwise_rows.cu): the row's cluster
+    # barrier, the pushes into the other CTAs, the CTA's named barrier
+    "k1f_nocluster": [("        cluster_arrive();\n        cluster_wait();\n"
+                       "        const float t2", "        const float t2")],
+    "k1f_nopush": [("            cluster.map_shared_rank(xb, lane)[rank] = "
+                    "c_next;", "            (void)0;"),
+                   ("            nx[18] = H[L - 1];\n"
+                    "            nx[19] = carry;\n", ""),
+                   ("          pv[16] = H[0];\n"
+                    "          pv[17] = G[0];\n", "")],
+    "k1f_nonamed": [("        eb[4 * nwarps + warp] = carry;\n      }\n"
+                     "      named_sync(blockDim.x);",
+                     "        eb[4 * nwarps + warp] = carry;\n      }")],
     # the named barrier of a step (the warps variant)
     "nobar": [("        wb[4 * warp + 3] = st.Fo[L - 1];\n      }\n"
                "      named_sync(blockDim.x);",
@@ -139,7 +154,8 @@ def ablated_sources(part: str) -> Path:
     out = REPO / "build" / f"k1_ablate_{part}"
     shutil.rmtree(out, ignore_errors=True)
     shutil.copytree(REPO / "prrn_aln_tpu_torch" / "csrc", out)
-    src = out / "pairwise.cu"
+    src = out / ("pairwise_rows.cu" if part.startswith("k1f_")
+                 else "pairwise.cu")
     text = src.read_text()
     for old, new in ABLATIONS[part]:
         if old not in text:
@@ -489,6 +505,13 @@ def main(argv=None) -> int:
 def parse_k1f_plan(text: str) -> dict:
     if text == "block":
         return {"variant": "block"}
+    if text.startswith("cluster:"):
+        # cluster:P or cluster:PxL: P CTAs (of L lanes a thread)
+        ctas, _, lanes = text.partition(":")[2].partition("x")
+        ask = {"variant": "cluster", "ctas": int(ctas)}
+        if lanes:
+            ask["lanes"] = int(lanes)
+        return ask
     variant, _, size = text.partition(":")
     lanes, _, warps = size.partition("x")
     ask = {"variant": variant, "lanes": int(lanes)}
@@ -497,9 +520,11 @@ def parse_k1f_plan(text: str) -> dict:
     return ask
 
 
-def k1f_report(emit, pw, name, call, asks, reps) -> None:
+def k1f_report(emit, pw, name, call, asks, reps, queued=20,
+               check=True) -> None:
     """K1f on one batch in each plan asked for, held to its plain
-    version bit for bit."""
+    version bit for bit unless ``check`` is off (``queued``: launches
+    queued back to back for ``queued_ms``)."""
     a_batch, b_batch, la, lb, lw, up = call[:6]
     lw0 = int(lw.min())
     nlane = int(up.max()) - lw0 + 1
@@ -523,13 +548,14 @@ def k1f_report(emit, pw, name, call, asks, reps) -> None:
         fn = lambda: pw._launch_rows(*call, *extra)  # noqa: E731
         got = fn()
         torch.cuda.synchronize()
-        if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+        if check and not torch.equal(got.view(torch.int32),
+                                     ref.view(torch.int32)):
             raise AssertionError(f"K1f != plain on {name} ({plan})")
         ms = time_ms(fn, reps)
         dms = device_ms(fn, reps, "pairwise_rows")
         exg_u8 = call[10].to(torch.uint8)
         qms = queued_ms(lambda: pw._launch_rows(*call[:10], exg_u8, *extra),
-                        20)
+                        queued)
         attrs = pw.rows_attrs(plan) if plan else {}
         emit({"kernel": "K1f", "shape": name, "ms": ms, "device_ms": dms,
               "queued_ms": qms,
@@ -537,7 +563,7 @@ def k1f_report(emit, pw, name, call, asks, reps) -> None:
               "us_per_row": ms * 1e3 / rows,
               "device_us_per_row": None if dms is None else dms * 1e3 / rows,
               "band_cells": cells, "gcups": cells / (ms * 1e6),
-              "plan": plan, **attrs, "checked": True})
+              "plan": plan, **attrs, "checked": check})
 
 
 def dna_family(nt: int, seed: int, subs=(0.03, 0.05, 0.08, 0.10),
@@ -624,7 +650,7 @@ def long_dna(args, here: bool, dev) -> int:
     root = str(args.root.resolve())
 
     def emit(obj):
-        obj = {"root": root, "card": card, **obj}
+        obj = {"root": root, "card": card, "ablate": args.ablate, **obj}
         print(json.dumps(obj), flush=True)
         if args.out:
             with args.out.open("a") as f:
@@ -633,6 +659,8 @@ def long_dna(args, here: bool, dev) -> int:
     kernels = args.kernels.split(",")
     k1_asks = [None] + [parse_long_k1(t) for t in args.long_k1_plans.split(",")
                         if t]
+    k1f_asks = [None] + [parse_k1f_plan(t) for t in args.k1f_plans.split(",")
+                         if t]
     for nt in (int(x) for x in args.long_nt.split(",")):
         call = record_distance_call(dna_family(nt, nt))
         for batch in (10, 1):
@@ -688,7 +716,9 @@ def long_dna(args, here: bool, dev) -> int:
                              if hasattr(pw, "pairwise_attrs") else {}),
                           "checked": True})
             if "k1f" in kernels:
-                k1f_report(emit, pw, name, sub[:11], [None], args.reps)
+                k1f_report(emit, pw, name, sub[:11], k1f_asks if here
+                           else [None], args.reps, queued=args.reps,
+                           check=not args.ablate)
     if "k3" not in kernels:
         return 0
     k3_asks = [None] + [parse_long_k3(t) for t in args.long_k3_plans.split(",")
