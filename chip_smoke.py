@@ -240,6 +240,7 @@ from prrn_aln_tpu_torch.msa.msa import Msa, msa_from_strings
 from prrn_aln_tpu_torch.ops import _build, group as G, pairwise
 from prrn_aln_tpu_torch.ops import seeded, spliced_h as SH, spliced_s as SS
 from prrn_aln_tpu_torch.ops.window import stripe
+from prrn_aln_tpu_torch.utils import trace
 
 ROOT = Path(__file__).resolve().parent
 FIX = ROOT / "tests" / "fixtures"
@@ -686,7 +687,7 @@ def phase_main() -> dict:
                             "-o", str(path), "--device", "cuda"])
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
-            counts = dict(_build.LAUNCHES)
+            counts = trace.launches()
             text = path.read_text()
             if rc != 0:
                 raise AssertionError(f"prrn_main returned {rc}")
@@ -953,7 +954,7 @@ def run_forest(argv, fused: bool):
             rc = prrn_main([*argv, "-o", str(path), "--device", "cuda"])
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
-            counts = dict(_build.LAUNCHES)
+            counts = trace.launches()
         finally:
             os.environ.pop("PRRN_PW_FUSED", None)
         if rc != 0:
@@ -1191,7 +1192,7 @@ def run_aln(argv) -> tuple[str, float, dict]:
         rc = aln_main([*argv, "-o", str(path), "--device", "cuda"])
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        counts = dict(_build.LAUNCHES)
+        counts = trace.launches()
         if rc != 0:
             raise AssertionError(f"aln_main returned {rc}")
         return path.read_text(), secs, counts
@@ -1530,7 +1531,7 @@ def phase_aln_yl2_long_protein() -> dict:
                 torch.cuda.empty_cache()
                 calls, text, secs = capture_aln(argv)
                 walls[run] = {"seconds": secs,
-                              "launches": dict(_build.LAUNCHES)}
+                              "launches": trace.launches()}
             if name == "lp2100" and text != (
                     FIX / "jax_aln_yl2_long_protein.txt").read_text():
                 raise AssertionError("aln -yl2 on lp2100 differs from "
@@ -1782,7 +1783,7 @@ def measured(fn):
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
-    return (out, time.perf_counter() - t0, dict(_build.LAUNCHES),
+    return (out, time.perf_counter() - t0, trace.launches(),
             torch.cuda.max_memory_allocated())
 
 
@@ -2521,7 +2522,7 @@ def run_cli(main, argv, env=None) -> tuple[str, float, dict]:
             rc = main([*argv, "--device", "cuda"])
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        counts = dict(_build.LAUNCHES)
+        counts = trace.launches()
     finally:
         for k in env or {}:
             os.environ.pop(k, None)
@@ -2546,7 +2547,7 @@ def ls3_pair(multi) -> tuple[str, float, dict]:
         device=torch.device("cuda"))
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    counts = dict(_build.LAUNCHES)
+    counts = trace.launches()
     if swapped:
         A, B = B, A
     text = (f"score {score!r}\nswapped {swapped}\n"
@@ -3100,7 +3101,7 @@ def phase_aln_G() -> dict:
                                   device=torch.device("cuda"))
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
-            counts = dict(_build.LAUNCHES)
+            counts = trace.launches()
             fixture = f"jax_refgs_{case}.txt"
             if refgs_text(res) != (FIX / fixture).read_text():
                 raise AssertionError(f"refgs {case} differs from {fixture}")
@@ -3243,7 +3244,7 @@ def phase_utils_cli() -> dict:
             got = run_util(getattr(cli, f"{prog}_main"), argv, tmp / name)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
-            counts = dict(_build.LAUNCHES)
+            counts = trace.launches()
             if got != want[name]:
                 raise AssertionError(f"{name} differs from {UTILS_JSON}")
             k1 = prog == "phyln" and "-k" not in argv
@@ -3428,7 +3429,7 @@ def multi_device_cases(group, dev) -> dict:
         res = fn()
         sync()
         out[name] = {"result": res, "seconds": time.perf_counter() - t0,
-                     "launches": dict(_build.LAUNCHES)}
+                     "launches": trace.launches()}
         return res
 
     run("scores", lambda: distance.all_pairs_scores(

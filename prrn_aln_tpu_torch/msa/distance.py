@@ -27,6 +27,7 @@ import torch
 from ..ops.window import stripe
 from ..ops.frontier import gather_blocks, shard_block
 from ..ops.pairwise import pairwise_scores
+from ..utils import trace
 
 
 def condensed_index(i: int, j: int) -> int:
@@ -71,19 +72,21 @@ def all_pairs_scores(seqs: list[np.ndarray], mtx: np.ndarray,
         _, _, lo, hi = shard_block(len(pairs), group)
 
     def dev(x):
-        return torch.as_tensor(np.ascontiguousarray(x[lo:hi]), device=device)
+        return trace.h2d(torch.as_tensor(np.ascontiguousarray(x[lo:hi]),
+                                         device=device))
 
     scores = np.zeros(0, np.float32)
     if hi > lo:
         # lengths and band diagonals go as host arrays: the row sweep
         # (K1f) takes its packing from them without reading the device
-        scores = pairwise_scores(
+        scores = trace.d2h(pairwise_scores(
             dev(padded[ai]), dev(padded[bi]),
             np.array([lens[i] for i in ai[lo:hi]], np.int32),
             np.array([lens[j] for j in bi[lo:hi]], np.int32),
-            torch.as_tensor(mtx.astype(np.float32), device=device), u, v,
+            trace.h2d(torch.as_tensor(mtx.astype(np.float32),
+                                      device=device)), u, v,
             lw=lw[lo:hi], up=up[lo:hi], lossy=lossy,
-            lw0=int(lw.min())).cpu().numpy()
+            lw0=int(lw.min()))).numpy()
     if group is None:
         return scores
     return np.array(gather_blocks(list(scores), group), np.float32)

@@ -35,6 +35,7 @@ from .progressive import select_swap
 from ..ops.window import stripe
 from ..ops.group import group_align
 from ..ops.path_score import score_path, skl_to_moves
+from ..utils import trace
 from ..utils.crand import GlibcRand, McRand
 
 FEPS = 1e-7
@@ -181,22 +182,25 @@ def refine_msa(msa: Msa, mtx: np.ndarray, u: float, v: float, sh: int,
         # unit-unit distances averaged over cross-group member pairs
         nu = subset.num
         from .distance import condensed_index
-        dc = msa_distance_matrix(msa.codes)
-        du = np.empty(nu * (nu - 1) // 2, np.float64)
-        for j in range(1, nu):
-            for i in range(j):
-                acc = [dc[condensed_index(min(a, b), max(a, b))]
-                       for a in subset.groups[i] for b in subset.groups[j]]
-                du[condensed_index(i, j)] = float(np.mean(acc))
-        t = upgma(du, nu)
-        pairwt, unit_vol, vol, cur = calc_pair_weights(t, full=True)
+        with trace.span("prrn.refine.tree"):
+            dc = msa_distance_matrix(msa.codes)
+            du = np.empty(nu * (nu - 1) // 2, np.float64)
+            for j in range(1, nu):
+                for i in range(j):
+                    acc = [dc[condensed_index(min(a, b), max(a, b))]
+                           for a in subset.groups[i]
+                           for b in subset.groups[j]]
+                    du[condensed_index(i, j)] = float(np.mean(acc))
+            t = upgma(du, nu)
+            pairwt, unit_vol, vol, cur = calc_pair_weights(t, full=True)
         m2u = np.asarray(subset.member_to_group())
         leaf_vol = unit_vol[m2u]
     elif tree_data is None:
         # phyl_pwt: tree + weights from in-MSA divergences
-        d = msa_distance_matrix(msa.codes)
-        t = upgma(d, n)
-        pairwt, leaf_vol, vol, cur = calc_pair_weights(t, full=True)
+        with trace.span("prrn.refine.tree"):
+            d = msa_distance_matrix(msa.codes)
+            t = upgma(d, n)
+            pairwt, leaf_vol, vol, cur = calc_pair_weights(t, full=True)
     else:
         t, vol, cur, leaf_vol = tree_data
     full_eij = msa.eij
@@ -267,18 +271,16 @@ def refine_msa(msa: Msa, mtx: np.ndarray, u: float, v: float, sh: int,
     names = msa.names
     dim = mtx.shape[0]
 
-    def prepare_candidate_like(cand):
-        """Re-derive a candidate from its row partition on the CURRENT
-        joint (used when replaying batched candidates)."""
-        lst0, lst1 = cand["lst0"], cand["lst1"]
-        pwt = cand["pwt"]
-        wf0 = cand["A"].weight if not cand["swapped"] else cand["B"].weight
-        wf1 = cand["B"].weight if not cand["swapped"] else cand["A"].weight
+    def prepare_sides(pwt, lst0, lst1, wf0, wf1):
+        """The sides of rows lst0 | lst1 on the current joint, each
+        without its all-gap columns, their old mutual path and its score;
+        None (skipped) when neither side drops a column."""
         S0, keep0 = _side_msa(joint, lst0, wf0, names, msa.molc, msa.tgapf,
                               msa.eij)
         S1, keep1 = _side_msa(joint, lst1, wf1, names, msa.molc, msa.tgapf,
                               msa.eij)
         if not ((~keep0).any() or (~keep1).any()):
+            trace.COUNTS["refine.skipped"] += 1
             return None
         swapped = select_swap(S0, S1)
         A, B = (S1, S0) if swapped else (S0, S1)
@@ -292,41 +294,36 @@ def refine_msa(msa: Msa, mtx: np.ndarray, u: float, v: float, sh: int,
         return dict(pwt=pwt, lst0=lst0, lst1=lst1, A=A, B=B,
                     swapped=swapped, old_skl=old_skl, sps_old=sps_old)
 
+    def prepare_candidate_like(cand):
+        """Re-derive a candidate from its row partition on the CURRENT
+        joint (used when replaying batched candidates)."""
+        S0, S1 = ((cand["B"], cand["A"]) if cand["swapped"]
+                  else (cand["A"], cand["B"]))
+        with trace.span("prrn.refine.prepare"):
+            return prepare_sides(cand["pwt"], cand["lst0"], cand["lst1"],
+                                 S0.weight, S1.weight)
+
     def prepare_candidate(rnbr, members=None):
         """divideseq: sides, weights, old path for one partition.
         Returns None when the partition is skipped."""
-        if members is None:
-            members = parts[rnbr]
-        if rnbr is None:
-            # ALL_DIV/PARTDIV bitmask partitions carry no tree factor
-            pwt, wfact = 1.0, np.asarray(leaf_vol, np.float64)
-        else:
-            pwt, wfact = calcfact(t, vol, cur, rnbr)
-            if m2u is not None:
-                wfact = wfact[m2u]
-        lst1 = members                      # bit==1 side (under node)
-        lst0 = [k for k in range(n) if k not in set(members)]
-        if not lst0 or not lst1:
-            return None
-        if len(lst0) < len(lst1):
-            lst0, lst1 = lst1, lst0
-        S0, keep0 = _side_msa(joint, lst0, wfact[lst0], names, msa.molc,
-                              msa.tgapf, msa.eij)
-        S1, keep1 = _side_msa(joint, lst1, wfact[lst1], names, msa.molc,
-                              msa.tgapf, msa.eij)
-        if not ((~keep0).any() or (~keep1).any()):
-            return None
-        swapped = select_swap(S0, S1)
-        A, B = (S1, S0) if swapped else (S0, S1)
-        A.prepare(dim)
-        B.prepare(dim)
-        old_moves = _paths_from_masks(keep0, keep1)
-        if swapped:
-            old_moves = [(0 if m == 0 else 3 - m) for m in old_moves]
-        old_skl = moves_to_skl(old_moves)
-        sps_old = score_path(A, B, mtx, old_skl, u=u, v=v)
-        return dict(pwt=pwt, lst0=lst0, lst1=lst1, A=A, B=B,
-                    swapped=swapped, old_skl=old_skl, sps_old=sps_old)
+        with trace.span("prrn.refine.prepare"):
+            if members is None:
+                members = parts[rnbr]
+            if rnbr is None:
+                # ALL_DIV/PARTDIV bitmask partitions carry no tree factor
+                pwt, wfact = 1.0, np.asarray(leaf_vol, np.float64)
+            else:
+                pwt, wfact = calcfact(t, vol, cur, rnbr)
+                if m2u is not None:
+                    wfact = wfact[m2u]
+            lst1 = members                      # bit==1 side (under node)
+            lst0 = [k for k in range(n) if k not in set(members)]
+            if not lst0 or not lst1:
+                trace.COUNTS["refine.skipped"] += 1
+                return None
+            if len(lst0) < len(lst1):
+                lst0, lst1 = lst1, lst0
+            return prepare_sides(pwt, lst0, lst1, wfact[lst0], wfact[lst1])
 
     def evaluate(cand, score_new, new_skl):
         changed = new_skl != cand["old_skl"]
@@ -343,21 +340,23 @@ def refine_msa(msa: Msa, mtx: np.ndarray, u: float, v: float, sh: int,
 
     def apply_candidate(cand, new_skl):
         nonlocal joint
-        A, B = cand["A"], cand["B"]
-        moves = skl_to_moves(new_skl)
-        L = len(moves)
-        new_joint = np.full((n, L), ab.GAP, np.int8)
-        rows_a = cand["lst1"] if cand["swapped"] else cand["lst0"]
-        rows_b = cand["lst0"] if cand["swapped"] else cand["lst1"]
-        ma = nb_ = 0
-        for c, mv in enumerate(moves):
-            if mv in (0, 1):
-                new_joint[rows_a, c] = A.codes[:, ma]
-                ma += 1
-            if mv in (0, 2):
-                new_joint[rows_b, c] = B.codes[:, nb_]
-                nb_ += 1
-        joint = new_joint
+        trace.COUNTS["refine.accepted"] += 1
+        with trace.span("prrn.refine.apply"):
+            A, B = cand["A"], cand["B"]
+            moves = skl_to_moves(new_skl)
+            L = len(moves)
+            new_joint = np.full((n, L), ab.GAP, np.int8)
+            rows_a = cand["lst1"] if cand["swapped"] else cand["lst0"]
+            rows_b = cand["lst0"] if cand["swapped"] else cand["lst1"]
+            ma = nb_ = 0
+            for c, mv in enumerate(moves):
+                if mv in (0, 1):
+                    new_joint[rows_a, c] = A.codes[:, ma]
+                    ma += 1
+                if mv in (0, 2):
+                    new_joint[rows_b, c] = B.codes[:, nb_]
+                    nb_ += 1
+            joint = new_joint
 
     nrep = 0
     improvements = 0
@@ -383,6 +382,7 @@ def refine_msa(msa: Msa, mtx: np.ndarray, u: float, v: float, sh: int,
                     break
                 continue
             from ..ops.group import group_align_batch
+            trace.COUNTS["refine.attempted"] += len(cands)
             results = group_align_batch(
                 [(c["A"], c["B"]) for c in cands], mtx, u=u, v=v, sh=sh,
                 pads=pads, spb=spb, group=group, device=device)
@@ -407,6 +407,7 @@ def refine_msa(msa: Msa, mtx: np.ndarray, u: float, v: float, sh: int,
                     if c2 is None:
                         continue
                     wdw = stripe(c2["A"].length, c2["B"].length, sh)
+                    trace.COUNTS["refine.attempted"] += 1
                     s2, skl2 = group_align(c2["A"], c2["B"], mtx, u=u, v=v,
                                            wdw=wdw, pads=pads, spb=spb,
                                            device=device)
@@ -432,6 +433,7 @@ def refine_msa(msa: Msa, mtx: np.ndarray, u: float, v: float, sh: int,
             continue
         A, B = cand["A"], cand["B"]
         wdw = stripe(A.length, B.length, sh)
+        trace.COUNTS["refine.attempted"] += 1
         score_new, new_skl = group_align(A, B, mtx, u=u, v=v, wdw=wdw,
                                          pads=pads, spb=spb, device=device)
         accept, delta = evaluate(cand, score_new, new_skl)
@@ -485,17 +487,14 @@ def refine_with_consreg(msa: Msa, mtx: np.ndarray, u: float, v: float,
         return RefineResult(msa, None, 0, 0)
     if crand is None:
         crand = GlibcRand(1)
-    import os as _os
-    import time as _time
-    _prog = _os.environ.get("PRRN_PROGRESS") == "1"
-    _t0 = _time.time()
-    _refined = 0.0
-    d = msa_distance_matrix(msa.codes)
-    t = upgma(d, n)
-    pairwt, leaf_vol, vol, cur = calc_pair_weights(t, full=True)
-    work = Msa(codes=msa.codes.copy(), molc=msa.molc, names=list(msa.names),
-               weight=leaf_vol, tgapf=msa.tgapf, eij=msa.eij)
-    ranges = attack_ranges(work, t, mtx)
+    with trace.span("prrn.refine.tree"):
+        d = msa_distance_matrix(msa.codes)
+        t = upgma(d, n)
+        pairwt, leaf_vol, vol, cur = calc_pair_weights(t, full=True)
+        work = Msa(codes=msa.codes.copy(), molc=msa.molc,
+                   names=list(msa.names), weight=leaf_vol, tgapf=msa.tgapf,
+                   eij=msa.eij)
+        ranges = attack_ranges(work, t, mtx)
     improvements = iterations = 0
     for lo, hi in reversed(ranges):
         if hi - lo < 2:

@@ -16,13 +16,14 @@ so the kernels are compared bit for bit.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
+
+from ..utils import trace
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = (Path(__file__).resolve().parent.parent.parent / "build"
@@ -58,8 +59,9 @@ _SIGNATURES = {
 }
 
 _lib = None
-# launches of each kernel, counted by its wrapper where it launches
-LAUNCHES: collections.Counter = collections.Counter()
+# launches of each kernel, counted by its wrapper where it launches: the
+# tracer's counters, under the kernel's name
+LAUNCHES = trace.COUNTS
 
 
 def _nvcc() -> str:

@@ -41,6 +41,7 @@ import torch
 
 from ..msa.msa import Msa
 from ..msa import sshp as _sshp
+from ..utils import trace
 from . import _build
 from .frontier import gather_blocks, shard_block
 from .window import Window, stripe
@@ -603,15 +604,19 @@ def stack_inputs(items: list[dict], device) -> dict:
     """Stack per-pair packed inputs (``_pack_inputs``) into batched
     tensors on ``device``."""
     out = {}
-    for k in _FIELDS:
-        out[k] = torch.as_tensor(np.stack([it[k] for it in items]),
-                                 dtype=torch.float32, device=device)
-    for k in _IFIELDS:
-        out[k] = torch.as_tensor(np.array([it[k] for it in items]),
-                                 dtype=torch.int32, device=device)
-    for k in _FFIELDS:
-        out[k] = torch.as_tensor(np.array([it[k] for it in items]),
-                                 dtype=torch.float32, device=device)
+    with trace.span("prrn.group.pack"):
+        for k in _FIELDS:
+            out[k] = trace.h2d(torch.as_tensor(
+                np.stack([it[k] for it in items]), dtype=torch.float32,
+                device=device))
+        for k in _IFIELDS:
+            out[k] = trace.h2d(torch.as_tensor(
+                np.array([it[k] for it in items]), dtype=torch.int32,
+                device=device))
+        for k in _FFIELDS:
+            out[k] = trace.h2d(torch.as_tensor(
+                np.array([it[k] for it in items]), dtype=torch.float32,
+                device=device))
     return out
 
 
@@ -749,7 +754,7 @@ def wavefront_plan(ins: dict, *, nslot: int, ls3: bool = False,
     runs live (``cluster_shape``; the shared variant "shared16", the
     global and wide variants "device")."""
     ca, cb = member_counts(ins["wa"]), member_counts(ins["wb"])
-    host = torch.stack([ca, cb]).cpu().long()
+    host = trace.d2h(torch.stack([ca, cb])).long()
     an_max, bn_max = int(host[0].max()), int(host[1].max())
     la_max, lb_max = ins["CA"].shape[1], ins["CB"].shape[1]
     variant, smem = wavefront_variant(an_max, bn_max, nslot, la_max, lb_max,
@@ -812,10 +817,18 @@ def group_wavefront(ins: dict, *, nslot: int, nsteps: int,
     variant ``wavefront_plan`` picks by size (or ``variant``, and for
     the cluster variant ``ctas``).
     """
+    with trace.span("prrn.group.k2"):
+        if ins["CA"].device.type == "cpu":
+            return group_wavefront_ref(ins, nslot=nslot, nsteps=nsteps,
+                                       ls3=ls3, d0=d0, carry=carry)
+        return _launch_wavefront(ins, nslot, nsteps, ls3, d0, carry, variant,
+                                 ctas)
+
+
+def _launch_wavefront(ins, nslot, nsteps, ls3, d0, carry, variant, ctas):
+    """``group_wavefront`` on a CUDA device: K2's plan, operands and
+    launch."""
     dev = ins["CA"].device
-    if dev.type == "cpu":
-        return group_wavefront_ref(ins, nslot=nslot, nsteps=nsteps, ls3=ls3,
-                                   d0=d0, carry=carry)
     if dev.type != "cuda":
         raise ValueError(f"group_wavefront: unsupported device {dev}")
     if d0 < 0:
@@ -872,6 +885,7 @@ def group_wavefront(ins: dict, *, nslot: int, nsteps: int,
         plan["ctas"], RUN_BYTES[plan["runs"]], stream)
     _build.check(err, "group_wavefront_launch")
     _build.LAUNCHES["group_wavefront"] += 1
+    trace.COUNTS["k2.steps"] += nsteps
     return score, dirs, opens, out
 
 
@@ -1122,12 +1136,15 @@ def traceback(dirs: torch.Tensor, opens: torch.Tensor, La: torch.Tensor,
     variant ``plan`` gives (default: ``traceback_plan`` by size).
     """
     dev = dirs.device
-    if dev.type == "cpu":
-        return traceback_ref(dirs, opens, La, Lb, lw, max_iters=max_iters)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"traceback: unsupported device {dev}")
-    return _launch_walk(dirs, opens, {"m0": La, "n0": Lb, "lw": lw}, None,
-                        max_iters=max_iters, plan=plan, name="traceback")
+    with trace.span("prrn.group.k3"):
+        if dev.type == "cpu":
+            return traceback_ref(dirs, opens, La, Lb, lw,
+                                 max_iters=max_iters)
+        return _launch_walk(dirs, opens, {"m0": La, "n0": Lb, "lw": lw},
+                            None, max_iters=max_iters, plan=plan,
+                            name="traceback")
 
 
 def traceback_range(dirs: torch.Tensor, opens: torch.Tensor, m0, n0, lane0,
@@ -1140,18 +1157,19 @@ def traceback_range(dirs: torch.Tensor, opens: torch.Tensor, m0, n0, lane0,
     int8 end to start and counts (B,) int32.  CPU tensors take the plain
     version; CUDA tensors launch the kernel as ``traceback`` does."""
     dev = dirs.device
-    if dev.type == "cpu":
-        return traceback_range_ref(dirs, opens, m0, n0, lane0, d_lo, lw,
-                                   max_iters=max_iters)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"traceback_range: unsupported device {dev}")
-    ends = tuple(torch.empty(dirs.shape[0], dtype=torch.int32, device=dev)
-                 for _ in range(3))
-    moves, cnts = _launch_walk(
-        dirs, opens, {"m0": m0, "n0": n0, "lane0": lane0, "d_lo": d_lo,
-                      "lw": lw}, ends, max_iters=max_iters, plan=plan,
-        name="traceback_range")
-    return (*ends, moves, cnts)
+    with trace.span("prrn.group.k3"):
+        if dev.type == "cpu":
+            return traceback_range_ref(dirs, opens, m0, n0, lane0, d_lo, lw,
+                                       max_iters=max_iters)
+        ends = tuple(torch.empty(dirs.shape[0], dtype=torch.int32,
+                                 device=dev) for _ in range(3))
+        moves, cnts = _launch_walk(
+            dirs, opens, {"m0": m0, "n0": n0, "lane0": lane0, "d_lo": d_lo,
+                          "lw": lw}, ends, max_iters=max_iters, plan=plan,
+            name="traceback_range")
+        return (*ends, moves, cnts)
 
 
 def traceback_attrs(variant: str) -> dict:
@@ -1164,8 +1182,9 @@ def traceback_attrs(variant: str) -> dict:
 
 
 def _skls(moves: torch.Tensor, cnts: torch.Tensor, las, lbs) -> list:
-    moves = moves.cpu().numpy()
-    cnts = cnts.cpu().numpy()
+    moves = trace.d2h(moves).numpy()
+    cnts = trace.d2h(cnts).numpy()
+    trace.COUNTS["k3.moves"] += int(cnts.sum())
     return [_moves_to_skl(moves[k, :cnts[k]][::-1], int(las[k]),
                           int(lbs[k])) for k in range(moves.shape[0])]
 
@@ -1177,11 +1196,12 @@ def _pack_inputs(A: Msa, B: Msa, mtx, u, v, wdw, pa, pb, la_max, lb_max,
     the image is built next to the DP).  ``uniform``: collapse a gap-free
     side to one member (``uniform_side``), as ``group_align`` does and
     ``group_align_linear`` does not."""
-    CA, CB, ea0, eb0 = _pack_profiles(A, B, mtx, la_max, lb_max,
-                                      spb=spb, scale=scale)
-    cols = _pack_cols(A, B, pa, pb, la_max, lb_max,
-                      ua=uniform and uniform_side(A),
-                      ub=uniform and uniform_side(B))
+    with trace.span("prrn.group.pack"):
+        CA, CB, ea0, eb0 = _pack_profiles(A, B, mtx, la_max, lb_max,
+                                          spb=spb, scale=scale)
+        cols = _pack_cols(A, B, pa, pb, la_max, lb_max,
+                          ua=uniform and uniform_side(A),
+                          ub=uniform and uniform_side(B))
     ls3 = ls >= 3
     item = dict(zip(_FIELDS, (CA, CB, ea0, eb0, *cols)))
     item.update(la=A.length, lb=B.length, lw=wdw.lw, up=wdw.up,
@@ -1202,7 +1222,8 @@ def _align_items(items, nslot, nsteps, la_max, lb_max, ls3, device):
                             max_iters=max_iters)
     las = [it["la"] for it in items]
     lbs = [it["lb"] for it in items]
-    return score.cpu().numpy(), _skls(moves, cnts, las, lbs)
+    with trace.span("prrn.group.fetch"):
+        return trace.d2h(score).numpy(), _skls(moves, cnts, las, lbs)
 
 
 def group_align(A: Msa, B: Msa, mtx: np.ndarray, u: float, v: float,
@@ -1370,6 +1391,8 @@ def group_align_linear(A: Msa, B: Msa, mtx, u: float, v: float,
         m, n, lane, moves, cnt = traceback_range(
             dirs, opens, m, n, lane, ints(d_lo), lw, max_iters=max_iters)
         del dirs, opens
-        pieces.append(moves[0, :int(cnt[0])].cpu().numpy())
+        walked = int(cnt[0])
+        trace.COUNTS["k3.moves"] += walked
+        pieces.append(trace.d2h(moves[0, :walked]).numpy())
     moves = np.concatenate(pieces)[::-1] if pieces else np.empty(0)
     return final_score, _moves_to_skl(moves, La, Lb)

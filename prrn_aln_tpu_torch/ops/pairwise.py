@@ -32,6 +32,7 @@ import os
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import _build
 
 NEG_SENT = -(2 ** 31 // 8) * 7.0    # reference NEG_INT
@@ -212,6 +213,8 @@ def row_scores_ref(a_batch, b_batch, la, lb, lw, up, mtx, u, v, tgapf,
 
 def _per_pair(x, B: int, dtype, device) -> torch.Tensor:
     t = torch.as_tensor(x, dtype=dtype, device=device)
+    if not (isinstance(x, torch.Tensor) and x.device == t.device):
+        trace.h2d(t)
     return t.expand(B).contiguous() if t.dim() == 0 else t
 
 

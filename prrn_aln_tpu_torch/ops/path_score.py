@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..msa.msa import Msa
+from ..utils import trace
 from .group_np import _col_arrays
 
 
@@ -37,56 +38,61 @@ def skl_to_moves(skl):
 def score_path(A: Msa, B: Msa, mtx: np.ndarray, skl, u: float, v: float,
                scale: float = 1.0) -> float:
     """DP-model score of the alignment defined by ``skl``."""
-    an, bn = A.many, B.many
-    wa = (A.weight if A.weight is not None else np.ones(an)).astype(np.float64)
-    wb = (B.weight if B.weight is not None else np.ones(bn)).astype(np.float64)
-    GOP = -scale * v
+    with trace.span("prrn.score_path"):
+        an, bn = A.many, B.many
+        wa = (A.weight if A.weight is not None
+              else np.ones(an)).astype(np.float64)
+        wb = (B.weight if B.weight is not None
+              else np.ones(bn)).astype(np.float64)
+        GOP = -scale * v
 
-    S = np.einsum("mc,cd,nd->mn", A.freq.astype(np.float64),
-                  mtx.astype(np.float64), B.freq.astype(np.float64))
-    na, gda, pga = _col_arrays(A)
-    nb, gdb, pgb = _col_arrays(B)
-    cfa, efa = A.cfq[:A.length + 1], A.efq[:A.length + 1]
-    cfb, efb = B.cfq[:B.length + 1], B.efq[:B.length + 1]
+        S = np.einsum("mc,cd,nd->mn", A.freq.astype(np.float64),
+                      mtx.astype(np.float64), B.freq.astype(np.float64))
+        na, gda, pga = _col_arrays(A)
+        nb, gdb, pgb = _col_arrays(B)
+        cfa, efa = A.cfq[:A.length + 1], A.efq[:A.length + 1]
+        cfb, efb = B.cfq[:B.length + 1], B.efq[:B.length + 1]
 
-    gla = np.zeros(an, np.int64)
-    glb = np.zeros(bn, np.int64)
-    agap = ~(na.astype(bool))
-    bgap = ~(nb.astype(bool))
+        gla = np.zeros(an, np.int64)
+        glb = np.zeros(bn, np.int64)
+        agap = ~(na.astype(bool))
+        bgap = ~(nb.astype(bool))
 
-    def crg(mcol, ncol, d3):
-        ge = gla[:, None] >= glb[None, :]
-        if d3 == 0:
+        def crg(mcol, ncol, d3):
+            ge = gla[:, None] >= glb[None, :]
+            if d3 == 0:
+                le = glb[None, :] >= gla[:, None]
+                t1 = ((wa * na[mcol])[:, None] * ge *
+                      (wb * gdb[ncol])[None, :]).sum()
+                t2 = ((wa * gda[mcol])[:, None] * le *
+                      (wb * nb[ncol])[None, :]).sum()
+                return (t1 + t2) * GOP
+            if d3 > 0:
+                return ((wa * na[mcol])[:, None] * ge *
+                        (wb * pgb[ncol])[None, :]).sum() * GOP
             le = glb[None, :] >= gla[:, None]
-            t1 = ((wa * na[mcol])[:, None] * ge * (wb * gdb[ncol])[None, :]).sum()
-            t2 = ((wa * gda[mcol])[:, None] * le * (wb * nb[ncol])[None, :]).sum()
-            return (t1 + t2) * GOP
-        if d3 > 0:
-            return ((wa * na[mcol])[:, None] * ge *
-                    (wb * pgb[ncol])[None, :]).sum() * GOP
-        le = glb[None, :] >= gla[:, None]
-        return ((wa * pga[mcol])[:, None] * le *
-                (wb * nb[ncol])[None, :]).sum() * GOP
+            return ((wa * pga[mcol])[:, None] * le *
+                    (wb * nb[ncol])[None, :]).sum() * GOP
 
-    total = 0.0
-    m = n = 0
-    for mv in skl_to_moves(skl):
-        if mv == 0:
-            mcol, ncol = m + 1, n + 1
-            total += S[m, n] + crg(mcol, ncol, 0)
-            gla = np.where(agap[mcol], gla + 1, 0)
-            glb = np.where(bgap[ncol], glb + 1, 0)
-            m, n = m + 1, n + 1
-        elif mv == 1:
-            mcol, ncol = m + 1, n
-            total += crg(mcol, ncol, +1) + cfa[mcol] * efb[ncol] * -u
-            gla = np.where(agap[mcol], gla + 1, 0)
-            glb = glb + 1
-            m += 1
-        else:
-            mcol, ncol = m, n + 1
-            total += crg(mcol, ncol, -1) + cfb[ncol] * efa[mcol] * -u
-            gla = gla + 1
-            glb = np.where(bgap[ncol], glb + 1, 0)
-            n += 1
-    return float(total)
+        total = 0.0
+        m = n = 0
+        for mv in skl_to_moves(skl):
+            if mv == 0:
+                mcol, ncol = m + 1, n + 1
+                total += S[m, n] + crg(mcol, ncol, 0)
+                gla = np.where(agap[mcol], gla + 1, 0)
+                glb = np.where(bgap[ncol], glb + 1, 0)
+                m, n = m + 1, n + 1
+            elif mv == 1:
+                mcol, ncol = m + 1, n
+                total += crg(mcol, ncol, +1) + cfa[mcol] * efb[ncol] * -u
+                gla = np.where(agap[mcol], gla + 1, 0)
+                glb = glb + 1
+                m += 1
+            else:
+                mcol, ncol = m, n + 1
+                total += crg(mcol, ncol, -1) + cfb[ncol] * efa[mcol] * -u
+                gla = gla + 1
+                glb = np.where(bgap[ncol], glb + 1, 0)
+                n += 1
+        return float(total)

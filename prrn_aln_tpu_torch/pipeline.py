@@ -32,6 +32,7 @@ from .msa.progressive import (align_pair, progressive_msa,
                               progressive_msa_forest)
 from .msa.refine import refine_msa, refine_with_consreg
 from .msa.sigii import eij_from_exons
+from .utils import trace
 from .utils.crand import GlibcRand
 from .utils.runstat import runstat
 
@@ -64,28 +65,32 @@ def build_msa(records: list[SeqRecord], params: AlnParams | None = None,
                                       group=group, nbatch=nbatch,
                                       divmode=divmode, device=device)
 
-    d = distance.distance_matrix(seqs, mtx, u=params.u, v=params.v,
-                                 sh=params.sh, group=group, device=device)
+    with trace.span("prrn.distance"):
+        d = distance.distance_matrix(seqs, mtx, u=params.u, v=params.v,
+                                     sh=params.sh, group=group, device=device)
     t = tree.upgma(d, len(seqs))
 
     leaves = [single(s, molc, n, eij=e)
               for s, n, e in zip(seqs, names, exlist)]
-    msa = progressive_msa(leaves, t, mtx, u=params.u, v=params.v,
-                          sh=params.sh, spb=params.spb, device=device)
+    with trace.span("prrn.progressive"):
+        msa = progressive_msa(leaves, t, mtx, u=params.u, v=params.v,
+                              sh=params.sh, spb=params.spb, device=device)
     if refine and msa.many > 2:
         crand = GlibcRand(1)
-        if local_thr > 0:
-            res = refine_with_consreg(msa, mtx, u=params.u, v=params.v,
-                                      sh=params.sh, maxitr=maxitr,
-                                      randseed=randseed, crand=crand,
-                                      spb=params.spb, nbatch=nbatch,
-                                      group=group, divmode=divmode,
-                                      device=device)
-        else:
-            res = refine_msa(msa, mtx, u=params.u, v=params.v, sh=params.sh,
-                             maxitr=maxitr, randseed=randseed, crand=crand,
-                             spb=params.spb, nbatch=nbatch, group=group,
-                             divmode=divmode, device=device)
+        with trace.span("prrn.refine"):
+            if local_thr > 0:
+                res = refine_with_consreg(msa, mtx, u=params.u, v=params.v,
+                                          sh=params.sh, maxitr=maxitr,
+                                          randseed=randseed, crand=crand,
+                                          spb=params.spb, nbatch=nbatch,
+                                          group=group, divmode=divmode,
+                                          device=device)
+            else:
+                res = refine_msa(msa, mtx, u=params.u, v=params.v,
+                                 sh=params.sh, maxitr=maxitr,
+                                 randseed=randseed, crand=crand,
+                                 spb=params.spb, nbatch=nbatch, group=group,
+                                 divmode=divmode, device=device)
         msa = res.msa
     return msa
 
