@@ -46,8 +46,22 @@ def score_path(A: Msa, B: Msa, mtx: np.ndarray, skl, u: float, v: float,
               else np.ones(bn)).astype(np.float64)
         GOP = -scale * v
 
-        S = np.einsum("mc,cd,nd->mn", A.freq.astype(np.float64),
-                      mtx.astype(np.float64), B.freq.astype(np.float64))
+        # the profile products at the path's diagonal moves alone, in path
+        # order, by the whole La x Lb image's three-operand einsum (no
+        # optimize, no factoring), so that each sums over (c, d) in the
+        # image's order: the refinement accepts a candidate on this
+        # score, and one ulp would change the alignment
+        moves = skl_to_moves(skl)
+        steps = np.asarray(moves, np.int64)
+        advm, advn = steps != 2, steps != 1
+        diag = steps == 0
+        dm = (np.cumsum(advm) - advm)[diag]
+        dn = (np.cumsum(advn) - advn)[diag]
+        sdiag = np.einsum("kc,cd,kd->k", A.freq[dm].astype(np.float64),
+                          mtx.astype(np.float64),
+                          B.freq[dn].astype(np.float64))
+        trace.COUNTS["score_path.cells"] += len(sdiag)
+
         na, gda, pga = _col_arrays(A)
         nb, gdb, pgb = _col_arrays(B)
         cfa, efa = A.cfq[:A.length + 1], A.efq[:A.length + 1]
@@ -75,11 +89,12 @@ def score_path(A: Msa, B: Msa, mtx: np.ndarray, skl, u: float, v: float,
                     (wb * nb[ncol])[None, :]).sum() * GOP
 
         total = 0.0
-        m = n = 0
-        for mv in skl_to_moves(skl):
+        m = n = j = 0
+        for mv in moves:
             if mv == 0:
                 mcol, ncol = m + 1, n + 1
-                total += S[m, n] + crg(mcol, ncol, 0)
+                total += sdiag[j] + crg(mcol, ncol, 0)
+                j += 1
                 gla = np.where(agap[mcol], gla + 1, 0)
                 glb = np.where(bgap[ncol], glb + 1, 0)
                 m, n = m + 1, n + 1
